@@ -1,10 +1,13 @@
-"""High-level World API (subset) for the contact-only slice.
+"""High-level World API (subset).
 
-Port of the part of box2d_tpu/api.py's World that the main path uses:
-`create_body`, `create_polygon_shape`, `compile`, `step`, `run`,
-`body_position`, `body_linear_velocity` and `state`. The device is chosen
-once, at construction (`World(device="cuda")`), and every tensor of the
-world lives there. `run` is a plain Python loop over steps.
+Port of the part of box2d_tpu/api.py's World that the main paths use:
+`create_body`, `create_polygon_shape`, `create_circle_shape`,
+`create_capsule_shape`, `create_joint`, `compile`, `step`, `run`, `body_position`, `body_linear_velocity` and `state`. The
+device is chosen once, at construction: the card (`"cuda"`) unless the
+caller names another, as the CPU tests do with `World(device="cpu")`.
+Without a CUDA device the default raises when the world is compiled; there
+is no quiet move to the CPU. Every tensor of the world lives on that
+device. `run` is a plain Python loop over steps.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from . import geometry as g
 from . import math2d as m
 from . import types as t
 from .builder import WorldBuilder
+from .joints import joint_types_present
 from .narrowphase import classes_for_shape_types
 from .state import Capacity, WorldState
 from .world import Step, StepStats, make_step
@@ -25,7 +29,7 @@ class World:
     """A scene wrapper around the functional step."""
 
     def __init__(self, def_: t.WorldDef | None = None, substeps: int = 4,
-                 device="cpu"):
+                 device="cuda"):
         self.builder = WorldBuilder(def_)
         self.substeps = substeps
         self.device = torch.device(device)
@@ -42,20 +46,33 @@ class World:
         self._building()
         return self.builder.create_shape(body, def_, geom)
 
+    def create_circle_shape(self, body, def_, center, radius) -> int:
+        return self.create_polygon_shape(body, def_, g.circle(center, radius))
+
+    def create_capsule_shape(self, body, def_, p1, p2, radius) -> int:
+        return self.create_polygon_shape(body, def_,
+                                         g.capsule(p1, p2, radius))
+
+    def create_joint(self, def_) -> int:
+        self._building()
+        return self.builder.create_joint(def_)
+
     def _building(self):
         if self.state is not None:
             raise NotImplementedError(
-                "creating entities after compile(): ROADMAP.md queue 12 "
+                "creating entities after compile(): ROADMAP.md queue 11 "
                 "(host API)")
 
     def compile(self, capacity: Capacity | None = None):
         if any(s["is_sensor"] for s in self.builder._shapes):
-            raise NotImplementedError("sensors: ROADMAP.md queue 9")
+            raise NotImplementedError("sensors: ROADMAP.md queue 10")
         self.state, self.capacity = self.builder.build(capacity, self.device)
         classes = classes_for_shape_types(
             s["geom"].type for s in self.builder._shapes)
+        jtypes = joint_types_present(j["_type"] for j in self.builder._joints)
         self._step = make_step(self.capacity, classes, self.substeps,
-                               continuous=self.builder.def_.enable_continuous)
+                               continuous=self.builder.def_.enable_continuous,
+                               joint_types=jtypes)
         return self
 
     def step(self, dt: float = 1.0 / 60.0) -> WorldState:

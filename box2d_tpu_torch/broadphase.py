@@ -199,7 +199,7 @@ def _repair_pairs(state: WorldState, cap: Capacity, bp, cache, fat_t,
     if cap.has_filters:
         new_ok = new_ok & _group_pass(sh, lo.long(), hi.long())
     if cap.has_joint_exclusions:
-        raise NotImplementedError("joint exclusions: ROADMAP.md queue 10")
+        new_ok = new_ok & ~_joint_excluded(state, lo, hi)
 
     free_lanes, free_ok = _compact_ids(~valid2, NEW)
     slot_ok = new_ok & free_ok
@@ -224,6 +224,28 @@ def _repair_pairs(state: WorldState, cap: Capacity, bp, cache, fat_t,
     return (sa2, sb2, valid3, count2, ovf_repair.to(torch.int32),
             fat_new, cache2, orphan,
             torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _joint_excluded(state: WorldState, shape_lo, shape_hi):
+    """(N,) pairs whose two bodies are joined by an enabled joint with
+    collide_connected == False (ref: src/Joint.cs:293). The JAX code
+    compares every pair with every joint, an (N, J) boolean; here the
+    unordered body pair is one int64 key looked up in the sorted joint
+    keys, which admits the same set."""
+    j = state.joints
+    nb = state.bodies.center.shape[0]
+    body_of = state.shapes.body
+    ba = body_of[shape_lo.long()].long()
+    bb = body_of[shape_hi.long()].long()
+    key = torch.minimum(ba, bb) * nb + torch.maximum(ba, bb)
+    ja, jb = j.body_a.long(), j.body_b.long()
+    jex = j.enabled & ~j.collide_connected & (j.body_a >= 0)
+    jkey = torch.where(jex, torch.minimum(ja, jb) * nb + torch.maximum(ja, jb),
+                       -1)
+    jsorted = torch.sort(jkey).values
+    pos = torch.clamp(torch.searchsorted(jsorted, key),
+                      max=jsorted.shape[0] - 1)
+    return jsorted[pos] == key
 
 
 def _group_pass(sh, ia, ib):
@@ -461,7 +483,7 @@ def find_pairs(state: WorldState, cap: Capacity, aabbs) -> PairBuffer:
     if cap.has_filters:
         pair_valid = pair_valid & _group_pass(sh, shape_a, shape_b)
     if cap.has_joint_exclusions:
-        raise NotImplementedError("joint exclusions: ROADMAP.md queue 10")
+        pair_valid = pair_valid & ~_joint_excluded(state, shape_a, shape_b)
 
     overflow = (overflow_shapes + overflow_big
                 + torch.clamp(count - P, min=0)).to(torch.int32)

@@ -1,11 +1,12 @@
 """Host-side scene builder: accumulate bodies and shapes, freeze to tensors.
 
-Port of box2d_tpu/builder.py for the contact-only slice. Scene data is
+Port of box2d_tpu/builder.py: bodies, shapes and joints. Scene data is
 gathered eagerly in NumPy with exactly the JAX builder's arithmetic and
 capacity sizing (box2d_tpu/builder.py:156-179), then uploaded once as a
-torch WorldState on the requested device, so both builders produce the same
-state leaves bit for bit. Chains, joints and particles belong to later
-slices and raise NotImplementedError naming their ROADMAP.md item.
+torch WorldState on the requested device ("cuda" unless the caller names
+another), so both builders produce the same state leaves bit for bit.
+Chains and particles belong to later slices and raise NotImplementedError
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 from . import geometry as g
 from . import types as t
 from .state import (ALLOW_FAST_ROTATION, DYNAMIC, ENABLE_SLEEP, IS_BULLET,
+                    JOINT_DISTANCE, JOINT_MOUSE, JOINT_PRISMATIC,
+                    JOINT_REVOLUTE, JOINT_WELD, JOINT_WHEEL,
                     LOCK_ANGULAR_Z, LOCK_LINEAR_X, LOCK_LINEAR_Y, Bodies,
                     Capacity, Joints, Shapes, Tuning, WorldState,
                     zero_broadphase, zero_events, zero_profile)
@@ -91,14 +94,15 @@ class WorldBuilder:
 
     def create_chain(self, body: int, def_) -> list[int]:
         raise NotImplementedError(
-            "chain shapes: ROADMAP.md queue 9 (CCD, sensors and queries)")
+            "chain shapes: ROADMAP.md queue 10 (CCD, sensors and queries)")
 
     def create_joint(self, def_) -> int:
-        raise NotImplementedError("joints: ROADMAP.md queue 10 (joints, K2j)")
+        self._joints.append(dataclasses.asdict(def_) | {"_type": def_._type})
+        return len(self._joints) - 1
 
     def create_particle_system(self, radius: float, density: float = 1.0):
         raise NotImplementedError(
-            "particles: ROADMAP.md queue 11 (particles, K3 and K4)")
+            "particles: ROADMAP.md queue 9 (particles, K3 and K4)")
 
     def _accumulate_mass(self, body: int, geom: g.ShapeGeom, density: float):
         """ref: src/Body.cs:255-353."""
@@ -137,7 +141,7 @@ class WorldBuilder:
         )
 
     def build(self, capacity: Capacity | None = None,
-              device="cpu") -> tuple[WorldState, Capacity]:
+              device="cuda") -> tuple[WorldState, Capacity]:
         nb = len(self._bodies)
         ns = len(self._shapes)
         nj = len(self._joints)
@@ -162,7 +166,9 @@ class WorldBuilder:
                 or int(s["filter_mask"]) != 0xFFFFFFFF
                 or int(s["filter_group"]) != 0
                 for s in self._shapes),
-            has_joint_exclusions=False)
+            has_joint_exclusions=any(
+                not j.get("collide_connected", False)
+                for j in self._joints))
         Nb, S, J = capacity.max_bodies, capacity.max_shapes, capacity.max_joints
         if nb > Nb or ns > S or nj > J:
             raise ValueError(f"{nb} bodies / {ns} shapes / {nj} joints do "
@@ -322,7 +328,7 @@ class WorldBuilder:
         state = WorldState(
             bodies=bodies, shapes=shapes,
             contacts=empty_cache(capacity.max_contact_pairs, device),
-            joints=_empty_joints(J, up), tuning=tuning,
+            joints=self._build_joints(J, up), tuning=tuning,
             events=zero_events(capacity, device),
             profile=zero_profile(device),
             sensor_overlap=up(np.full(capacity.sensor_pair_capacity, -1,
@@ -333,38 +339,98 @@ class WorldBuilder:
         )
         return state, capacity
 
+    def _build_joints(self, J: int, up) -> Joints:
+        """Convert v2-style defs (anchor/axis/reference-angle) to the v3
+        frame representation (ref: include/Types.cs:440-441 localFrameA/B),
+        with the arithmetic of box2d_tpu/builder.py:394-483."""
 
-def _empty_joints(J: int, up) -> Joints:
-    """J joint lanes with no live joint, holding the same defaults as the
-    JAX builder's _build_joints for unused lanes."""
-    def full(v, dtype=np.float32, shape=()):
-        return up(np.full((J,) + shape, v, dtype))
+        def col(key, default=0.0, dtype=np.float32, shape=()):
+            out = np.full((J,) + shape, default, dtype)
+            for i, j in enumerate(self._joints):
+                if key in j and j[key] is not None:
+                    out[i] = j[key]
+            return out
 
-    q = np.zeros((J, 2), np.float32)
-    q[:, 0] = 1.0
-    z2 = np.zeros((J, 2), np.float32)
-    return Joints(
-        type=full(-1, np.int32), enabled=full(False, bool),
-        body_a=full(-1, np.int32), body_b=full(-1, np.int32),
-        frame_a_p=up(z2), frame_a_q=up(q), frame_b_p=up(z2.copy()),
-        frame_b_q=up(q.copy()),
-        collide_connected=full(False, bool),
-        constraint_hertz=full(60.0), constraint_damping_ratio=full(2.0),
-        hertz=full(0.0), damping_ratio=full(0.0),
-        enable_spring=full(False, bool), enable_limit=full(False, bool),
-        enable_motor=full(False, bool),
-        lower=full(0.0), upper=full(0.0), motor_speed=full(0.0),
-        max_motor_force=full(0.0), length=full(1.0),
-        lower_spring_force=full(-3.4e38), upper_spring_force=full(3.4e38),
-        spring_target=full(0.0), angular_hertz=full(0.0),
-        angular_damping_ratio=full(0.0),
-        linear_velocity=full(0.0, shape=(2,)), angular_velocity=full(0.0),
-        max_velocity_force=full(0.0), max_velocity_torque=full(0.0),
-        max_spring_force=full(0.0), max_spring_torque=full(0.0),
-        force_threshold=full(3.4e38), torque_threshold=full(3.4e38),
-        color=full(-1, np.int32),
-        impulse=full(0.0, shape=(2,)), spring_impulse=full(0.0),
-        spring_impulse2=full(0.0, shape=(2,)), motor_impulse=full(0.0),
-        lower_impulse=full(0.0), upper_impulse=full(0.0),
-        angular_impulse=full(0.0),
-    )
+        def z(shape=()):
+            return up(np.zeros((J,) + shape, np.float32))
+
+        fa_p = np.zeros((J, 2), np.float32)
+        fb_p = np.zeros((J, 2), np.float32)
+        fa_q = np.zeros((J, 2), np.float32)
+        fb_q = np.zeros((J, 2), np.float32)
+        fa_q[:, 0] = 1.0
+        fb_q[:, 0] = 1.0
+        lower = np.zeros(J, np.float32)
+        upper = np.zeros(J, np.float32)
+        max_motor = np.zeros(J, np.float32)
+        spring_target = np.zeros(J, np.float32)
+        for i, j in enumerate(self._joints):
+            ty = j["_type"]
+            fa_p[i] = j.get("local_anchor_a", (0.0, 0.0))
+            fb_p[i] = j.get("local_anchor_b", (0.0, 0.0))
+            ref = float(j.get("reference_angle", 0.0) or 0.0)
+            if ty in (JOINT_PRISMATIC, JOINT_WHEEL):
+                ax, ay = j.get("local_axis_a", (1.0, 0.0))
+                aang = math.atan2(ay, ax)
+                fa_q[i] = (math.cos(aang), math.sin(aang))
+                fb_q[i] = (math.cos(aang - ref), math.sin(aang - ref))
+                lower[i] = j.get("lower_translation", 0.0) or 0.0
+                upper[i] = j.get("upper_translation", 0.0) or 0.0
+                spring_target[i] = j.get("target_translation", 0.0) or 0.0
+            elif ty in (JOINT_REVOLUTE, JOINT_WELD):
+                fa_q[i] = (math.cos(ref), math.sin(ref))
+                lower[i] = j.get("lower_angle", 0.0) or 0.0
+                upper[i] = j.get("upper_angle", 0.0) or 0.0
+                spring_target[i] = j.get("target_angle", 0.0) or 0.0
+            elif ty == JOINT_DISTANCE:
+                lower[i] = max(j.get("min_length", 0.0) or 0.0, 0.005)
+                upper[i] = j.get("max_length", 1e5) or 1e5
+            elif ty == JOINT_MOUSE:
+                fa_p[i] = j.get("target", (0.0, 0.0))
+            max_motor[i] = (j.get("max_motor_force", 0.0) or 0.0) + (
+                j.get("max_motor_torque", 0.0) or 0.0)
+
+        c = lambda *a, **kw: up(col(*a, **kw))
+        return Joints(
+            type=c("_type", -1, np.int32),
+            enabled=up(np.arange(J) < len(self._joints)),
+            body_a=c("body_a", -1, np.int32),
+            body_b=c("body_b", -1, np.int32),
+            frame_a_p=up(fa_p), frame_a_q=up(fa_q),
+            frame_b_p=up(fb_p), frame_b_q=up(fb_q),
+            collide_connected=c("collide_connected", False, bool),
+            constraint_hertz=c("constraint_hertz", 60.0),
+            constraint_damping_ratio=c("constraint_damping_ratio", 2.0),
+            hertz=c("hertz"),
+            damping_ratio=c("damping_ratio"),
+            enable_spring=c("enable_spring", False, bool),
+            enable_limit=c("enable_limit", False, bool),
+            enable_motor=c("enable_motor", False, bool),
+            lower=up(lower),
+            upper=up(upper),
+            motor_speed=c("motor_speed"),
+            max_motor_force=up(max_motor),
+            length=c("length", 1.0),
+            lower_spring_force=c("lower_spring_force", -3.4e38),
+            upper_spring_force=c("upper_spring_force", 3.4e38),
+            spring_target=up(spring_target),
+            angular_hertz=c("angular_hertz"),
+            angular_damping_ratio=c("angular_damping_ratio"),
+            linear_velocity=c("linear_velocity", 0.0, np.float32, (2,)),
+            angular_velocity=c("angular_velocity"),
+            max_velocity_force=up(col("max_velocity_force")
+                                  + col("max_force")),
+            max_velocity_torque=c("max_velocity_torque"),
+            max_spring_force=c("max_spring_force"),
+            max_spring_torque=c("max_spring_torque"),
+            force_threshold=c("force_threshold", 3.4e38),
+            torque_threshold=c("torque_threshold", 3.4e38),
+            color=up(np.full(J, -1, np.int32)),
+            impulse=z((2,)),
+            spring_impulse=z(),
+            spring_impulse2=z((2,)),
+            motor_impulse=z(),
+            lower_impulse=z(),
+            upper_impulse=z(),
+            angular_impulse=z(),
+        )

@@ -1,10 +1,12 @@
-"""The contact solver kernel (CUDA) and its plain-PyTorch twin.
+"""The solver kernel (CUDA) and its plain-PyTorch twin.
 
 `contact_solve` runs the whole TGS-soft substep pipeline of one world in
-one launch of csrc/contact_solver.cu. It replaces the two Pallas TPU kernels
-that compute this pipeline, `solver_pallas._solver_kernel` (mode 1) and the
-contact branch of `solver_pallas._tiled_kernel` (mode 2); the source file's
-header says what bounds it on the card and what its design does about it.
+one launch of csrc/contact_solver.cu. It replaces the Pallas TPU kernels
+that compute this pipeline: `solver_pallas._solver_kernel` (mode 1), the
+contact branch of `solver_pallas._tiled_kernel` (mode 2) and, when the
+call carries a joint region, the joint sweep `solver_pallas._joint_sweep`
+(csrc/joint_sweep.cuh). The source files' headers say what bounds them on
+the card and what their design does about it.
 
 The arrays at the boundary are mode 1's own layout, so the same tensors can
 feed box2d_tpu.solver_pallas.run_solver_kernel in the tests:
@@ -15,7 +17,10 @@ feed box2d_tpu.solver_pallas.run_solver_kernel in the tests:
   nsub substeps; color bucket c owns lanes [c*chunk, (c+1)*chunk) for
   c < n_colors; lanes [l0, L) are the overflow tail. Buckets at or above
   n_colors must be empty.
-Every window (bucket or tail) is a Jacobi window: its lanes read the body
+  joints (optional): joints.JointRows, the joint region. Its lanes are
+  sorted by color; color c owns lanes [offsets[c], offsets[c + 1]) and is
+  swept just ahead of contact bucket c in every stage but restitution.
+Every window (bucket, joint segment or tail) is a Jacobi window: its lanes read the body
 state at the window's start, then the velocity deltas of dynamic endpoints
 are summed in. Mode 1 sweeps the tail as chunk-wide windows in sequence, so
 it agrees with this when the live tail lanes fit in the first chunk.
@@ -33,6 +38,8 @@ import time
 
 import torch
 
+from .joints import NAJ, NFJ, JointRows, joint_window
+
 NF = 33
 NA = 9
 _F = dict(
@@ -47,18 +54,22 @@ _F = dict(
     relax=32,
 )
 
-# kernel launches made by contact_solve (the twin does not count)
+# kernel launches made by contact_solve (the twin does not count), and how
+# many of them carried a joint region (the joint sweep ran on the card)
 LAUNCHES = 0
+JOINT_LAUNCHES = 0
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "contact_solver.cu")
+JOINT_SOURCE = os.path.join(_HERE, "csrc", "joint_sweep.cuh")
 BUILD_DIR = os.path.join(_HERE, "_build")
 _LIB = None
 BUILD_SECONDS = None   # wall time of this process's nvcc build
 
 
 def build() -> ctypes.CDLL:
-    """Compile csrc/contact_solver.cu for sm_90a into _build/ (once per
+    """Compile csrc/contact_solver.cu (which includes joint_sweep.cuh) for
+    sm_90a into _build/ (once per
     process) with $CUDA_HOME/bin/nvcc (default /usr/local/cuda) and load
     it. Raises if nvcc fails."""
     global _LIB, BUILD_SECONDS
@@ -89,18 +100,30 @@ def build() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fnj = lib.b2t_contact_solve_joints
+    fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fnj.restype = ctypes.c_int
     lib.ptxas_log = proc.stderr
     _LIB = lib
     return lib
 
 
-def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors):
+def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
+           joints=None):
     dev = body.device
     L = data.shape[1]
     nb = body.shape[1]
     want = [(scalars, (1, 8), torch.float32), (idx, (2, L), torch.int32),
             (data, (NF, L), torch.float32), (acc, (NA, L), torch.float32),
             (body, (8, nb), torch.float32), (params, (12, nb), torch.float32)]
+    if joints is not None:
+        lj = joints.data.shape[1]
+        want += [(joints.idx, (2, lj), torch.int32),
+                 (joints.data, (NFJ, lj), torch.float32),
+                 (joints.acc, (NAJ, lj), torch.float32),
+                 (joints.type, (lj,), torch.int32),
+                 (joints.offsets, (n_colors + 1,), torch.int32)]
     for t, shape, dtype in want:
         if t.device != dev:
             raise ValueError(f"all tensors must be on {dev}, got {t.device}")
@@ -115,35 +138,55 @@ def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors):
 
 
 def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
-                  chunk: int, l0: int, n_colors: int):
-    """Run the solver pipeline; returns (body (8, Nb), acc (NA, L))."""
-    _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors)
+                  chunk: int, l0: int, n_colors: int,
+                  joints: JointRows | None = None):
+    """Run the solver pipeline; returns (body (8, Nb), acc (NA, L)), and
+    the joint accumulators (NAJ, LJ) as a third value when `joints` is
+    given."""
+    _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
+           joints)
     if body.device.type == "cpu":
         return contact_solve_reference(scalars, idx, data, acc, body,
-                                       params, nsub, chunk, l0, n_colors)
+                                       params, nsub, chunk, l0, n_colors,
+                                       joints)
     if body.device.type != "cuda":
         raise ValueError(f"contact_solve: unsupported device {body.device}")
-    global LAUNCHES
+    global LAUNCHES, JOINT_LAUNCHES
     lib = build()
     L = data.shape[1]
     nb = body.shape[1]
-    scratch_w = max(chunk, L - l0, 1)
+    lj = 0 if joints is None else joints.data.shape[1]
+    scratch_w = max(chunk, L - l0, lj, 1)
     out_body = torch.empty_like(body)
     out_acc = torch.empty_like(acc)
     scratch = torch.empty((6, scratch_w), dtype=torch.float32,
                           device=body.device)
     with torch.cuda.device(body.device):
         stream = torch.cuda.current_stream(body.device).cuda_stream
-        rc = lib.b2t_contact_solve(
-            scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
-            acc.data_ptr(), body.data_ptr(), params.data_ptr(),
-            out_body.data_ptr(), out_acc.data_ptr(), scratch.data_ptr(),
-            nb, L, chunk, l0, n_colors, nsub, scratch_w, stream)
+        if joints is None:
+            rc = lib.b2t_contact_solve(
+                scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
+                acc.data_ptr(), body.data_ptr(), params.data_ptr(),
+                out_body.data_ptr(), out_acc.data_ptr(), scratch.data_ptr(),
+                nb, L, chunk, l0, n_colors, nsub, scratch_w, stream)
+        else:
+            out_jacc = torch.empty_like(joints.acc)
+            rc = lib.b2t_contact_solve_joints(
+                scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
+                acc.data_ptr(), body.data_ptr(), params.data_ptr(),
+                out_body.data_ptr(), out_acc.data_ptr(), scratch.data_ptr(),
+                joints.idx.data_ptr(), joints.data.data_ptr(),
+                joints.acc.data_ptr(), joints.type.data_ptr(),
+                joints.offsets.data_ptr(), out_jacc.data_ptr(),
+                nb, L, chunk, l0, n_colors, nsub, scratch_w, lj, stream)
     if rc != 0:
         raise RuntimeError(f"contact_solve kernel launch failed: "
                            f"cudaError {rc}")
     LAUNCHES += 1
-    return out_body, out_acc
+    if joints is None:
+        return out_body, out_acc
+    JOINT_LAUNCHES += 1
+    return out_body, out_acc, out_jacc
 
 
 # ---------------------------------------------------------------------------
@@ -151,10 +194,12 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
 # ---------------------------------------------------------------------------
 
 def contact_solve_reference(scalars, idx, data, acc, body, params,
-                            nsub: int, chunk: int, l0: int, n_colors: int):
+                            nsub: int, chunk: int, l0: int, n_colors: int,
+                            joints: JointRows | None = None):
     """The kernel's semantics in plain PyTorch on any device: the same
-    stages, windows and arithmetic (mode 1's contact_sweep, operation by
-    operation), with each window's deltas added by index_add_."""
+    stages, windows and arithmetic (mode 1's contact_sweep and the joint
+    sweep, operation by operation), with each window's deltas added by
+    index_add_."""
     L = data.shape[1]
     out_body = body.clone()   # updated in place below
     out_acc = acc.clone()
@@ -163,21 +208,36 @@ def contact_solve_reference(scalars, idx, data, acc, body, params,
     live = idx[0] >= 0
     bounds = [(c * chunk, (c + 1) * chunk) for c in range(n_colors)]
     bounds.append((l0, L))
+    if joints is not None:
+        out_jacc = joints.acc.clone()
+        jlive = joints.idx[0] >= 0
+        joff = joints.offsets.tolist()
+    # (is_joint, lanes) in visit order: joints of color c, contacts of
+    # color c, ..., then the overflow tail
     windows = []
-    for lo, hi in bounds:
+    for c, (lo, hi) in enumerate(bounds):
+        if joints is not None and c < n_colors and joff[c + 1] > joff[c]:
+            jl = torch.nonzero(jlive[joff[c]:joff[c + 1]]).squeeze(1) + joff[c]
+            if jl.numel():
+                windows.append((True, jl))
         lanes = torch.nonzero(live[lo:hi]).squeeze(1) + lo
         if lanes.numel():
-            windows.append(lanes)
+            windows.append((False, lanes))
     for k in range(3 * nsub + 1):
         p = 3 if k == 3 * nsub else k % 3
         if p == 0:
             _integrate_velocities(out_body, params, max_lin)
         elif p == 2:
             _integrate_positions(out_body, h)
-        for lanes in windows:
-            _window(out_body, out_acc, data, idx, lanes, p, inv_h,
-                    contact_speed, rthresh)
-    return out_body, out_acc
+        for is_joint, lanes in windows:
+            if not is_joint:
+                _window(out_body, out_acc, data, idx, lanes, p, inv_h,
+                        contact_speed, rthresh)
+            elif p != 3:
+                joint_window(out_body, joints, out_jacc, lanes, p, h, inv_h)
+    if joints is None:
+        return out_body, out_acc
+    return out_body, out_acc, out_jacc
 
 
 def _integrate_velocities(body, prm, max_lin):

@@ -43,6 +43,6 @@ def continuous_pass(state: WorldState, bs, dt, stats):
     dev = state.bodies.center.device
     if gate:
         stats.ccd_gate_openings += 1
-        raise NotImplementedError("CCD TOI: ROADMAP queue 9")
+        raise NotImplementedError("CCD TOI: ROADMAP.md queue 10")
     return (torch.ones(nb, dtype=torch.float32, device=dev),
             torch.zeros((), dtype=torch.int32, device=dev))

@@ -1,5 +1,5 @@
-// TGS-soft contact solve for one world: the whole substep pipeline in one
-// launch.
+// TGS-soft solve for one world: the whole substep pipeline, contacts and
+// joints, in one launch.
 //
 // Replaces the two Pallas TPU kernels of box2d_tpu/solver_pallas.py that
 // compute this pipeline: `_solver_kernel` (run_solver_kernel, the
@@ -35,8 +35,19 @@
 // (ld.global.cg) so that other lanes' atomics are seen after each barrier.
 // Spreading windows over more SMs (grid-wide sync) or batching worlds over
 // blocks (gridDim.x) is later work.
+//
+// Joints: a jointed world launches the second instance of the kernel
+// (solve_kernel<true>), which sweeps a joint segment ahead of each color's
+// contact bucket (joint_sweep.cuh): joints of color c, then contacts of
+// color c, for c ascending, then the overflow tail, in every stage but the
+// restitution stage. A joint segment is a Jacobi window like any other. A
+// world without live joints launches solve_kernel<false>, which holds no
+// joint code, so its registers and its results are those of the
+// contact-only kernel.
 
 #include <cuda_runtime.h>
+
+#include "joint_sweep.cuh"
 
 namespace {
 
@@ -278,8 +289,54 @@ __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
   out[3] = vbx - vb0; out[4] = vby - vb1; out[5] = wb - wb0;
 }
 
+// Phase 2 of a window: add the scratch deltas of one lane to its dynamic
+// endpoints.
+__device__ __forceinline__ void add_deltas(float* body, int nb, int ia,
+                                           int ib, bool dyn_a, bool dyn_b,
+                                           const float* s, int sw) {
+  if (dyn_a) {
+    atomicAdd(body + 0 * nb + ia, s[0 * sw]);
+    atomicAdd(body + 1 * nb + ia, s[1 * sw]);
+    atomicAdd(body + 2 * nb + ia, s[2 * sw]);
+  }
+  if (dyn_b) {
+    atomicAdd(body + 0 * nb + ib, s[3 * sw]);
+    atomicAdd(body + 1 * nb + ib, s[4 * sw]);
+    atomicAdd(body + 2 * nb + ib, s[5 * sw]);
+  }
+}
+
+// One joint segment [lo, hi) of stage p as a Jacobi window.
+__device__ void joint_window(const Problem& q, const JointRegion& jr, int lo,
+                             int hi, int p, float h, float inv_h) {
+  const int LJ = jr.LJ;
+  for (int lane = lo + threadIdx.x; lane < hi; lane += blockDim.x) {
+    const int ia = jr.idx[lane];
+    if (ia < 0) continue;
+    const int ib = jr.idx[LJ + lane];
+    float dl[6];
+    joint_lane(jr, q.body, q.nb, lane, ia, ib, p, h, inv_h, dl);
+    float* s = q.scratch + (lane - lo);
+    for (int r = 0; r < 6; ++r) s[r * q.scratch_w] = dl[r];
+  }
+  __syncthreads();
+  for (int lane = lo + threadIdx.x; lane < hi; lane += blockDim.x) {
+    const int ia = jr.idx[lane];
+    if (ia < 0) continue;
+    const int ib = jr.idx[LJ + lane];
+    const float* d = jr.data + lane;
+    add_deltas(q.body, q.nb, ia, ib,
+               d[JINV_MA * LJ] > 0.0f || d[JINV_IA * LJ] > 0.0f,
+               d[JINV_MB * LJ] > 0.0f || d[JINV_IB * LJ] > 0.0f,
+               q.scratch + (lane - lo), q.scratch_w);
+  }
+  __syncthreads();
+}
+
+template <bool kJoints>
 __global__ void __launch_bounds__(kThreads)
-contact_solve_kernel(Problem q, const float* acc_in, const float* body_in) {
+solve_kernel(Problem q, JointRegion jr, const float* acc_in,
+             const float* body_in, const float* jacc_in) {
   const float h = q.scal[0];
   const float inv_h = q.scal[1];
   const float contact_speed = q.scal[2];
@@ -292,6 +349,10 @@ contact_solve_kernel(Problem q, const float* acc_in, const float* body_in) {
     __stcg(q.body + i, body_in[i]);
   for (int i = threadIdx.x; i < 9 * L; i += blockDim.x)
     q.acc[i] = acc_in[i];
+  if constexpr (kJoints) {
+    for (int i = threadIdx.x; i < 9 * jr.LJ; i += blockDim.x)
+      jr.acc[i] = jacc_in[i];
+  }
   __syncthreads();
 
   const int stages = 3 * q.nsub + 1;
@@ -305,6 +366,13 @@ contact_solve_kernel(Problem q, const float* acc_in, const float* body_in) {
       __syncthreads();
     }
     for (int win = 0; win <= q.n_colors; ++win) {
+      if constexpr (kJoints) {
+        if (p != 3 && win < q.n_colors) {
+          const int jlo = jr.off[win];
+          const int jhi = jr.off[win + 1];
+          if (jhi > jlo) joint_window(q, jr, jlo, jhi, p, h, inv_h);
+        }
+      }
       const int lo = win < q.n_colors ? win * q.chunk : q.l0;
       const int hi = win < q.n_colors ? lo + q.chunk : L;
       // phase 1: every lane reads the window-start state
@@ -324,18 +392,11 @@ contact_solve_kernel(Problem q, const float* acc_in, const float* body_in) {
         const int ia = q.idx[lane];
         if (ia < 0) continue;
         const int ib = q.idx[L + lane];
-        const float* s = q.scratch + (lane - lo);
         const float* d = q.data + lane;
-        if (d[INV_MA * L] > 0.0f || d[INV_IA * L] > 0.0f) {
-          atomicAdd(q.body + 0 * nb + ia, s[0 * q.scratch_w]);
-          atomicAdd(q.body + 1 * nb + ia, s[1 * q.scratch_w]);
-          atomicAdd(q.body + 2 * nb + ia, s[2 * q.scratch_w]);
-        }
-        if (d[INV_MB * L] > 0.0f || d[INV_IB * L] > 0.0f) {
-          atomicAdd(q.body + 0 * nb + ib, s[3 * q.scratch_w]);
-          atomicAdd(q.body + 1 * nb + ib, s[4 * q.scratch_w]);
-          atomicAdd(q.body + 2 * nb + ib, s[5 * q.scratch_w]);
-        }
+        add_deltas(q.body, nb, ia, ib,
+                   d[INV_MA * L] > 0.0f || d[INV_IA * L] > 0.0f,
+                   d[INV_MB * L] > 0.0f || d[INV_IB * L] > 0.0f,
+                   q.scratch + (lane - lo), q.scratch_w);
       }
       __syncthreads();
     }
@@ -344,8 +405,9 @@ contact_solve_kernel(Problem q, const float* acc_in, const float* body_in) {
 
 }  // namespace
 
-// Plain C entry point for ctypes. Launches on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() of the launch.
+// Plain C entry points for ctypes. Each launches on `stream`, does not
+// synchronise, allocates nothing, and returns cudaGetLastError() of the
+// launch.
 extern "C" int b2t_contact_solve(
     const float* scalars, const int* idx, const float* data,
     const float* acc_in, const float* body_in, const float* params,
@@ -354,8 +416,26 @@ extern "C" int b2t_contact_solve(
     void* stream) {
   Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
             nb, L, chunk, l0, n_colors, nsub, scratch_w};
-  contact_solve_kernel<<<1, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      q, acc_in, body_in);
+  JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0};
+  solve_kernel<false><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      q, none, acc_in, body_in, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same pipeline with a joint region: jidx (2, LJ), jdata (39, LJ),
+// jacc_in / out_jacc (9, LJ), jtype (LJ), joff (n_colors + 1).
+extern "C" int b2t_contact_solve_joints(
+    const float* scalars, const int* idx, const float* data,
+    const float* acc_in, const float* body_in, const float* params,
+    float* out_body, float* out_acc, float* scratch,
+    const int* jidx, const float* jdata, const float* jacc_in,
+    const int* jtype, const int* joff, float* out_jacc,
+    int nb, int L, int chunk, int l0, int n_colors, int nsub, int scratch_w,
+    int LJ, void* stream) {
+  Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
+            nb, L, chunk, l0, n_colors, nsub, scratch_w};
+  JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ};
+  solve_kernel<true><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      q, jr, acc_in, body_in, jacc_in);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,8 @@
 """Host-side shape construction: hulls, polygon factories, mass properties.
 
-NumPy-only copy of the parts of box2d_tpu/geometry.py the contact-only
-slice uses (the reference package cannot be imported without jax): the
-box and polygon factories, the hull and mass properties. The hull is the
+NumPy-only copy of the parts of box2d_tpu/geometry.py the ported slices
+use (the reference package cannot be imported without jax): the circle,
+capsule, box and polygon factories, the hull and mass properties. The hull is the
 pure-Python quickhull; the JAX package's optional native fast path is not
 carried over.
 
@@ -77,6 +77,26 @@ def _pad(arr: np.ndarray, count: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # factories
 # ---------------------------------------------------------------------------
+
+
+def circle(center, radius: float) -> ShapeGeom:
+    c = np.asarray(center, np.float32)
+    v = np.tile(c, (MAX_POLYGON_VERTICES, 1))
+    return ShapeGeom(CIRCLE, v, np.zeros_like(v), 1, float(radius), c)
+
+
+def capsule(p1, p2, radius: float) -> ShapeGeom:
+    """ref: src/Manifold.cs:8-17 MakeCapsule."""
+    p1 = np.asarray(p1, np.float32)
+    p2 = np.asarray(p2, np.float32)
+    d = p2 - p1
+    ln = float(np.hypot(*d))
+    assert ln * ln > FLT_EPSILON, "degenerate capsule"
+    axis = d / ln
+    n = np.array([axis[1], -axis[0]], np.float32)  # right perp
+    verts = _pad(np.stack([p1, p2]), 2)
+    normals = _pad(np.stack([n, -n]), 2)
+    return ShapeGeom(CAPSULE, verts, normals, 2, float(radius), 0.5 * (p1 + p2))
 
 
 def _polygon_centroid(vertices: np.ndarray) -> np.ndarray:

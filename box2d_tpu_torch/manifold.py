@@ -1,9 +1,13 @@
-"""Contact manifolds: the polygon-polygon class the contact-only slice needs.
+"""Contact manifolds for circles, capsules, segments and polygons.
 
-Torch port of box2d_tpu/manifold.py: the `Manifold` record and
-`collide_polygons_batched` (:419, ref: src/Manifold.cs:410-562), the only
-class a box pyramid reaches (box2d_tpu/narrowphase.py:252-256). The other
-pair classes come with the slices that need them (ROADMAP.md queue 9).
+Torch port of box2d_tpu/manifold.py: the `Manifold` record,
+`collide_polygons_batched` (:419, ref: src/Manifold.cs:410-562) and the
+four classes a scene of circles and capsules adds: `collide_circles`,
+`collide_capsule_circle`, `collide_polygon_circle` and `collide_capsules`
+(:100-275). The JAX functions take one pair and are vmapped; here every
+function takes the pair axis first and is plain tensor code in the same
+order of operations. The two chain classes come with the slice that needs
+them (ROADMAP.md queue 10).
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import math2d as m
 from .constants import FLT_EPSILON, LINEAR_SLOP, SPECULATIVE_DISTANCE
 
 
@@ -30,6 +35,263 @@ class Manifold(NamedTuple):
 
 def _w(c, a, b):
     return torch.where(c, a, b)
+
+
+def _safe_div(num, den):
+    return num / torch.where(den != 0.0, den, 1.0)
+
+
+def _wv(c, a, b):
+    """Per-lane select between (P, 2) vectors."""
+    return torch.where(c[:, None], a, b)
+
+
+def _manifold(normal, count, anchors, seps, ids, p_a, q_a, p_b, live,
+              origin=None) -> Manifold:
+    """Rotate local anchors (P, 2, 2) into world orientation, derive
+    anchor_b and point (box2d_tpu/manifold.py:67 _finalize), then zero the
+    lanes outside `live` (the `_select(..., _empty())` of the JAX code)."""
+    if origin is not None:
+        anchors = anchors + origin[:, None, :]
+    aa = m.rot_vec(q_a[:, None, :], anchors)
+    ab = aa + (p_a - p_b)[:, None, :]
+    pt = aa + p_a[:, None, :]
+    out = Manifold(m.rot_vec(q_a, normal), count.to(torch.int32), aa, ab, pt,
+                   seps, ids.to(torch.int32))
+    return Manifold(*[
+        torch.where(live.reshape((-1,) + (1,) * (x.dim() - 1)), x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+        for x in out])
+
+
+def _one_point(normal, anchor, separation, pid, p_a, q_a, p_b, live,
+               origin=None) -> Manifold:
+    z = torch.zeros_like(anchor)
+    zs = torch.zeros_like(separation)
+    if not isinstance(pid, torch.Tensor):
+        pid = torch.full_like(separation, pid, dtype=torch.int32)
+    return _manifold(normal, torch.ones_like(pid),
+                     torch.stack([anchor, z], dim=1),
+                     torch.stack([separation, zs], dim=1),
+                     torch.stack([pid, torch.zeros_like(pid)], dim=1),
+                     p_a, q_a, p_b, live, origin)
+
+
+def collide_circles(center_a, radius_a, p_a, q_a, center_b, radius_b, p_b,
+                    q_b) -> Manifold:
+    """ref: src/Manifold.cs:24-46."""
+    xp, xq = m.inv_mul_transforms(p_a, q_a, p_b, q_b)
+    point_a = center_a
+    point_b = m.transform_point(xp, xq, center_b)
+    normal, dist = m.get_length_and_normalize(point_b - point_a)
+    separation = dist - radius_a - radius_b
+    c_a = m.mul_add(point_a, radius_a, normal)
+    c_b = m.mul_add(point_b, -radius_b, normal)
+    return _one_point(normal, 0.5 * (c_a + c_b), separation, 0, p_a, q_a,
+                      p_b, separation <= SPECULATIVE_DISTANCE)
+
+
+def collide_capsule_circle(p1, p2, radius_a, p_a, q_a, center_b, radius_b,
+                           p_b, q_b) -> Manifold:
+    """ref: src/Manifold.cs:49-83. Also serves segment-vs-circle."""
+    xp, xq = m.inv_mul_transforms(p_a, q_a, p_b, q_b)
+    pb = m.transform_point(xp, xq, center_b)
+    e = p2 - p1
+    s1 = m.dot(pb - p1, e)
+    s2 = m.dot(p2 - pb, e)
+    s = _safe_div(s1, m.dot(e, e))
+    pa = _wv(s1 < 0.0, p1, _wv(s2 < 0.0, p2, m.mul_add(p1, s, e)))
+    normal, dist = m.get_length_and_normalize(pb - pa)
+    separation = dist - radius_a - radius_b
+    c_a = m.mul_add(pa, radius_a, normal)
+    c_b = m.mul_add(pb, -radius_b, normal)
+    return _one_point(normal, 0.5 * (c_a + c_b), separation, 0, p_a, q_a,
+                      p_b, separation <= SPECULATIVE_DISTANCE)
+
+
+def collide_polygon_circle(verts, normals, count, radius_a, p_a, q_a,
+                           center_b, radius_b, p_b, q_b) -> Manifold:
+    """ref: src/Manifold.cs:91-165. verts/normals (P, V, 2), count >= 3."""
+    P, V = verts.shape[0], verts.shape[1]
+    lane = torch.arange(P, device=verts.device)
+    xp, xq = m.inv_mul_transforms(p_a, q_a, p_b, q_b)
+    center = m.transform_point(xp, xq, center_b)
+    radius = radius_a + radius_b
+
+    seps = m.dot(normals, center[:, None, :] - verts)
+    seps = torch.where(torch.arange(V, device=verts.device)[None, :]
+                       < count[:, None], seps, float("-inf"))
+    normal_index = torch.argmax(seps, dim=1)
+    separation = seps[lane, normal_index]
+
+    i1 = normal_index
+    i2 = torch.where(i1 + 1 < count, i1 + 1, 0)
+    v1 = verts[lane, i1]
+    v2 = verts[lane, i2]
+    u1 = m.dot(center - v1, v2 - v1)
+    u2 = m.dot(center - v2, v1 - v2)
+    deep = separation <= FLT_EPSILON
+
+    n_v1 = m.normalize(center - v1)
+    sep_v1 = m.dot(center - v1, n_v1)
+    n_v2 = m.normalize(center - v2)
+    sep_v2 = m.dot(center - v2, n_v2)
+    n_face = normals[lane, normal_index]
+
+    use_v1 = (u1 < 0.0) & ~deep
+    use_v2 = (u2 < 0.0) & ~deep & ~use_v1
+    normal = _wv(use_v1, n_v1, _wv(use_v2, n_v2, n_face))
+    sep_out = _w(use_v1, sep_v1, _w(use_v2, sep_v2, separation))
+
+    vref = _wv(use_v2, v2, v1)
+    c_a_vert = m.mul_add(vref, radius_a, normal)
+    c_a_face = m.mul_add(center, radius_a - m.dot(center - v1, n_face),
+                         n_face)
+    c_a = _wv(use_v1 | use_v2, c_a_vert, c_a_face)
+    c_b = m.mul_sub(center, radius_b, normal)
+    sep_final = _w(use_v1 | use_v2, m.dot(c_b - c_a, normal),
+                   separation - radius)
+    return _one_point(normal, 0.5 * (c_a + c_b), sep_final, 0, p_a, q_a, p_b,
+                      sep_out <= radius + SPECULATIVE_DISTANCE)
+
+
+def segment_distance(p1, q1, p2, q2):
+    """Closest points between two segments (box2d_tpu/distance.py:36, ref:
+    src/Distance.cs:20-72); returns (fraction1, fraction2, closest1,
+    closest2, distance_squared)."""
+    d1 = q1 - p1
+    d2 = q2 - p2
+    r = p1 - p2
+    dd1 = m.dot(d1, d1)
+    dd2 = m.dot(d2, d2)
+    rd1 = m.dot(r, d1)
+    rd2 = m.dot(r, d2)
+    eps_sqr = float(torch.tensor(FLT_EPSILON * FLT_EPSILON,
+                                 dtype=torch.float32))
+    d12 = m.dot(d1, d2)
+    denom = dd1 * dd2 - d12 * d12
+    sdd1 = _w(dd1 != 0.0, dd1, 1.0)
+    sdd2 = _w(dd2 != 0.0, dd2, 1.0)
+    f1g = _w(denom != 0.0,
+             torch.clamp((d12 * rd2 - rd1 * dd2) / _w(denom != 0.0, denom, 1.0),
+                         0.0, 1.0), 0.0)
+    f2g = (d12 * f1g + rd2) / sdd2
+    f1g = _w(f2g < 0.0, torch.clamp(-rd1 / sdd1, 0.0, 1.0),
+             _w(f2g > 1.0, torch.clamp((d12 - rd1) / sdd1, 0.0, 1.0), f1g))
+    f2g = torch.clamp(f2g, 0.0, 1.0)
+    f1_d1 = torch.clamp(-rd1 / sdd1, 0.0, 1.0)
+    f2_d2 = torch.clamp(rd2 / sdd2, 0.0, 1.0)
+    deg1 = dd1 < eps_sqr
+    deg2 = dd2 < eps_sqr
+    f1 = _w(deg1 | deg2, _w(~deg1, f1_d1, 0.0), f1g)
+    f2 = _w(deg1 | deg2, _w(deg1 & ~deg2, f2_d2, 0.0), f2g)
+    c1 = m.mul_add(p1, f1, d1)
+    c2 = m.mul_add(p2, f2, d2)
+    e = c2 - c1
+    return f1, f2, c1, c2, m.dot(e, e)
+
+
+def collide_capsules(a1, a2, radius_a, p_a, q_a, b1, b2, radius_b, p_b,
+                     q_b) -> Manifold:
+    """Capsule vs capsule, both 2-vertex (ref: src/Manifold.cs:167-315)."""
+    origin = a1
+    sp_a = p_a + m.rot_vec(q_a, origin)
+    xp, xq = m.inv_mul_transforms(sp_a, q_a, p_b, q_b)
+    p1 = torch.zeros_like(a1)
+    q1 = a2 - origin
+    p2 = m.transform_point(xp, xq, b1)
+    q2 = m.transform_point(xp, xq, b2)
+
+    f1, f2, closest1, closest2, dsq = segment_distance(p1, q1, p2, q2)
+    radius = radius_a + radius_b
+    max_distance = radius + SPECULATIVE_DISTANCE
+    in_range = dsq <= max_distance * max_distance
+    dist = torch.sqrt(torch.clamp(dsq, min=0.0))
+
+    u1, length1 = m.get_length_and_normalize(q1 - p1)
+    u2, length2 = m.get_length_and_normalize(q2 - p2)
+    fp2 = m.dot(p2 - p1, u1)
+    fq2 = m.dot(q2 - p1, u1)
+    outside_a = (((fp2 < 0.0) & (fq2 < 0.0))
+                 | ((fp2 >= length1) & (fq2 >= length1)))
+    fp1 = m.dot(p1 - p2, u2)
+    fq1 = m.dot(q1 - p2, u2)
+    outside_b = (((fp1 < 0.0) & (fq1 < 0.0))
+                 | ((fp1 >= length2) & (fq1 >= length2)))
+    parallel_overlap = ~outside_a & ~outside_b
+
+    def seg_separation(nrm, pa_, pb_, qb_):
+        ss1 = m.dot(pb_ - pa_, nrm)
+        ss2 = m.dot(qb_ - pa_, nrm)
+        s_pos = torch.minimum(ss1, ss2)
+        s_neg = torch.minimum(-ss1, -ss2)
+        flipn = s_pos <= s_neg
+        return _w(flipn, s_neg, s_pos), _wv(flipn, -nrm, nrm)
+
+    sep_a, normal_a = seg_separation(m.left_perp(u1), p1, p2, q2)
+    sep_b, normal_b = seg_separation(m.left_perp(u2), p2, p1, q1)
+    use_a = sep_a + 0.1 * LINEAR_SLOP >= sep_b
+
+    def clip_two(pc, qc, fp, fq, ln):
+        s_lo = _safe_div(-fp, fq - fp)
+        c_lo = _wv((fp < 0.0) & (fq > 0.0), m.lerp(pc, qc, s_lo), pc)
+        t_lo = _safe_div(-fq, fp - fq)
+        d_lo = _wv((fq < 0.0) & (fp > 0.0), m.lerp(qc, pc, t_lo), qc)
+        s_hi = _safe_div(fp - ln, fp - fq)
+        c_hi = _wv((fp > ln) & (fq < ln), m.lerp(pc, qc, s_hi), c_lo)
+        t_hi = _safe_div(fq - ln, fq - fp)
+        d_hi = _wv((fq > ln) & (fp < ln), m.lerp(qc, pc, t_hi), d_lo)
+        return c_hi, d_hi
+
+    cpa, cqa = clip_two(p2, q2, fp2, fq2, length1)
+    spa = m.dot(cpa - p1, normal_a)
+    sqa = m.dot(cqa - p1, normal_a)
+    ok_a = (spa <= dist + LINEAR_SLOP) | (sqa <= dist + LINEAR_SLOP)
+    pt0_a = m.mul_add(cpa, 0.5 * (radius_a - radius_b - spa), normal_a)
+    pt1_a = m.mul_add(cqa, 0.5 * (radius_a - radius_b - sqa), normal_a)
+
+    cpb, cqb = clip_two(p1, q1, fp1, fq1, length2)
+    spb = m.dot(cpb - p2, normal_b)
+    sqb = m.dot(cqb - p2, normal_b)
+    ok_b = (spb <= dist + LINEAR_SLOP) | (sqb <= dist + LINEAR_SLOP)
+    pt0_b = m.mul_add(cpb, 0.5 * (radius_b - radius_a - spb), normal_b)
+    pt1_b = m.mul_add(cqb, 0.5 * (radius_b - radius_a - sqb), normal_b)
+
+    two_pt = parallel_overlap & _w(use_a, ok_a, ok_b)
+
+    def mk(a, b):
+        return (a << 8) | (b & 0xFF)
+
+    # two-point manifold
+    n2 = _wv(use_a, normal_a, -normal_b)
+    a2_0 = _wv(use_a, pt0_a, pt0_b)
+    a2_1 = _wv(use_a, pt1_a, pt1_b)
+    s2_0 = _w(use_a, spa, spb) - radius
+    s2_1 = _w(use_a, sqa, sqb) - radius
+    id2_1 = _w(use_a, mk(0, 1), mk(1, 0))
+
+    # single-point fallback (ref: :284-298)
+    nrm = closest2 - closest1
+    nrm = _wv(m.dot(nrm, nrm) > FLT_EPSILON * FLT_EPSILON,
+              m.normalize(nrm), m.left_perp(u1))
+    c1 = m.mul_add(closest1, radius_a, nrm)
+    c2 = m.mul_add(closest2, -radius_b, nrm)
+    i1 = _w(f1 == 0.0, 0, 1)
+    i2 = _w(f2 == 0.0, 0, 1)
+    a1_0 = 0.5 * (c1 + c2)
+    s1_0 = dist - radius
+    id1_0 = mk(i1, i2)
+
+    zero2 = torch.zeros_like(a1_0)
+    normal = _wv(two_pt, n2, nrm)
+    count = _w(two_pt, 2, 1)
+    anchors = torch.stack([_wv(two_pt, a2_0, a1_0),
+                           _wv(two_pt, a2_1, zero2)], dim=1)
+    seps = torch.stack([_w(two_pt, s2_0, s1_0), _w(two_pt, s2_1, 0.0)],
+                       dim=1)
+    ids = torch.stack([_w(two_pt, 0, id1_0), _w(two_pt, id2_1, 0)], dim=1)
+    return _manifold(normal, count, anchors, seps, ids, p_a, q_a, p_b,
+                     in_range, origin=origin)
 
 
 def collide_polygons_batched(va, na, ca, ra, p_a, q_a,

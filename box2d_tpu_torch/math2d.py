@@ -26,12 +26,45 @@ def cross_sv(s, v):
     return torch.stack([-s * v[..., 1], s * v[..., 0]], dim=-1)
 
 
+def left_perp(v):
+    return torch.stack([-v[..., 1], v[..., 0]], dim=-1)
+
+
 def right_perp(v):
     return torch.stack([v[..., 1], -v[..., 0]], dim=-1)
 
 
 def length(v):
     return torch.sqrt(dot(v, v))
+
+
+def normalize(v):
+    """Safe normalize: 0 for zero-length input."""
+    return v * _safe_inv(length(v))[..., None]
+
+
+def get_length_and_normalize(v):
+    ln = length(v)
+    return v * _safe_inv(ln)[..., None], ln
+
+
+def _per_lane(s, a):
+    if isinstance(s, torch.Tensor) and s.dim() == a.dim() - 1:
+        return s[..., None]
+    return s
+
+
+def lerp(a, b, t):
+    return a + (b - a) * _per_lane(t, a)
+
+
+def mul_add(a, s, b):
+    """a + s * b; a per-lane s broadcasts over the vector dim."""
+    return a + _per_lane(s, a) * b
+
+
+def mul_sub(a, s, b):
+    return a - _per_lane(s, a) * b
 
 
 def _safe_inv(x):
@@ -69,6 +102,28 @@ def rot_vec(q, v):
     c, s = q[..., 0], q[..., 1]
     return torch.stack([c * v[..., 0] - s * v[..., 1],
                         s * v[..., 0] + c * v[..., 1]], dim=-1)
+
+
+def inv_rot_vec(q, v):
+    c, s = q[..., 0], q[..., 1]
+    return torch.stack([c * v[..., 0] + s * v[..., 1],
+                        -s * v[..., 0] + c * v[..., 1]], dim=-1)
+
+
+def rot_inv_mul(a, b):
+    """inv(a) * b."""
+    ac, as_ = a[..., 0], a[..., 1]
+    bc, bs = b[..., 0], b[..., 1]
+    return torch.stack([ac * bc + as_ * bs, ac * bs - as_ * bc], dim=-1)
+
+
+def transform_point(p, q, v):
+    return rot_vec(q, v) + p
+
+
+def inv_mul_transforms(pa, qa, pb, qb):
+    """inv(A)*B: frame-B-local points into frame-A-local points."""
+    return inv_rot_vec(qa, pb - pa), rot_inv_mul(qa, qb)
 
 
 def softness(hertz, zeta, h):

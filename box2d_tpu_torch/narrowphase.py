@@ -1,8 +1,10 @@
 """Narrow phase: manifolds for candidate pairs + warm-start matching.
 
-Torch port of box2d_tpu/narrowphase.py for the polygon class (the only
-class of a box pyramid). `narrow_phase` raises for any other pair class.
-The contact store keeps the reference's hash: the murmur mix that the JAX
+Torch port of box2d_tpu/narrowphase.py for circles, capsules, segments
+and polygons: pairs are oriented canonically (circle always B), each pair
+class present in the scene is evaluated over the whole pair buffer and
+lanes take their class's result. The two chain classes raise (ROADMAP.md
+queue 10). The contact store keeps the reference's hash: the murmur mix that the JAX
 code runs in uint32 (narrowphase.py:334-341) runs here in int64 with
 `& 0xFFFFFFFF` after every step, which gives the same bits.
 """
@@ -19,18 +21,41 @@ from . import math2d as m
 from .broadphase import PairBuffer
 from .state import ContactStore, WorldState
 
+CLS_CIRCLES = "circles"
+CLS_CAPSULE_CIRCLE = "capsule_circle"
+CLS_POLY_CIRCLE = "poly_circle"
+CLS_CAPSULES = "capsules"
 CLS_POLYS = "polys"
+CLS_CHAIN_CIRCLE = "chain_circle"
+CLS_CHAIN_POLY = "chain_poly"
+_PORTED = frozenset({CLS_CIRCLES, CLS_CAPSULE_CIRCLE, CLS_POLY_CIRCLE,
+                     CLS_CAPSULES, CLS_POLYS})
 
 
 def classes_for_shape_types(types) -> frozenset:
-    """Host-side: the pair classes present (same names as the JAX package);
-    the slice supports the polygon class only."""
+    """Host-side: which pair classes can occur given the shape types
+    present (same names and rules as the JAX package)."""
     ts = set(int(x) for x in types)
-    if ts - {g.POLYGON}:
-        raise NotImplementedError(
-            "only polygon shapes are ported: the other manifold classes are "
-            "ROADMAP.md queue 9")
-    return frozenset({CLS_POLYS}) if ts else frozenset()
+    has_circle = g.CIRCLE in ts
+    has_cap2 = bool(ts & {g.CAPSULE, g.SEGMENT})
+    has_poly = g.POLYGON in ts
+    has_chain = g.CHAIN_SEGMENT in ts
+    out = set()
+    if has_circle:
+        out.add(CLS_CIRCLES)
+        if has_cap2:
+            out.add(CLS_CAPSULE_CIRCLE)
+        if has_poly:
+            out.add(CLS_POLY_CIRCLE)
+        if has_chain:
+            out.add(CLS_CHAIN_CIRCLE)
+    if has_cap2:
+        out.add(CLS_CAPSULES)
+    if has_poly and (has_cap2 or has_poly):
+        out.add(CLS_POLYS)
+    if has_chain and (has_cap2 or has_poly):
+        out.add(CLS_CHAIN_POLY)
+    return frozenset(out)
 
 
 class ContactData(NamedTuple):
@@ -111,20 +136,30 @@ def _static_cols(V: int):
 def narrow_phase(state: WorldState, pairs: PairBuffer,
                  classes_present: frozenset,
                  max_verts: int = 8) -> ContactData:
-    if classes_present - {CLS_POLYS}:
+    if classes_present - _PORTED:
         raise NotImplementedError(
-            f"pair classes {sorted(classes_present - {CLS_POLYS})}: "
-            "ROADMAP.md queue 9")
+            f"pair classes {sorted(classes_present - _PORTED)}: "
+            "ROADMAP.md queue 10")
     sh = state.shapes
     V = max(2, min(max_verts, sh.verts.shape[1]))
     tbl = build_shape_table(state, V)
     C = _static_cols(V)
     D0 = 4 * V + 14
-    # pairs are canonical a < b, and polygon-polygon lanes never swap
-    # sides (box2d_tpu/narrowphase.py:190: only chain and circle do)
-    sa, sb = pairs.shape_a, pairs.shape_b
-    rA = tbl[sa.long()]
-    rB = tbl[sb.long()]
+    rA0 = tbl[pairs.shape_a.long()]
+    rB0 = tbl[pairs.shape_b.long()]
+    ta0 = rA0[:, C["type"]].to(torch.int32)
+    tb0 = rB0[:, C["type"]].to(torch.int32)
+
+    # canonical orientation: chain -> A, circle -> B
+    swap = (((tb0 == g.CHAIN_SEGMENT) & (ta0 != g.CHAIN_SEGMENT))
+            | ((ta0 == g.CIRCLE) & (tb0 != g.CIRCLE)))
+    sa = torch.where(swap, pairs.shape_b, pairs.shape_a)
+    sb = torch.where(swap, pairs.shape_a, pairs.shape_b)
+    sw = swap[:, None]
+    rA = torch.where(sw, rB0, rA0)
+    rB = torch.where(sw, rA0, rB0)
+    ta = torch.where(swap, tb0, ta0)
+    tb = torch.where(swap, ta0, tb0)
 
     P = sa.shape[0]
     body_a = rA[:, C["body"]].to(torch.int32)
@@ -138,15 +173,35 @@ def narrow_phase(state: WorldState, pairs: PairBuffer,
     nb = rB[:, 2 * V:4 * V].reshape(P, V, 2)
     cb, rb = rB[:, C["count"]].to(torch.int32), rB[:, C["radius"]]
 
+    out = _zero_manifold(P, sa.device)
+
+    def merge(mask, new):
+        return mfm.Manifold(*[
+            torch.where(mask.reshape((P,) + (1,) * (o.dim() - 1)), n, o)
+            for o, n in zip(out, new)])
+
+    a_cap2 = (ta == g.CAPSULE) | (ta == g.SEGMENT)
+    if CLS_CIRCLES in classes_present:
+        man = mfm.collide_circles(va[:, 0], ra, pa, qa, vb[:, 0], rb, pb, qb)
+        out = merge((ta == g.CIRCLE) & (tb == g.CIRCLE), man)
+    if CLS_CAPSULE_CIRCLE in classes_present:
+        man = mfm.collide_capsule_circle(va[:, 0], va[:, 1], ra, pa, qa,
+                                         vb[:, 0], rb, pb, qb)
+        out = merge(a_cap2 & (tb == g.CIRCLE), man)
+    if CLS_POLY_CIRCLE in classes_present:
+        man = mfm.collide_polygon_circle(va, na, ca, ra, pa, qa, vb[:, 0],
+                                         rb, pb, qb)
+        out = merge((ta == g.POLYGON) & (tb == g.CIRCLE), man)
+    if CLS_CAPSULES in classes_present:
+        man = mfm.collide_capsules(va[:, 0], va[:, 1], ra, pa, qa,
+                                   vb[:, 0], vb[:, 1], rb, pb, qb)
+        out = merge(a_cap2 & ((tb == g.CAPSULE) | (tb == g.SEGMENT)), man)
     if CLS_POLYS in classes_present:
-        out = mfm.collide_polygons_batched(va, na, ca, ra, pa, qa,
+        man = mfm.collide_polygons_batched(va, na, ca, ra, pa, qa,
                                            vb, nb, cb, rb, pb, qb)
-        ta = rA[:, C["type"]].to(torch.int32)
-        tb = rB[:, C["type"]].to(torch.int32)
         apoly = (ta == g.POLYGON) | (tb == g.POLYGON)
-        out = _masked(out, apoly)
-    else:
-        out = _masked(None, None, P=P, device=sa.device)
+        not_special = (ta != g.CHAIN_SEGMENT) & (tb != g.CIRCLE)
+        out = merge(apoly & not_special, man)
     out = out._replace(point_count=torch.where(pairs.valid, out.point_count,
                                                0))
 
@@ -180,19 +235,11 @@ def narrow_phase(state: WorldState, pairs: PairBuffer,
     )
 
 
-def _masked(man, mask, P=None, device=None):
-    """Zero manifold lanes outside `mask` (the JAX merge over an all-zero
-    start manifold)."""
-    if man is None:
-        z = lambda *s: torch.zeros((P,) + s, dtype=torch.float32,
-                                   device=device)
-        zi = lambda *s: torch.zeros((P,) + s, dtype=torch.int32, device=device)
-        return mfm.Manifold(z(2), zi(), z(2, 2), z(2, 2), z(2, 2), z(2),
-                            zi(2))
-    return mfm.Manifold(*[
-        torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x,
-                    torch.zeros((), dtype=x.dtype, device=x.device))
-        for x in man])
+def _zero_manifold(P, device) -> mfm.Manifold:
+    z = lambda *sh: torch.zeros((P,) + sh, dtype=torch.float32,
+                                device=device)
+    zi = lambda *sh: torch.zeros((P,) + sh, dtype=torch.int32, device=device)
+    return mfm.Manifold(z(2), zi(), z(2, 2), z(2, 2), z(2, 2), z(2), zi(2))
 
 
 _PROBES = 8

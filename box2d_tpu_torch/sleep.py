@@ -2,7 +2,8 @@
 
 Torch port of box2d_tpu/sleep.py `wake_and_sleep` (ref: src/Island.cs,
 src/SolverSet.cs, src/Solver.cs:1293-1321). Islands are a persistent
-min-label propagated over touching dynamic contacts; the JAX code's label
+min-label propagated over touching dynamic contacts and over enabled
+joints between dynamic bodies; the JAX code's label
 and wake `lax.cond`s are host branches here (one device read per step,
 counted in world.StepStats). Island labels ride the narrow phase's packed body
 rows through the named column `dyn_col("label")`.
@@ -54,13 +55,18 @@ def wake_and_sleep(state: WorldState, touching, new_touch, body_a, body_b,
     run_labels_h, do_wake_h = syncs.read(run_labels, any_new & any_asleep)
 
     if run_labels_h:
-        # contact edges only: the slice has no live joint lanes
-        on = touching & dd
-        slot_a = torch.where(on, body_a.long(), nb)
-        slot_b = torch.where(on, body_b.long(), nb)
-        ce = torch.clamp(torch.cat([body_a, body_b]).long(), 0, nb - 1)
+        jn = state.joints
+        j_on = jn.enabled & (jn.body_a >= 0)
+        j_dyn_a = b.type[torch.clamp(jn.body_a, 0, nb - 1).long()] == DYNAMIC
+        j_dyn_b = b.type[torch.clamp(jn.body_b, 0, nb - 1).long()] == DYNAMIC
+        edges_a = torch.cat([body_a, jn.body_a]).long()
+        edges_b = torch.cat([body_b, jn.body_b]).long()
+        on = torch.cat([touching & dd, j_on & j_dyn_a & j_dyn_b])
+        slot_a = torch.where(on, edges_a, nb)
+        slot_b = torch.where(on, edges_b, nb)
+        ce = torch.clamp(torch.cat([edges_a, edges_b]), 0, nb - 1)
         slot_ab = torch.cat([slot_a, slot_b])
-        E = body_a.shape[0]
+        E = edges_a.shape[0]
 
         def prop2(l2):
             gg = l2[ce]

@@ -124,7 +124,7 @@ class ContactStore:
 
 @dataclasses.dataclass
 class Joints:
-    """Joint SoA. The contact-only slice carries it with no live lane."""
+    """Joint SoA; lane i is joint id i (see box2d_tpu/state.py)."""
 
     type: Any
     enabled: Any

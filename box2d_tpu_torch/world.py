@@ -1,11 +1,15 @@
-"""World step for the contact-only slice: one rigid world of polygons.
+"""World step: one rigid world of circles, capsules and polygons, with
+joints.
 
 Torch port of box2d_tpu/world.py: `make_step`, `_step` with the idle gate
-(:137-159), `_step_work` along the kernel branch (contact-only layout
-scatter :383-496, the kernel call :561-566, the pair-order impulse gather
-:567-573) and `_step_tail` (:706-805) with the contact and hit events.
-Sensors and joint events are no-ops: the slice has no sensor and no live
-joint (builder.py refuses both).
+(:137-159), `_step_work` along the kernel branch (layout scatter :383-496,
+the kernel call :547-566, the pair-order impulse gather :567-573) and
+`_step_tail` (:706-805) with the contact, hit and joint events. A world
+with solvable joints prepares them after the contacts, sorts their packed
+rows into the joint region of the layout (joints.layout_joint_rows) and
+hands it to the same kernel launch; a world without them packs and
+launches exactly the contact-only pipeline. The sensor pass is a no-op:
+World.compile refuses sensor shapes.
 
 PyTorch runs eagerly, so every `lax.cond` / `while_loop` of the JAX step
 is a host branch or loop here, and each costs one device read.
@@ -25,12 +29,15 @@ from .broadphase import compute_shape_aabbs, find_pairs_incremental
 from .coloring import dense_remap, repair_colors
 from .contact_solver import NA, NF, contact_solve
 from .continuous import continuous_pass
+from .joints import (layout_joint_rows, prepare_joints, solvable_joint_types,
+                     unpack_joint_acc)
 from .narrowphase import narrow_phase, update_cache
 from .sleep import wake_and_sleep
 from .solver import (BodySolverState, finalize_bodies, pack_bodies,
                      pack_constraints_pairs, prepare_contacts, unpack_bodies)
-from .state import (DYNAMIC, JOINT_FILTER, Capacity, Profile, WorldState,
-                    auto_chunk, zero_events, zero_profile)
+from .state import (DYNAMIC, JOINT_DISTANCE, JOINT_FILTER, JOINT_PRISMATIC,
+                    JOINT_REVOLUTE, JOINT_WHEEL, Capacity, Profile,
+                    WorldState, auto_chunk, zero_events, zero_profile)
 
 
 class StepStats:
@@ -57,27 +64,32 @@ class Step:
     the jitted closure box2d_tpu.world.make_step returns)."""
 
     def __init__(self, capacity: Capacity, classes_present: frozenset,
-                 substeps: int = 4, continuous: bool = True):
+                 substeps: int = 4, continuous: bool = True,
+                 joint_types: frozenset = frozenset()):
         self.capacity = capacity
         self.classes = classes_present
         self.substeps = substeps
         self.continuous = continuous
+        self.joint_types = joint_types
         self.stats = StepStats()
 
     def __call__(self, state: WorldState, dt,
                  light_events: bool = False) -> WorldState:
         return _step(state, dt, self.capacity, self.classes, self.substeps,
-                     self.continuous, self.stats, light_events)
+                     self.continuous, self.stats, light_events,
+                     self.joint_types)
 
 
 def make_step(capacity: Capacity, classes_present: frozenset,
-              substeps: int = 4, continuous: bool = True) -> Step:
-    return Step(capacity, classes_present, substeps, continuous)
+              substeps: int = 4, continuous: bool = True,
+              joint_types: frozenset = frozenset()) -> Step:
+    return Step(capacity, classes_present, substeps, continuous, joint_types)
 
 
 def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
           substeps: int, continuous: bool, syncs: StepStats,
-          light_events: bool = False) -> WorldState:
+          light_events: bool = False,
+          joint_types: frozenset = frozenset()) -> WorldState:
     # whole-world idle fast path (box2d_tpu/world.py:137-159)
     b0 = state.bodies
     idle = (~state.broadphase.dirty
@@ -91,7 +103,8 @@ def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
             state, events=zero_events(cap, dev), profile=zero_profile(dev),
             step_count=state.step_count + 1)
     return _step_work(state, dt, cap, classes_present, substeps, continuous,
-                      syncs, light_events=light_events)
+                      syncs, light_events=light_events,
+                      joint_types=joint_types)
 
 
 def _f32_scalars(dt, substeps):
@@ -117,7 +130,8 @@ def _scatter_rows(rows, idx, n, fill):
 def _step_work(state: WorldState, dt, cap: Capacity,
                classes_present: frozenset, substeps: int, continuous: bool,
                syncs: StepStats, until: str = "",
-               light_events: bool = False):
+               light_events: bool = False,
+               joint_types: frozenset = frozenset()):
     dt, inv_dt, h, inv_h = _f32_scalars(dt, substeps)
     b = state.bodies
     nb = b.center.shape[0]
@@ -169,6 +183,7 @@ def _step_work(state: WorldState, dt, cap: Capacity,
         all_active, cap.max_colors)
     p = data.body_a.shape[0]
     contact_color = torch.where(contact_live, colors[:p], -1)
+    joint_color = torch.where(joint_active, colors[p:], -1)
     num_colors = torch.clamp(
         torch.where(all_active, colors, -1).max() + 1, min=0)
     contact_color_store = raw_colors[:p]
@@ -190,13 +205,16 @@ def _step_work(state: WorldState, dt, cap: Capacity,
         relax = torch.ones(n_all, dtype=torch.float32, device=dev)
     contact_relax = relax[:p]
     if until == "colors":
-        return contact_color, num_colors, contact_relax
+        return contact_color, joint_color, num_colors, contact_relax
 
     bs = BodySolverState(v=b.v, w=b.w, dp=torch.zeros_like(b.center),
                          dq=m.rot_identity((nb,), device=dev))
     cc = prepare_contacts(state, data, contact_color, h, inv_h)
+    # a world without solvable joints prepares none and emits no joint event
+    with_joints = bool(solvable_joint_types(joint_types))
+    jc = prepare_joints(state, joint_color, h, inv_h) if with_joints else None
     if until == "prepare":
-        return cc
+        return cc, jc
 
     # --- color-bucket layout (world.py:337-378) ---------------------------
     l0 = cap.max_colors * chunk
@@ -231,15 +249,23 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     bodyp, paramsp = pack_bodies(b, bs, tn, h, inv_dt)
     # every bucket is swept (empty ones are no-ops), so the live color
     # count is never read back to the host
+    # joint region: the live joints' packed rows sorted by (color, type),
+    # one segment per color, swept ahead of that color's contact bucket
+    jrows = jpos = None
+    if with_joints:
+        jrows, jpos = layout_joint_rows(state.joints, jc, cap.max_colors)
     kernel_args = (scalars, idxL.T.contiguous(),
                    rowsL[:, :NF].T.contiguous(),
                    rowsL[:, NF:NF + NA].T.contiguous(), bodyp, paramsp,
-                   substeps, chunk, l0, cap.max_colors)
+                   substeps, chunk, l0, cap.max_colors, jrows)
     if until == "layout":
         return kernel_args
-    out_body, out_acc = contact_solve(*kernel_args)
+    out = contact_solve(*kernel_args)
     if until == "kernel":
-        return out_body, out_acc
+        return out
+    out_body, out_acc = out[0], out[1]
+    if with_joints:
+        jc = unpack_joint_acc(jc, out[2].T[jpos], joint_color >= 0)
     bs = unpack_bodies(bs, out_body)
     pair_acc = out_acc.T[gidx]
     act = active_lane[:, None]
@@ -255,20 +281,23 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     if until == "tail":
         return tail_args
     return _step_tail(*tail_args, syncs, until=until,
-                      light_events=light_events)
+                      light_events=light_events, jc=jc, inv_h=inv_h)
 
 
 def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
                overflow_colors, touching, continuous, contact_color_store,
                ni, ti, roll, tni, relv, orphan_info, syncs, until: str = "",
-               light_events: bool = False):
+               light_events: bool = False, jc=None, inv_h: float = 0.0):
     """Post-solve: store impulses, events, continuous gate, finalize,
-    sleep, profile (box2d_tpu/world.py:706-805)."""
+    sleep, profile (box2d_tpu/world.py:706-805). jc: the solved
+    JointConstraints (None leaves the joints' stored impulses as they are
+    and emits no joint event)."""
     dev = touching.device
     data = data._replace(normal_impulse=ni, tangent_impulse=ti,
                          rolling_impulse=roll)
     state = dataclasses.replace(
-        state, contacts=update_cache(data, contact_color_store))
+        state, contacts=update_cache(data, contact_color_store),
+        joints=_store_joint_impulses(state.joints, jc))
     store_drops = orphan_info[3]
     if until == "store":
         return state.contacts
@@ -290,8 +319,10 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
                                           orphan_info, any_be, any_orphan)
         events, d_hit = _hit_events(data, approach, pt_ok, hit, events, cap,
                                     any_hit)
-        # joint force events are a no-op: the slice has no live joint
         ev_drop = ev_drop + d_hit
+        if jc is not None:
+            events, d_joint = _joint_events(state, jc, inv_h, events, cap)
+            ev_drop = ev_drop + d_joint
     if until == "events":
         return events
 
@@ -336,6 +367,16 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
     )
     return dataclasses.replace(state, events=events, profile=profile,
                                step_count=state.step_count + 1)
+
+
+def _store_joint_impulses(joints, jc):
+    if jc is None:
+        return joints
+    return dataclasses.replace(
+        joints, impulse=jc.impulse, spring_impulse=jc.spring_impulse,
+        spring_impulse2=jc.spring_impulse2, motor_impulse=jc.motor_impulse,
+        lower_impulse=jc.lower_impulse, upper_impulse=jc.upper_impulse,
+        angular_impulse=jc.angular_impulse)
 
 
 def _compact_events(mask, payload, capacity):
@@ -424,3 +465,42 @@ def _hit_events(data, approach, pt_ok, hit, events, cap, any_hit: bool):
         hit_shapes=put(events.hit_shapes, pairs_ab),
         hit_count=torch.clamp(n_hit, max=e).to(torch.int32),
     ), torch.clamp(n_hit - e, min=0).to(torch.int32)
+
+
+def _joint_events(state, jc, inv_h, events, cap):
+    """Joint force/torque threshold events (box2d_tpu/world.py:964-1000,
+    ref: src/Solver.cs:1126-1150 + per-joint GetReaction), in joint-lane
+    order."""
+    jn = state.joints
+    ty = jn.type
+    lin = torch.sqrt((jc.impulse ** 2).sum(dim=1))
+    axial = jc.spring_impulse + jc.lower_impulse - jc.upper_impulse
+    force = torch.where(
+        ty == JOINT_DISTANCE,
+        torch.abs(jc.impulse[:, 0] + jc.lower_impulse - jc.upper_impulse
+                  + jc.motor_impulse),
+        torch.where(ty == JOINT_PRISMATIC,
+                    torch.hypot(jc.impulse[:, 0], axial + jc.motor_impulse),
+                    torch.where(ty == JOINT_WHEEL,
+                                torch.hypot(jc.impulse[:, 0], axial),
+                                lin))) * inv_h
+    torque = torch.where(
+        ty == JOINT_REVOLUTE,
+        torch.abs(jc.motor_impulse + jc.lower_impulse - jc.upper_impulse),
+        torch.where(ty == JOINT_PRISMATIC, torch.abs(jc.impulse[:, 1]),
+                    torch.where(ty == JOINT_WHEEL,
+                                torch.abs(jc.motor_impulse),
+                                torch.abs(jc.angular_impulse)))) * inv_h
+    over = jc.active & ((force >= jn.force_threshold)
+                        | (torque >= jn.torque_threshold))
+    e = cap.event_capacity
+    pos = torch.cumsum(over.to(torch.int64), 0) - 1
+    tgt = torch.clamp(torch.where(over, pos, e), max=e)
+    ids = torch.arange(ty.shape[0], dtype=torch.int32, device=ty.device)
+    ext = torch.cat([events.joint_force, events.joint_force[:1]])
+    ext[tgt] = ids
+    n_over = over.sum()
+    return dataclasses.replace(
+        events, joint_force=ext[:e],
+        joint_force_count=torch.clamp(n_over, max=e).to(torch.int32),
+    ), torch.clamp(n_over - e, min=0).to(torch.int32)

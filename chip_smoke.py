@@ -8,16 +8,19 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: nvcc builds box2d_tpu_torch/csrc for sm_90a;
-3. kernel vs twin: the contact solver kernel against its plain PyTorch
-   twin on the same CUDA tensors, at the solver inputs the port's own step
-   packs for pyramid-20 and pyramid-140 after 30 steps from spawn (timed),
-   and for pyramid-140 0 and 2 steps from spawn (live overflow tail);
+3. kernel vs twin: the solver kernel against its plain PyTorch twin on the
+   same CUDA tensors, at the solver inputs the port's own step packs for
+   pyramid-20 and pyramid-140 after 30 steps from spawn (timed), for
+   pyramid-140 0 and 2 steps from spawn (live overflow tail), and with
+   joints: joint_farm(1000) after 30 steps (timed) and an all-types scene
+   (weld, wheel, motor, mouse, distance spring with limits and motor);
 4. main path: pyramid-140 and pyramid-20 from spawn through
-   World.compile() and World.run(120) on cuda:0, timed after one warm run;
-   then pyramid-8 on the card against the same world on the CPU.
-It then prints one JSON line describing the kernels, and as its last line
-{"ok": true, "device": {...}}. There is no CPU path: without a CUDA device
-it fails.
+   World.compile() and World.run(120) on cuda:0, then joint_farm(1000)
+   the same way, each timed after one warm run; then pyramid-8
+   and joint_farm(8) on the card against the same world on the CPU.
+It then prints one JSON line describing the kernels (times beside their
+roofline bound), and as its last line {"ok": true, "device": {...}}. There
+is no CPU path: without a CUDA device it fails.
 """
 
 import json
@@ -28,13 +31,24 @@ import time
 import numpy as np
 import torch
 
-MAIN_STEPS = 120
+MAIN_STEPS = 120        # joint_farm(1000), the newest main path
+PYRAMID_STEPS = 120     # the earlier paths
 WARM_STEPS = 30
 TIMED_CALLS = 20
 # kernel vs twin: the kernel rounds each operation like the twin (built
 # with -fmad=false); what differs is the order of float additions where
 # lanes of the overflow tail share a body (atomicAdd vs index_add_)
 ATOL, RTOL = 1e-5, 1e-4
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate and float32 rate outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+# float operations of one lane in one stage, counted from the source
+# (csrc/contact_solver.cu solve_lane, csrc/joint_sweep.cuh joint_lane: the
+# longest branch; body integration per body per substep)
+FLOP_CONTACT_LANE_STAGE = 260
+FLOP_JOINT_LANE_STAGE = 220
+FLOP_BODY_SUBSTEP = 45
 
 
 def phase_device():
@@ -56,9 +70,10 @@ def phase_build():
     from box2d_tpu_torch import contact_solver as cs
 
     lib = cs.build()
-    print(f"[build] nvcc sm_90a {cs.SOURCE}: {cs.BUILD_SECONDS:.2f} s")
+    print(f"[build] nvcc sm_90a {cs.SOURCE} (+ {cs.JOINT_SOURCE}): "
+          f"{cs.BUILD_SECONDS:.2f} s")
     for line in lib.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.strip():
             print(f"[build] {line.strip()}")
 
 
@@ -74,6 +89,31 @@ def _time_ms(fn):
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def _bound_ms(args):
+    """The least time the card could take for one call of the solver on
+    these inputs: the larger of bytes over the memory rate (every input
+    read once, every output written once, dead lanes not counted) and
+    float operations over the float32 rate. Returns (ms, "bytes" or
+    "operations")."""
+    scalars, idx, data, acc, body, params, nsub = args[:7]
+    joints = args[10] if len(args) > 10 else None
+    live = int((idx[0] >= 0).sum())
+    nb = body.shape[1]
+    stages = 3 * nsub + 1
+    # contact lane: 2 idx + 33 data + 9 acc in, 9 acc out; body 8 in, 8 out
+    # and 12 params in
+    nbytes = 4 * (live * (2 + 33 + 9 + 9) + nb * (8 + 8 + 12) + 8)
+    flops = (live * stages * FLOP_CONTACT_LANE_STAGE
+             + nb * nsub * FLOP_BODY_SUBSTEP)
+    if joints is not None:
+        jlive = int((joints.idx[0] >= 0).sum())
+        nbytes += 4 * (jlive * (2 + 39 + 9 + 9 + 1) + joints.offsets.numel())
+        flops += jlive * 3 * nsub * FLOP_JOINT_LANE_STAGE
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_kernel_vs_twin():
@@ -96,7 +136,8 @@ def phase_kernel_vs_twin():
         args = world._step_work(w.state, 1 / 60, w.capacity, step.classes,
                                 step.substeps, step.continuous,
                                 world.StepStats(), until="layout")
-        scalars, idx, data, acc, body, params, nsub, chunk, l0, ncol = args
+        idx, data, acc, body, l0, chunk = (args[1], args[2], args[3],
+                                           args[4], args[8], args[7])
         kb, ka = cs.contact_solve(*args)
         tb, ta = cs.contact_solve_reference(*args)
         torch.cuda.synchronize()
@@ -118,81 +159,257 @@ def phase_kernel_vs_twin():
             continue
         ms = _time_ms(lambda: cs.contact_solve(*args))
         plain_ms = _time_ms(lambda: cs.contact_solve_reference(*args))
+        bound_ms, bound_by = _bound_ms(args)
         print(f"[kernel] {tag}: median of {TIMED_CALLS} calls: "
-              f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms")
+              f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by})")
         results[(rows, steps)] = dict(err=max(err_b, err_a), ms=ms,
-                                      plain_ms=plain_ms)
+                                      plain_ms=plain_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by)
+    return results
+
+
+def all_types_scene(World, t, g, **kw):
+    """Weld, wheel, motor, mouse and a distance spring with limits and
+    motor over a ground box (the scene of tests/test_pallas_solver.py:195-253),
+    built through the World, types and geometry modules it is given, so the
+    CPU tests can build it in both packages. It is stepped without
+    continuous collision, as that test steps it: the mouse joint makes its
+    ball fast enough to open the CCD gate."""
+    w = World(t.WorldDef(gravity=(0.0, -10.0), enable_continuous=False),
+              **kw)
+    ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.5)))
+    w.create_polygon_shape(ground, t.ShapeDef(), g.box(50.0, 0.5))
+    a = w.create_body(t.BodyDef(type=2, position=(0.0, 5.0),
+                                angular_velocity=2.0))
+    w.create_polygon_shape(a, t.ShapeDef(), g.box(0.4, 0.4))
+    b = w.create_body(t.BodyDef(type=2, position=(1.0, 5.0)))
+    w.create_polygon_shape(b, t.ShapeDef(), g.box(0.4, 0.4))
+    w.create_joint(t.WeldJointDef(body_a=a, body_b=b,
+                                  local_anchor_a=(0.5, 0.0),
+                                  local_anchor_b=(-0.5, 0.0)))
+    chassis = w.create_body(t.BodyDef(type=2, position=(5.0, 2.0)))
+    w.create_polygon_shape(chassis, t.ShapeDef(), g.box(1.0, 0.25))
+    wheel = w.create_body(t.BodyDef(type=2, position=(5.0, 1.0)))
+    w.create_circle_shape(wheel, t.ShapeDef(), (0.0, 0.0), 0.4)
+    w.create_joint(t.WheelJointDef(body_a=chassis, body_b=wheel,
+                                   local_anchor_a=(0.0, -1.0),
+                                   enable_motor=True, motor_speed=3.0,
+                                   max_motor_torque=20.0,
+                                   hertz=4.0, damping_ratio=0.7))
+    puck = w.create_body(t.BodyDef(type=2, position=(-5.0, 3.0),
+                                   gravity_scale=0.0))
+    w.create_circle_shape(puck, t.ShapeDef(), (0.0, 0.0), 0.3)
+    w.create_joint(t.MotorJointDef(body_a=ground, body_b=puck,
+                                   linear_velocity=(1.0, 0.0),
+                                   max_velocity_force=10.0,
+                                   angular_velocity=1.0,
+                                   max_velocity_torque=5.0))
+    ball = w.create_body(t.BodyDef(type=2, position=(-8.0, 3.0)))
+    w.create_circle_shape(ball, t.ShapeDef(), (0.0, 0.0), 0.3)
+    w.create_joint(t.MouseJointDef(body_a=ground, body_b=ball,
+                                   target=(-7.0, 4.0), hertz=4.0,
+                                   damping_ratio=0.7, max_force=50.0))
+    p1 = w.create_body(t.BodyDef(type=2, position=(8.0, 4.0)))
+    w.create_circle_shape(p1, t.ShapeDef(), (0.0, 0.0), 0.2)
+    anchor2 = w.create_body(t.BodyDef(type=0, position=(8.0, 6.0)))
+    w.create_joint(t.DistanceJointDef(body_a=anchor2, body_b=p1,
+                                      length=1.5, enable_spring=True,
+                                      hertz=3.0, damping_ratio=0.5,
+                                      enable_limit=True, min_length=1.0,
+                                      max_length=2.5, enable_motor=True,
+                                      max_motor_force=5.0, motor_speed=0.2))
+    return w
+
+
+def phase_joint_kernel_vs_twin():
+    """The kernel with a joint region against the twin, at the inputs the
+    port's step packs: joint_farm(1000) after WARM_STEPS steps (timed) and
+    the all-types scene after 8 steps (every joint branch; untimed)."""
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import geometry, scenes, types, world
+    from box2d_tpu_torch.api import World
+
+    results = {}
+    cases = (("joint_farm-1000", lambda: scenes.joint_farm(1000,
+                                                           device="cuda"),
+              WARM_STEPS, True),
+             ("all-types", lambda: all_types_scene(World, types, geometry,
+                                                   device="cuda"), 8, False))
+    for name, make, steps, timed in cases:
+        tag = f"{name} after {steps} steps"
+        w = make()
+        w.compile()
+        w.run(steps)
+        step = w._step
+        args = world._step_work(w.state, 1 / 60, w.capacity, step.classes,
+                                step.substeps, step.continuous,
+                                world.StepStats(), until="layout",
+                                joint_types=step.joint_types)
+        idx, acc, body, jr = args[1], args[3], args[4], args[10]
+        assert jr is not None, f"{tag}: no joint region was packed"
+        kb, ka, kj = cs.contact_solve(*args)
+        tb, ta, tj = cs.contact_solve_reference(*args)
+        torch.cuda.synchronize()
+        errs = [float((x - y).abs().max()) if x.numel() else 0.0
+                for x, y in ((kb, tb), (ka, ta), (kj, tj))]
+        jlive = int((jr.idx[0] >= 0).sum())
+        jwarm = int((jr.acc != 0).any(0).sum())
+        jtypes = sorted(set(jr.type[jr.idx[0] >= 0].tolist()))
+        ncol = int((jr.offsets[1:] > jr.offsets[:-1]).sum())
+        print(f"[kernel] {tag}: Nb={body.shape[1]} LJ={jr.data.shape[1]} "
+              f"live joint lanes={jlive} in {ncol} colors, types {jtypes}, "
+              f"warm joint lanes={jwarm}, live contact lanes="
+              f"{int((idx[0] >= 0).sum())} max_abs_err body={errs[0]:.3e} "
+              f"contact acc={errs[1]:.3e} joint acc={errs[2]:.3e}")
+        for x, y in ((kb, tb), (ka, ta), (kj, tj)):
+            torch.testing.assert_close(x, y, atol=ATOL, rtol=RTOL)
+        assert jlive > 0, f"{tag}: live joint lanes expected"
+        assert jwarm > 0, f"{tag}: warm joint impulses expected"
+        assert float((kj - jr.acc).abs().max()) > 0, f"{tag}: nothing solved"
+        res = dict(err=max(errs))
+        if name == "all-types":
+            assert jtypes == [0, 1, 4, 5, 7], (
+                f"{tag}: joint types {jtypes}")
+        if timed:
+            res["ms"] = _time_ms(lambda: cs.contact_solve(*args))
+            res["plain_ms"] = _time_ms(
+                lambda: cs.contact_solve_reference(*args))
+            res["bound_ms"], res["bound_by"] = _bound_ms(args)
+            print(f"[kernel] {tag}: median of {TIMED_CALLS} calls: kernel "
+                  f"{res['ms']:.4f} ms, twin {res['plain_ms']:.4f} ms, "
+                  f"bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+        results[name] = res
     return results
 
 
 def _check_state(w, tag):
+    """Finite leaves and a clean profile; returns (leaves, profile)."""
     from box2d_tpu_torch.state import state_to_numpy
 
     leaves = state_to_numpy(w.state)
     for k, v in leaves.items():
         if v.dtype.kind == "f":
             assert np.isfinite(v).all(), f"{tag}: non-finite {k}"
-    dyn = leaves["bodies.type"] == 2
-    min_y = float(leaves["bodies.center"][dyn, 1].min())
-    assert min_y >= 0.45, f"{tag}: a dynamic body sank to y={min_y}"
     prof = {k.split(".", 1)[1]: int(v) for k, v in leaves.items()
             if k.startswith("profile.")}
     for k in ("overflow_pairs", "store_drops", "events_dropped"):
         assert prof[k] == 0, f"{tag}: profile.{k} = {prof[k]}"
-    return min_y, prof
+    return leaves, prof
+
+
+def _pyramid_check(leaves, tag):
+    dyn = leaves["bodies.type"] == 2
+    min_y = float(leaves["bodies.center"][dyn, 1].min())
+    assert min_y >= 0.45, f"{tag}: a dynamic body sank to y={min_y}"
+    return f"min dynamic y {min_y:.4f}"
+
+
+def _joint_farm_check(leaves, tag):
+    """Every revolute pivot holds (its two anchors under 0.05 m apart) and
+    every body stays within 4 m of its ragdoll's static anchor (bodies come
+    in fives: anchor, torso, arm, leg, ball)."""
+    c = leaves["bodies.center"]
+    q = leaves["bodies.rot"]
+    lc = leaves["bodies.local_center"]
+    ja, jb = leaves["joints.body_a"], leaves["joints.body_b"]
+
+    def world_anchor(body, local):
+        r = local - lc[body]
+        qc, qs = q[body, 0], q[body, 1]
+        return c[body] + np.stack([qc * r[:, 0] - qs * r[:, 1],
+                                   qs * r[:, 0] + qc * r[:, 1]], 1)
+
+    rev = leaves["joints.type"] == 3
+    gap = np.linalg.norm(
+        world_anchor(jb[rev], leaves["joints.frame_b_p"][rev])
+        - world_anchor(ja[rev], leaves["joints.frame_a_p"][rev]), axis=1)
+    assert rev.sum() > 0 and gap.max() < 0.05, (
+        f"{tag}: a revolute pivot opened by {gap.max()} m")
+    anchor = c[(np.arange(len(c)) // 5) * 5]
+    reach = float(np.linalg.norm(c - anchor, axis=1).max())
+    assert reach < 4.0, f"{tag}: a body is {reach} m from its anchor"
+    imp = float(np.abs(leaves["joints.impulse"]).max())
+    assert imp > 0, f"{tag}: no joint impulse was stored"
+    return (f"max revolute pivot gap {gap.max():.5f} m; max reach "
+            f"{reach:.3f} m; max |joint impulse| {imp:.4f}")
 
 
 def phase_main_path():
+    """Each main path from spawn: one warm run, then the timed run with the
+    launch counts set to 0 just before it and read just after."""
     from box2d_tpu_torch import contact_solver as cs
     from box2d_tpu_torch import scenes
 
+    paths = (
+        ("pyramid-140", lambda: scenes.pyramid(rows=140, device="cuda"),
+         PYRAMID_STEPS, _pyramid_check, False),
+        ("pyramid-20", lambda: scenes.pyramid(rows=20, device="cuda"),
+         PYRAMID_STEPS, _pyramid_check, False),
+        ("joint_farm-1000", lambda: scenes.joint_farm(1000, device="cuda"),
+         MAIN_STEPS, _joint_farm_check, True),
+    )
     launches = {}
-    for rows in (140, 20):
-        tag = f"pyramid-{rows}"
-        w = scenes.pyramid(rows=rows, device="cuda")
+    for tag, make, steps, scene_check, jointed in paths:
+        w = make()
         w.compile()
         n_dyn = int((w.state.bodies.type == 2).sum())
         state0 = w.state
-        w.run(MAIN_STEPS)               # warm run
+        w.run(steps)               # warm run
         torch.cuda.synchronize()
         w.state = state0
         w.reset_stats()
         cs.LAUNCHES = 0
+        cs.JOINT_LAUNCHES = 0
         t0 = time.perf_counter()
-        w.run(MAIN_STEPS)
+        w.run(steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = w.stats
-        n_launch = cs.LAUNCHES
-        min_y, prof = _check_state(w, tag)
+        n_launch, n_joint = cs.LAUNCHES, cs.JOINT_LAUNCHES
+        leaves, prof = _check_state(w, tag)
+        scene_note = scene_check(leaves, tag)
         work_steps = st.steps - st.idle_steps
-        assert n_launch > 0, f"{tag}: the contact kernel was never launched"
+        assert n_launch > 0, f"{tag}: the solver kernel was never launched"
         assert n_launch == work_steps, (
             f"{tag}: {n_launch} kernel launches for {work_steps} work steps")
+        assert n_joint == (work_steps if jointed else 0), (
+            f"{tag}: {n_joint} launches carried a joint region")
         assert st.ccd_gate_openings == 0, f"{tag}: CCD gate opened"
-        sps = MAIN_STEPS / wall
-        print(f"[main] {tag}: {n_dyn} dynamic bodies, {MAIN_STEPS} steps from"
+        sps = steps / wall
+        print(f"[main] {tag}: {n_dyn} dynamic bodies, {steps} steps from"
               f" spawn in {wall:.3f} s: {sps:.2f} steps/s, "
               f"{sps * n_dyn:.1f} body-steps/s; syncs/step "
               f"{st.syncs / st.steps:.2f}; idle steps {st.idle_steps}; "
-              f"kernel launches {n_launch}; ccd gate openings "
-              f"{st.ccd_gate_openings}; min dynamic y {min_y:.4f}; "
+              f"kernel launches {n_launch} ({n_joint} with joints); ccd "
+              f"gate openings {st.ccd_gate_openings}; {scene_note}; "
               f"final profile {prof}")
-        launches[rows] = n_launch
+        launches[tag] = n_joint if jointed else n_launch
 
-    # the kernel path against the twin path on a small world
-    ws = {}
-    for dev in ("cuda", "cpu"):
-        ws[dev] = scenes.pyramid(rows=8, device=dev)
-        ws[dev].compile()
-        ws[dev].run(20)
-    for field, atol in (("center", 1e-4), ("v", 2e-3)):
-        a = getattr(ws["cuda"].state.bodies, field).cpu()
-        b = getattr(ws["cpu"].state.bodies, field)
-        err = float((a - b).abs().max())
-        print(f"[main] pyramid-8 x20 steps, cuda vs cpu: max |d {field}| "
-              f"= {err:.3e} (bound {atol})")
-        assert err <= atol, f"pyramid-8 {field} differs by {err}"
+    # the kernel path against the twin path on two small worlds
+    small = (
+        ("pyramid-8", lambda d: scenes.pyramid(rows=8, device=d),
+         (("bodies.center", 1e-4), ("bodies.v", 2e-3))),
+        ("joint_farm-8", lambda d: scenes.joint_farm(8, device=d),
+         (("bodies.center", 1e-4), ("bodies.v", 2e-3),
+          ("joints.impulse", 5e-3), ("joints.motor_impulse", 5e-3),
+          ("joints.spring_impulse", 5e-3), ("joints.lower_impulse", 5e-3),
+          ("joints.upper_impulse", 5e-3))),
+    )
+    for tag, make, fields in small:
+        ws = {}
+        for dev in ("cuda", "cpu"):
+            ws[dev] = make(dev)
+            ws[dev].compile()
+            ws[dev].run(20)
+        for field, atol in fields:
+            group, leaf = field.split(".")
+            a = getattr(getattr(ws["cuda"].state, group), leaf).cpu()
+            b = getattr(getattr(ws["cpu"].state, group), leaf)
+            err = float((a - b).abs().max())
+            print(f"[main] {tag} x20 steps, cuda vs cpu: max |d {field}| "
+                  f"= {err:.3e} (bound {atol})")
+            assert err <= atol, f"{tag} {field} differs by {err}"
     return launches
 
 
@@ -200,18 +417,37 @@ def main():
     phase_device()
     phase_build()
     kern = phase_kernel_vs_twin()
+    jkern = phase_joint_kernel_vs_twin()
     launches = phase_main_path()
     big = kern[(140, WARM_STEPS)]
+    farm = jkern["joint_farm-1000"]
+    # no single PyTorch call computes either function (a persistent
+    # multi-stage constraint solve), so library_ms is null
     print(json.dumps({"kernels": [{
         "name": "contact_solve",
         "route": "cuda",
         "source": "box2d_tpu_torch/csrc/contact_solver.cu",
         "replaces": "box2d_tpu/solver_pallas.py:101 (_solver_kernel), "
                     "box2d_tpu/solver_pallas.py:1250 (_tiled_kernel)",
-        "launches": launches[140],
+        "launches": launches["pyramid-140"],
         "max_abs_err": max(r["err"] for r in kern.values()),
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
+        "bound_ms": big["bound_ms"],
+        "bound_by": big["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "joint_sweep",
+        "route": "cuda",
+        "source": "box2d_tpu_torch/csrc/joint_sweep.cuh",
+        "replaces": "box2d_tpu/solver_pallas.py:681 (_joint_sweep)",
+        "launches": launches["joint_farm-1000"],
+        "max_abs_err": max(r["err"] for r in jkern.values()),
+        "ms": farm["ms"],
+        "plain_ms": farm["plain_ms"],
+        "bound_ms": farm["bound_ms"],
+        "bound_by": farm["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -50,7 +50,7 @@ def layout():
     state, cap = w.builder.build()
     classes = classes_for_shape_types(
         s["geom"].type for s in w.builder._shapes)
-    tw = tscenes.pyramid(rows=8)
+    tw = tscenes.pyramid(rows=8, device="cpu")
     tw.compile()
     tw.run(15)
     state = to_jax_state(state, state_to_numpy(tw.state))

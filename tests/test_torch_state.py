@@ -20,17 +20,26 @@ from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
 torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module")
-def leaves():
-    jw = jscenes.pyramid(rows=8)
-    jstate, jcap = jw.builder.build()
-    tw = tscenes.pyramid(rows=8)
+SCENES = {
+    "pyramid8": (lambda: jscenes.pyramid(rows=8),
+                 lambda: tscenes.pyramid(rows=8, device="cpu")),
+    "joint_farm2": (lambda: jscenes.joint_farm(ragdolls=2),
+                    lambda: tscenes.joint_farm(ragdolls=2, device="cpu")),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def leaves(request):
+    make_j, make_t = SCENES[request.param]
+    jstate, jcap = make_j().builder.build()
+    tw = make_t()
     tw.compile()
-    return state_to_numpy(jstate), state_to_numpy(tw.state), jcap, tw.capacity
+    return (state_to_numpy(jstate), state_to_numpy(tw.state), jcap,
+            tw.capacity, make_t)
 
 
 def test_builder_leaves_bit_identical(leaves):
-    jl, tl, jcap, tcap = leaves
+    jl, tl, jcap, tcap, _ = leaves
     assert sorted(jl) == sorted(tl)
     for key in jl:
         a, b = jl[key], tl[key]
@@ -41,7 +50,7 @@ def test_builder_leaves_bit_identical(leaves):
 
 
 def test_state_roundtrip(leaves):
-    _, tl, _, _ = leaves
+    _, tl, _, _, _ = leaves
     back = state_to_numpy(state_from_numpy(tl, "cpu"))
     assert sorted(back) == sorted(tl)
     for key in tl:
@@ -52,10 +61,10 @@ def test_state_roundtrip(leaves):
 def test_jax_state_carried_into_port(leaves):
     """A JAX builder state handed over leaf by leaf steps in the port like
     the port's own state does."""
-    jl, tl, _, _ = leaves
-    w1 = tscenes.pyramid(rows=8)
+    jl, tl, _, _, make_t = leaves
+    w1 = make_t()
     w1.compile()
-    w2 = tscenes.pyramid(rows=8)
+    w2 = make_t()
     w2.compile()
     w2.state = state_from_numpy(jl, "cpu")
     w1.run(2)
@@ -63,6 +72,24 @@ def test_jax_state_carried_into_port(leaves):
     a, b = state_to_numpy(w1.state), state_to_numpy(w2.state)
     for key in a:
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    if (jl["joints.type"] >= 0).any():
+        assert np.abs(a["joints.impulse"]).max() > 0
+
+
+def test_default_device_is_the_card():
+    """World(), the scenes and WorldBuilder.build() place the world on
+    "cuda" when no device is named, and raise where there is none."""
+    import inspect
+
+    from box2d_tpu_torch.api import World
+    from box2d_tpu_torch.builder import WorldBuilder
+
+    for fn in (World.__init__, tscenes.pyramid, tscenes.joint_farm,
+               WorldBuilder.build):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            tscenes.joint_farm(ragdolls=1).compile()
 
 
 def test_import_loads_no_jax():

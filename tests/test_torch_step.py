@@ -20,7 +20,7 @@ torch.set_num_threads(1)
 def _trajectories(rows, steps):
     jw = jscenes.pyramid(rows=rows)
     jw.compile()
-    tw = tscenes.pyramid(rows=rows)
+    tw = tscenes.pyramid(rows=rows, device="cpu")
     tw.compile()
     out = []
     for _ in range(steps):
@@ -58,7 +58,7 @@ def test_run_loop_matches_step_loop(pyramid8):
     """World.run (light events on all but the last frame) steps the bodies
     exactly like World.step."""
     traj, _ = pyramid8
-    tw = tscenes.pyramid(rows=8)
+    tw = tscenes.pyramid(rows=8, device="cpu")
     tw.compile()
     tw.run(len(traj))
     a, b = traj[-1][1], state_to_numpy(tw.state)
