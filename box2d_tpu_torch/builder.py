@@ -5,8 +5,9 @@ gathered eagerly in NumPy with exactly the JAX builder's arithmetic and
 capacity sizing (box2d_tpu/builder.py:156-179), then uploaded once as a
 torch WorldState on the requested device ("cuda" unless the caller names
 another), so both builders produce the same state leaves bit for bit.
-Chains and particles belong to later slices and raise NotImplementedError
-naming their ROADMAP.md item.
+A particle system (particles.ParticleSystemBuilder) is frozen with the
+world. Chains belong to a later slice and raise NotImplementedError naming
+their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ class WorldBuilder:
         self._bodies: list[dict] = []
         self._shapes: list[dict] = []
         self._joints: list[dict] = []
+        self._particle_builder = None
 
     # -- bodies ------------------------------------------------------------
 
@@ -101,8 +103,12 @@ class WorldBuilder:
         return len(self._joints) - 1
 
     def create_particle_system(self, radius: float, density: float = 1.0):
-        raise NotImplementedError(
-            "particles: ROADMAP.md queue 9 (particles, K3 and K4)")
+        """ref: api/Particle.cs:9-38 CreateParticleSystem (one per world; a
+        second call replaces the first, as in box2d_tpu/builder.py:40-45)."""
+        from .particles import ParticleSystemBuilder
+
+        self._particle_builder = ParticleSystemBuilder(radius, density)
+        return self._particle_builder
 
     def _accumulate_mass(self, body: int, geom: g.ShapeGeom, density: float):
         """ref: src/Body.cs:255-353."""
@@ -333,7 +339,8 @@ class WorldBuilder:
             profile=zero_profile(device),
             sensor_overlap=up(np.full(capacity.sensor_pair_capacity, -1,
                                       np.int32)),
-            particles=None,
+            particles=(None if self._particle_builder is None
+                       else self._particle_builder.build(device=device)),
             step_count=up(np.asarray(0, np.int32)),
             broadphase=zero_broadphase(S, capacity.max_contact_pairs, device),
         )

@@ -33,11 +33,10 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
-import time
 
 import torch
 
+from .cuda_build import HERE, nvcc_build
 from .joints import NAJ, NFJ, JointRows, joint_window
 
 NF = 33
@@ -59,43 +58,20 @@ _F = dict(
 LAUNCHES = 0
 JOINT_LAUNCHES = 0
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "contact_solver.cu")
-JOINT_SOURCE = os.path.join(_HERE, "csrc", "joint_sweep.cuh")
-BUILD_DIR = os.path.join(_HERE, "_build")
+SOURCE = os.path.join(HERE, "csrc", "contact_solver.cu")
+JOINT_SOURCE = os.path.join(HERE, "csrc", "joint_sweep.cuh")
 _LIB = None
 BUILD_SECONDS = None   # wall time of this process's nvcc build
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/contact_solver.cu (which includes joint_sweep.cuh) for
-    sm_90a into _build/ (once per
-    process) with $CUDA_HOME/bin/nvcc (default /usr/local/cuda) and load
-    it. Raises if nvcc fails."""
+    sm_90a into _build/ (once per process) and load it (cuda_build.py).
+    Raises if nvcc fails."""
     global _LIB, BUILD_SECONDS
     if _LIB is not None:
         return _LIB
-    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                        "bin", "nvcc")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    out = os.path.join(BUILD_DIR, "libcontact_solver.so")
-    # each process builds to its own file and renames it into place, so
-    # concurrent builds never load a half-written library
-    tmp = f"{out}.{os.getpid()}.tmp"
-    # -fmad=false: no fused multiply-add contraction, so the kernel rounds
-    # each operation as the PyTorch twin does (the twin's elementwise ops
-    # are separate kernels and never fuse)
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, SOURCE]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    BUILD_SECONDS = time.perf_counter() - t0
-    os.replace(tmp, out)
-    lib = ctypes.CDLL(out)
+    lib, log, BUILD_SECONDS = nvcc_build(SOURCE, "contact_solver")
     fn = lib.b2t_contact_solve
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
@@ -104,7 +80,7 @@ def build() -> ctypes.CDLL:
     fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fnj.restype = ctypes.c_int
-    lib.ptxas_log = proc.stderr
+    lib.ptxas_log = log
     _LIB = lib
     return lib
 

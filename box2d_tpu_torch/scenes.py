@@ -1,6 +1,7 @@
-"""Benchmark scenes: the pyramid and the joint farm of the two main paths.
+"""Benchmark scenes: the pyramid, the joint farm and the dam break.
 
-Port of box2d_tpu/scenes.py `pyramid` (:19-36) and `joint_farm` (:65-106).
+Port of box2d_tpu/scenes.py `pyramid` (:19-36), `joint_farm` (:65-106) and
+`dam_break` (:128-145).
 The other scenes come with the slices that step them (ROADMAP.md queue).
 Like every entry point of the port, a scene is built on the card unless the
 caller names another device.
@@ -82,4 +83,25 @@ def joint_farm(ragdolls: int = 100, substeps: int = 4,
             body_a=torso, body_b=ball,
             local_anchor_a=(0.0, 0.0), local_anchor_b=(0.0, 0.0),
             length=1.2, enable_spring=True, hertz=3.0, damping_ratio=0.5))
+    return w
+
+
+def dam_break(particles_target: int = 2000, substeps: int = 4,
+              radius: float = 0.05, device="cuda") -> World:
+    """LiquidFun dam break: a particle column collapses in a static
+    three-box tank (BASELINE.json config 5)."""
+    w = World(substeps=substeps, device=device)
+    tank = w.create_body(t.BodyDef(type=t.STATIC))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(4.0, 0.25, center=(0, -0.25)))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(0.25, 3.0, center=(-4.0, 2.75)))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(0.25, 3.0, center=(4.0, 2.75)))
+    ps = w.create_particle_system(radius=radius)
+    # size the column to roughly hit the particle target
+    stride = 0.75 * 2.0 * radius
+    side = math.sqrt(particles_target) * stride
+    ps.create_group_box(center=(-4.0 + side / 2 + 0.3, side / 2 + 0.05),
+                        half_w=side / 2, half_h=side / 2)
     return w

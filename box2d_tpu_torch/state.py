@@ -376,23 +376,28 @@ def state_to_numpy(state) -> dict[str, np.ndarray]:
 
 def state_from_numpy(leaves: dict, device) -> WorldState:
     """Inverse of state_to_numpy: build a torch WorldState on `device` from
-    {dotted path: array}. dtypes and shapes are kept as given."""
+    {dotted path: array}, nested paths included ("particles.params.radius").
+    dtypes and shapes are kept as given."""
+    from .particles import ParticleParams, Particles
+
+    nested = {WorldState: dict(_SUBTREES, particles=Particles),
+              Particles: {"params": ParticleParams}}
+
     def tensor(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    groups: dict[str, dict] = {}
-    top = {}
+    tree: dict = {}
     for key, val in leaves.items():
-        head, _, rest = key.partition(".")
-        if rest:
-            groups.setdefault(head, {})[rest] = tensor(val)
-        else:
-            top[key] = tensor(val)
-    kw = {name: cls(**groups[name]) for name, cls in _SUBTREES.items()
-          if name in groups}
-    return WorldState(
-        bodies=kw["bodies"], shapes=kw["shapes"], contacts=kw["contacts"],
-        joints=kw["joints"], tuning=kw["tuning"], events=kw["events"],
-        profile=kw["profile"], sensor_overlap=top["sensor_overlap"],
-        particles=None, step_count=top["step_count"],
-        broadphase=kw.get("broadphase"))
+        *heads, leaf = key.split(".")
+        node = tree
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[leaf] = tensor(val)
+
+    def make(cls, node):
+        kw = {k: make(nested[cls][k], v) if isinstance(v, dict) else v
+              for k, v in node.items()}
+        return cls(**kw)
+
+    tree.setdefault("particles", None)
+    return make(WorldState, tree)

@@ -1,10 +1,12 @@
 """World step: one rigid world of circles, capsules and polygons, with
-joints.
+joints, and a plain-water particle system.
 
 Torch port of box2d_tpu/world.py: `make_step`, `_step` with the idle gate
 (:137-159), `_step_work` along the kernel branch (layout scatter :383-496,
 the kernel call :547-566, the pair-order impulse gather :567-573) and
 `_step_tail` (:706-805) with the contact, hit and joint events. A world
+with particles steps them first and runs the rigid pipeline only where it
+has work (the particle gate, box2d_tpu/world.py:101-135). A world
 with solvable joints prepares them after the contacts, sorts their packed
 rows into the joint region of the layout (joints.layout_joint_rows) and
 hands it to the same kernel launch; a world without them packs and
@@ -32,6 +34,7 @@ from .continuous import continuous_pass
 from .joints import (layout_joint_rows, prepare_joints, solvable_joint_types,
                      unpack_joint_acc)
 from .narrowphase import narrow_phase, update_cache
+from .particles import ParticleConfig, particle_step
 from .sleep import wake_and_sleep
 from .solver import (BodySolverState, finalize_bodies, pack_bodies,
                      pack_constraints_pairs, prepare_contacts, unpack_bodies)
@@ -41,16 +44,19 @@ from .state import (DYNAMIC, JOINT_DISTANCE, JOINT_FILTER, JOINT_PRISMATIC,
 
 
 class StepStats:
-    """Counters of a step function: steps taken, idle steps (the idle gate
-    skipped the work), openings of the CCD gate, and device reads. Each
-    read blocks the host until the device has caught up; `syncs` counts
-    them."""
+    """Counters of a step function: steps taken, idle steps (the idle gate,
+    or in a particle world the particle gate, skipped the rigid work),
+    openings of the CCD gate, device reads, and the particle sub-iterations
+    that took the rank repair (K4) or the full sort. Each read blocks the
+    host until the device has caught up; `syncs` counts them."""
 
     def __init__(self):
         self.steps = 0
         self.idle_steps = 0
         self.ccd_gate_openings = 0
         self.syncs = 0
+        self.rank_repairs = 0
+        self.full_sorts = 0
 
     def read(self, *tensors):
         """Read scalar tensors to Python ints in one transfer."""
@@ -65,31 +71,41 @@ class Step:
 
     def __init__(self, capacity: Capacity, classes_present: frozenset,
                  substeps: int = 4, continuous: bool = True,
-                 joint_types: frozenset = frozenset()):
+                 joint_types: frozenset = frozenset(),
+                 particle_cfg: ParticleConfig | None = None):
         self.capacity = capacity
         self.classes = classes_present
         self.substeps = substeps
         self.continuous = continuous
         self.joint_types = joint_types
+        self.particle_cfg = particle_cfg
         self.stats = StepStats()
 
     def __call__(self, state: WorldState, dt,
                  light_events: bool = False) -> WorldState:
         return _step(state, dt, self.capacity, self.classes, self.substeps,
                      self.continuous, self.stats, light_events,
-                     self.joint_types)
+                     self.joint_types, self.particle_cfg)
 
 
 def make_step(capacity: Capacity, classes_present: frozenset,
               substeps: int = 4, continuous: bool = True,
-              joint_types: frozenset = frozenset()) -> Step:
-    return Step(capacity, classes_present, substeps, continuous, joint_types)
+              joint_types: frozenset = frozenset(),
+              particle_cfg: ParticleConfig | None = None) -> Step:
+    return Step(capacity, classes_present, substeps, continuous, joint_types,
+                particle_cfg)
 
 
 def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
           substeps: int, continuous: bool, syncs: StepStats,
           light_events: bool = False,
-          joint_types: frozenset = frozenset()) -> WorldState:
+          joint_types: frozenset = frozenset(),
+          particle_cfg: ParticleConfig | None = None) -> WorldState:
+    if (particle_cfg is not None and state.particles is not None
+            and state.broadphase is not None):
+        return _particle_gate(state, dt, cap, classes_present, substeps,
+                              continuous, syncs, light_events, joint_types,
+                              particle_cfg)
     # whole-world idle fast path (box2d_tpu/world.py:137-159)
     b0 = state.bodies
     idle = (~state.broadphase.dirty
@@ -105,6 +121,40 @@ def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
     return _step_work(state, dt, cap, classes_present, substeps, continuous,
                       syncs, light_events=light_events,
                       joint_types=joint_types)
+
+
+def _particle_gate(state, dt, cap, classes_present, substeps, continuous,
+                   syncs, light_events, joint_types, particle_cfg):
+    """Particles step first; the rigid pipeline runs only when a body is
+    awake or the broadphase is dirty (box2d_tpu/world.py:101-135). The
+    rigid phases read only poses, which particles never touch, so the order
+    is the reference's (api/World.cs:92)."""
+    new_particles, body_dv, body_dw, pov = particle_step(
+        state.particles, state, dt, particle_cfg, syncs)
+    # particle impulses wake the bodies they touch
+    # (ref: particle/World.cs:47-61 ApplyLinearImpulse -> WakeBody)
+    poked = (m.dot(body_dv, body_dv) + body_dw * body_dw) > 1e-12
+    b0 = state.bodies
+    b1 = dataclasses.replace(
+        b0, v=b0.v + body_dv, w=b0.w + body_dw,
+        awake=b0.awake | (poked & (b0.type == DYNAMIC)),
+        sleep_time=torch.where(poked, 0.0, b0.sleep_time))
+    state = dataclasses.replace(state, bodies=b1, particles=new_particles)
+    rigid_live = (state.broadphase.dirty
+                  | (b1.awake & (b1.type != 0) & b1.enabled).any())
+    (live_h,) = syncs.read(rigid_live)
+    syncs.steps += 1
+    if live_h:
+        return _step_work(state, dt, cap, classes_present, substeps,
+                          continuous, syncs, light_events=light_events,
+                          joint_types=joint_types, particle_overflow=pov)
+    syncs.idle_steps += 1
+    dev = b0.center.device
+    return dataclasses.replace(
+        state, events=zero_events(cap, dev),
+        profile=dataclasses.replace(zero_profile(dev),
+                                    overflow_particles=pov),
+        step_count=state.step_count + 1)
 
 
 def _f32_scalars(dt, substeps):
@@ -131,7 +181,7 @@ def _step_work(state: WorldState, dt, cap: Capacity,
                classes_present: frozenset, substeps: int, continuous: bool,
                syncs: StepStats, until: str = "",
                light_events: bool = False,
-               joint_types: frozenset = frozenset()):
+               joint_types: frozenset = frozenset(), particle_overflow=None):
     dt, inv_dt, h, inv_h = _f32_scalars(dt, substeps)
     b = state.bodies
     nb = b.center.shape[0]
@@ -281,17 +331,20 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     if until == "tail":
         return tail_args
     return _step_tail(*tail_args, syncs, until=until,
-                      light_events=light_events, jc=jc, inv_h=inv_h)
+                      light_events=light_events, jc=jc, inv_h=inv_h,
+                      particle_overflow=particle_overflow)
 
 
 def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
                overflow_colors, touching, continuous, contact_color_store,
                ni, ti, roll, tni, relv, orphan_info, syncs, until: str = "",
-               light_events: bool = False, jc=None, inv_h: float = 0.0):
+               light_events: bool = False, jc=None, inv_h: float = 0.0,
+               particle_overflow=None):
     """Post-solve: store impulses, events, continuous gate, finalize,
     sleep, profile (box2d_tpu/world.py:706-805). jc: the solved
     JointConstraints (None leaves the joints' stored impulses as they are
-    and emits no joint event)."""
+    and emits no joint event). particle_overflow: the particle step's
+    overflow count, stored in the profile."""
     dev = touching.device
     data = data._replace(normal_impulse=ni, tangent_impulse=ti,
                          rolling_impulse=roll)
@@ -361,7 +414,8 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
         overflow_colors=overflow_colors,
         store_drops=store_drops,
         overflow_ccd=overflow_ccd,
-        overflow_particles=i0,
+        overflow_particles=(i0 if particle_overflow is None
+                            else particle_overflow),
         events_dropped=ev_drop,
         pair_rebuild=orphan_info[4],
     )

@@ -7,31 +7,38 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 1. device: nvidia-smi name and power limit, torch and CUDA versions;
-2. build: nvcc builds box2d_tpu_torch/csrc for sm_90a;
+2. build: nvcc builds box2d_tpu_torch/csrc/contact_solver.cu and
+   csrc/particles.cu for sm_90a, the two at once;
 3. kernel vs twin: the solver kernel against its plain PyTorch twin on the
    same CUDA tensors, at the solver inputs the port's own step packs for
    pyramid-20 and pyramid-140 after 30 steps from spawn (timed), for
    pyramid-140 0 and 2 steps from spawn (live overflow tail), and with
    joints: joint_farm(1000) after 30 steps (timed) and an all-types scene
    (weld, wheel, motor, mouse, distance spring with limits and motor);
+   then the particle kernels at the inputs the port's dam_break(100000)
+   step gives them after 30 steps: the window pass K3 in its three phases
+   and the rank repair K4 (also against torch.argsort(stable=True)), timed;
 4. main path: pyramid-140 and pyramid-20 from spawn through
    World.compile() and World.run(120) on cuda:0, then joint_farm(1000)
-   the same way, each timed after one warm run; then pyramid-8
-   and joint_farm(8) on the card against the same world on the CPU.
+   and dam_break(100000) the same way, each timed after one warm run; then
+   pyramid-8, joint_farm(8) and dam_break(1000) on the card against the
+   same world on the CPU.
 It then prints one JSON line describing the kernels (times beside their
 roofline bound), and as its last line {"ok": true, "device": {...}}. There
 is no CPU path: without a CUDA device it fails.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-MAIN_STEPS = 120        # joint_farm(1000), the newest main path
+MAIN_STEPS = 120        # joint_farm(1000)
 PYRAMID_STEPS = 120     # the earlier paths
 WARM_STEPS = 30
 TIMED_CALLS = 20
@@ -49,6 +56,15 @@ PEAK_F32_FLOP_PER_S = 67e12
 FLOP_CONTACT_LANE_STAGE = 260
 FLOP_JOINT_LANE_STAGE = 220
 FLOP_BODY_SUBSTEP = 45
+# the particle path: dam_break at the size of bench.py's LiquidFun
+# configuration (bench.py:223, BASELINE.json config 5)
+PARTICLES = 100000
+PARTICLE_STEPS = 120
+# float operations of K3 (csrc/particles.cu window_kernel) per candidate in
+# a neighbour range (the distance test) and per neighbour within one
+# diameter, by phase (weight, pressure, damping)
+FLOP_K3_CANDIDATE = 5
+FLOP_K3_NEIGHBOUR = (7, 15, 23)
 
 
 def phase_device():
@@ -68,11 +84,21 @@ def phase_device():
 
 def phase_build():
     from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import particles_kernels as pk
 
-    lib = cs.build()
+    # one nvcc per source, started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        jobs = [ex.submit(cs.build), ex.submit(pk.build)]
+        lib, plib = (j.result() for j in jobs)
+    print(f"[build] both sources in {time.perf_counter() - t0:.2f} s")
     print(f"[build] nvcc sm_90a {cs.SOURCE} (+ {cs.JOINT_SOURCE}): "
           f"{cs.BUILD_SECONDS:.2f} s")
     for line in lib.ptxas_log.splitlines():
+        if line.strip():
+            print(f"[build] {line.strip()}")
+    print(f"[build] nvcc sm_90a {pk.SOURCE}: {pk.BUILD_SECONDS:.2f} s")
+    for line in plib.ptxas_log.splitlines():
         if line.strip():
             print(f"[build] {line.strip()}")
 
@@ -283,6 +309,152 @@ def phase_joint_kernel_vs_twin():
     return results
 
 
+def _k3_bound_ms(args, phase):
+    """Least time for one K3 call on these inputs: bytes (pos, keys and
+    alive flags read once, p0 / p1 where the phase reads them, the (n, 2)
+    output written once) against float operations (the distance test of
+    every candidate in the three neighbour ranges of each live lane, the
+    phase's terms for every neighbour within one diameter). Returns (ms,
+    "bytes" or "operations", live lanes, candidates, neighbours, widest
+    range)."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    pos, skey, alive = args[0], args[1], args[2]
+    n = skey.shape[0]
+    candidates = neighbours = widest = 0
+    lane = torch.arange(n, device=pos.device)
+    d2max = float(args[5][1])
+    for start, end in pk.neighbour_ranges(skey, alive):
+        width = end - start
+        widest = max(widest, int(width.max()))
+        candidates += int(width.sum())
+        for k in range(int(width.max())):
+            j = torch.clamp(start + k, max=n - 1)
+            d = pos[j] - pos
+            ok = ((start + k < end) & (j != lane) & alive[j]
+                  & ((d * d).sum(dim=1) < d2max))
+            neighbours += int(ok.sum())
+    live = int(alive.sum())
+    reads = (8 + 4 + 1) + 4 * (0, 1, 2)[phase]
+    nbytes = n * (reads + 8) + 32
+    flops = (candidates * FLOP_K3_CANDIDATE
+             + neighbours * FLOP_K3_NEIGHBOUR[phase])
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return by + (live, candidates, neighbours, widest)
+
+
+def phase_particle_kernels():
+    """K3 and K4 against their twins at the inputs the port's
+    dam_break(PARTICLES) step gives them: the three window passes of the
+    first sub-iteration after WARM_STEPS steps, and the rank repair of the
+    latest step up to then that took it (in this scene its jump
+    precondition fails in every sub-iteration in which a particle falling
+    past the tank crosses y = 0, where the cell key's row wraps: ROADMAP.md
+    section 3). Launches made here do not count toward the main path."""
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.particles import particle_step
+
+    w = scenes.dam_break(PARTICLES, device="cuda")
+    w.compile()
+    ranks, rank_step = [], None
+    window_pass, rank_pass = pk.window_pass, pk.rank_pass
+    for i in range(WARM_STEPS + 1):
+        windows, found = [], []
+        # particle_step looks both wrappers up at call time: wrap them to
+        # capture their inputs at this state
+        pk.window_pass = lambda *a: windows.append(a) or window_pass(*a)
+        pk.rank_pass = lambda *a: found.append(a) or rank_pass(*a)
+        try:
+            particle_step(w.state.particles, w.state, 1 / 60,
+                          w._step.particle_cfg, world.StepStats())
+        finally:
+            pk.window_pass, pk.rank_pass = window_pass, rank_pass
+        if found:
+            ranks, rank_step = found, i
+        if i < WARM_STEPS:
+            w.step(1 / 60)
+    windows = windows[:3]
+    assert [a[6] for a in windows] == [0, 1, 2], "K3 phases not recorded"
+    assert ranks, f"the rank repair never engaged in {WARM_STEPS} steps"
+    tag = f"dam_break-{PARTICLES} after {WARM_STEPS} steps"
+    k3 = dict(err=0.0, ms=[], plain_ms=[], bound_ms=[], bound_by=set())
+    for args, pname in zip(windows, ("weight", "pressure", "damping")):
+        phase = args[6]
+        kern = pk.window_pass(*args)
+        twin = pk.window_pass_reference(*args)
+        torch.cuda.synchronize()
+        err = float((kern - twin).abs().max())
+        bound_ms, bound_by, live, cand, neigh, widest = _k3_bound_ms(
+            args, phase)
+        ms = _time_ms(lambda: pk.window_pass(*args))
+        plain_ms = _time_ms(lambda: pk.window_pass_reference(*args))
+        print(f"[kernel] K3 {pname}, {tag}: n={args[1].shape[0]} live "
+              f"lanes={live} candidates={cand} neighbours={neigh} widest "
+              f"range={widest} max_abs_err={err:.3e}; median of "
+              f"{TIMED_CALLS} calls: kernel {ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        # the twin sums each range in lane order like the kernel, and the
+        # kernel is built with -fmad=false; the bound covers any order
+        torch.testing.assert_close(kern, twin, atol=ATOL, rtol=RTOL)
+        assert float(kern.abs().max()) > 0, f"K3 {pname}: all zero"
+        k3["err"] = max(k3["err"], err)
+        k3["ms"].append(ms)
+        k3["plain_ms"].append(plain_ms)
+        k3["bound_ms"].append(bound_ms)
+        k3["bound_by"].add(bound_by)
+
+    # the recorded repair that moves the most lanes
+    ident = torch.arange(ranks[0][0].shape[0], dtype=torch.int32,
+                         device=ranks[0][0].device)
+    newkey, offs, rb = max(
+        ranks, key=lambda a: int((pk.rank_pass_reference(*a) != ident).sum()))
+    kern = pk.rank_pass(newkey, offs, rb)
+    twin = pk.rank_pass_reference(newkey, offs, rb)
+
+    def library():
+        order = torch.argsort(newkey, stable=True)
+        out = torch.empty_like(newkey)
+        out[order] = torch.arange(newkey.shape[0], dtype=torch.int32,
+                                  device=newkey.device)
+        return out
+
+    want = library()
+    torch.cuda.synchronize()
+    assert torch.equal(kern, twin), "K4 differs from its twin"
+    assert torch.equal(kern, want), "K4 differs from the stable argsort"
+    moved = int((want != ident).sum())
+    n = newkey.shape[0]
+    nbk = offs.shape[0]
+    # the least the function needs, not the windowed count's work: keys and
+    # offsets read once, ranks written once; one compare per lane to see it
+    # is in order, and a binary search of the window per lane that moves
+    nbytes = 4 * (2 * n + offs.numel())
+    # (int32 compares, counted at the float32 rate: the card's published
+    # peaks give no int32 rate)
+    ops = n + moved * math.ceil(math.log2(rb))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
+    err = max(int((kern.long() - x.long()).abs().max()) for x in (twin, want))
+    k4 = dict(err=err, ms=_time_ms(lambda: pk.rank_pass(newkey, offs, rb)),
+              plain_ms=_time_ms(
+                  lambda: pk.rank_pass_reference(newkey, offs, rb)),
+              library_ms=_time_ms(library))
+    k4["bound_ms"], k4["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                      else (t_ops, "operations"))
+    print(f"[kernel] K4, dam_break-{PARTICLES} after {rank_step} steps "
+          f"(the latest that took the repair): n={n} blocks={nbk} "
+          f"window={rb} lanes that "
+          f"move={moved}; max_abs_err={err} against its twin and "
+          f"torch.argsort(stable=True); median of {TIMED_CALLS} calls: kernel "
+          f"{k4['ms']:.4f} ms, twin {k4['plain_ms']:.4f} ms, argsort + "
+          f"inverse scatter {k4['library_ms']:.4f} ms, bound "
+          f"{k4['bound_ms']:.6f} ms ({k4['bound_by']})")
+    return k3, k4
+
+
 def _check_state(w, tag):
     """Finite leaves and a clean profile; returns (leaves, profile)."""
     from box2d_tpu_torch.state import state_to_numpy
@@ -386,7 +558,9 @@ def phase_main_path():
               f"final profile {prof}")
         launches[tag] = n_joint if jointed else n_launch
 
-    # the kernel path against the twin path on two small worlds
+    launches.update(phase_particle_path())
+
+    # the kernel path against the twin path on small worlds
     small = (
         ("pyramid-8", lambda d: scenes.pyramid(rows=8, device=d),
          (("bodies.center", 1e-4), ("bodies.v", 2e-3))),
@@ -410,19 +584,121 @@ def phase_main_path():
             print(f"[main] {tag} x20 steps, cuda vs cpu: max |d {field}| "
                   f"= {err:.3e} (bound {atol})")
             assert err <= atol, f"{tag} {field} differs by {err}"
+
+    # dam_break(1000) for 20 steps, card vs CPU. K3 and its twin agree
+    # bit for bit, but the rest of the step sums in other orders on the two
+    # devices (the (n, 3) body-contact sums, the body-impulse sums), and a
+    # collapsing column amplifies a last-bit difference over the steps:
+    # positions within 1e-3, velocities within 1e-2
+    ws = {}
+    for dev in ("cuda", "cpu"):
+        ws[dev] = scenes.dam_break(1000, device=dev)
+        ws[dev].compile()
+        ws[dev].run(20)
+    a, b = ws["cuda"].state.particles, ws["cpu"].state.particles
+    assert torch.equal(a.alive.cpu(), b.alive), "dam_break-1000: alive"
+    for field, atol in (("pos", 1e-3), ("vel", 1e-2)):
+        err = float((getattr(a, field).cpu() - getattr(b, field)).abs().max())
+        print(f"[main] dam_break-1000 x20 steps, cuda vs cpu: max |d "
+              f"particles.{field}| = {err:.3e} (bound {atol})")
+        assert err <= atol, f"dam_break-1000 {field} differs by {err}"
     return launches
 
 
+# the dam_break tank (box2d_tpu_torch/scenes.py dam_break): (center, half)
+TANK = (((0.0, -0.25), (4.0, 0.25)), ((-4.0, 2.75), (0.25, 3.0)),
+        ((4.0, 2.75), (0.25, 3.0)))
+
+
+def phase_particle_path():
+    """dam_break(PARTICLES) from spawn: one warm run, then the timed run of
+    PARTICLE_STEPS steps with the launch counts set to 0 just before it and
+    read just after."""
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import scenes
+
+    tag = f"dam_break-{PARTICLES}"
+    w = scenes.dam_break(PARTICLES, device="cuda")
+    w.compile()
+    state0 = w.state
+    n_live = int(state0.particles.alive.sum())
+    w.run(PARTICLE_STEPS)            # warm run
+    torch.cuda.synchronize()
+    w.state = state0
+    w.reset_stats()
+    cs.LAUNCHES = 0
+    pk.K3_LAUNCHES = 0
+    pk.K4_LAUNCHES = 0
+    t0 = time.perf_counter()
+    w.run(PARTICLE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = w.stats
+    k3, k4, n_solve = pk.K3_LAUNCHES, pk.K4_LAUNCHES, cs.LAUNCHES
+    leaves, prof = _check_state(w, tag)
+    rigid = st.steps - st.idle_steps
+    assert k3 == 12 * PARTICLE_STEPS, f"{tag}: {k3} K3 launches"
+    assert k4 > 0, f"{tag}: the rank repair K4 was never launched"
+    assert k4 == st.rank_repairs, f"{tag}: {k4} K4 launches"
+    assert k4 + st.full_sorts == 4 * PARTICLE_STEPS
+    assert prof["overflow_particles"] == 0, f"{tag}: particle overflow"
+    assert n_solve == rigid, f"{tag}: {n_solve} solver launches"
+    assert st.ccd_gate_openings == 0, f"{tag}: CCD gate opened"
+    alive = leaves["particles.alive"]
+    assert alive.all() and alive.sum() == n_live, f"{tag}: particles died"
+    pos = leaves["particles.pos"]
+    # no tunnelling: no live particle ends inside a tank box shrunk by the
+    # radius. The 316 x 316 grid of the JAX scene is 23.7 m wide, wider
+    # than the 8 m tank, so some of its particles spawn inside the right
+    # wall; they are counted, and must have been pushed out by the end
+    r = float(leaves["particles.params.radius"])
+    spawn = state0.particles.pos.cpu().numpy()
+
+    def in_tank_box(p):
+        hit = np.zeros(len(p), bool)
+        for (cx, cy), (hx, hy) in TANK:
+            hit |= ((np.abs(p[:, 0] - cx) < hx - r)
+                    & (np.abs(p[:, 1] - cy) < hy - r))
+        return hit
+
+    born_inside = in_tank_box(spawn)
+    now_inside = in_tank_box(pos)
+    tunnelled = int((now_inside & ~born_inside).sum())
+    assert tunnelled == 0, f"{tag}: {tunnelled} particles tunnelled"
+    assert not now_inside.any(), (
+        f"{tag}: {int(now_inside.sum())} particles inside a tank wall")
+    in_tank = ((np.abs(pos[:, 0]) < 4.0) & (pos[:, 1] > 0.0)
+               & (pos[:, 1] < 5.75))
+    sps = PARTICLE_STEPS / wall
+    print(f"[main] {tag}: {n_live} live particles, {PARTICLE_STEPS} steps "
+          f"from spawn in {wall:.3f} s: {sps:.2f} steps/s, "
+          f"{sps * n_live:.1f} particle-steps/s; syncs/step "
+          f"{st.syncs / st.steps:.2f}; K3 launches {k3} "
+          f"({k3 / PARTICLE_STEPS:.0f}/step); K4 launches {k4}, full sorts "
+          f"{st.full_sorts}; rigid steps run {rigid}, skipped "
+          f"{st.idle_steps}; solver launches {n_solve}; overflow_particles "
+          f"{prof['overflow_particles']}; spawned inside a tank box "
+          f"{int(born_inside.sum())}, inside one now "
+          f"{int(now_inside.sum())}, tunnelled 0; between the walls now "
+          f"{int(in_tank.sum())}")
+    return {"particle_window": k3, "particle_rank": k4}
+
+
 def main():
+    t_start = time.perf_counter()
     phase_device()
     phase_build()
     kern = phase_kernel_vs_twin()
     jkern = phase_joint_kernel_vs_twin()
+    k3, k4 = phase_particle_kernels()
     launches = phase_main_path()
     big = kern[(140, WARM_STEPS)]
     farm = jkern["joint_farm-1000"]
+    mean = statistics.fmean
     # no single PyTorch call computes either function (a persistent
     # multi-stage constraint solve), so library_ms is null
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "contact_solve",
         "route": "cuda",
@@ -448,6 +724,33 @@ def main():
         "bound_ms": farm["bound_ms"],
         "bound_by": farm["bound_by"],
         "library_ms": None,
+    }, {
+        # per launch: the mean over its three phases (weight, pressure,
+        # damping); no single PyTorch call computes a neighbour sum
+        "name": "particle_window",
+        "route": "cuda",
+        "source": "box2d_tpu_torch/csrc/particles.cu",
+        "replaces": "box2d_tpu/particles_pallas.py:396 (window_pass)",
+        "launches": launches["particle_window"],
+        "max_abs_err": k3["err"],
+        "ms": mean(k3["ms"]),
+        "plain_ms": mean(k3["plain_ms"]),
+        "bound_ms": mean(k3["bound_ms"]),
+        "bound_by": "/".join(sorted(k3["bound_by"])),
+        "library_ms": None,
+    }, {
+        # library: torch.argsort(stable=True) and the inverse scatter
+        "name": "particle_rank",
+        "route": "cuda",
+        "source": "box2d_tpu_torch/csrc/particles.cu",
+        "replaces": "box2d_tpu/particles_pallas.py:356 (rank_pass)",
+        "launches": launches["particle_rank"],
+        "max_abs_err": k4["err"],
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"],
+        "library_ms": k4["library_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a step of the PyTorch / CUDA port spends its time on one GPU.
 
-    python3 profile_port.py [joint_farm-1000 | pyramid-140 | pyramid-20]...
+    python3 profile_port.py [joint_farm-1000 | pyramid-140 | pyramid-20 |
+                             dam_break-100000]...
 
 For each scene: steps it 100 times from spawn (warm), times 20 unprofiled
 steps on the host clock (ended by torch.cuda.synchronize()), then traces 10
@@ -30,6 +31,8 @@ def make(name):
         return scenes.joint_farm(int(size))
     if kind == "pyramid":
         return scenes.pyramid(rows=int(size))
+    if kind == "dam_break":
+        return scenes.dam_break(int(size))
     raise SystemExit(f"unknown scene {name}")
 
 
@@ -74,7 +77,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
-    for name in sys.argv[1:] or ["joint_farm-1000", "pyramid-140"]:
+    for name in sys.argv[1:] or ["joint_farm-1000", "pyramid-140",
+                                 "dam_break-100000"]:
         run(name)
 
 

@@ -25,6 +25,8 @@ SCENES = {
                  lambda: tscenes.pyramid(rows=8, device="cpu")),
     "joint_farm2": (lambda: jscenes.joint_farm(ragdolls=2),
                     lambda: tscenes.joint_farm(ragdolls=2, device="cpu")),
+    "dam_break300": (lambda: jscenes.dam_break(300),
+                     lambda: tscenes.dam_break(300, device="cpu")),
 }
 
 
@@ -74,6 +76,8 @@ def test_jax_state_carried_into_port(leaves):
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
     if (jl["joints.type"] >= 0).any():
         assert np.abs(a["joints.impulse"]).max() > 0
+    if "particles.pos" in jl:
+        assert not np.array_equal(a["particles.pos"], jl["particles.pos"])
 
 
 def test_default_device_is_the_card():
@@ -85,7 +89,7 @@ def test_default_device_is_the_card():
     from box2d_tpu_torch.builder import WorldBuilder
 
     for fn in (World.__init__, tscenes.pyramid, tscenes.joint_farm,
-               WorldBuilder.build):
+               tscenes.dam_break, WorldBuilder.build):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((AssertionError, RuntimeError)):
@@ -94,5 +98,7 @@ def test_default_device_is_the_card():
 
 def test_import_loads_no_jax():
     code = ("import sys, box2d_tpu_torch, box2d_tpu_torch.api, "
-            "box2d_tpu_torch.scenes; assert 'jax' not in sys.modules")
+            "box2d_tpu_torch.scenes, box2d_tpu_torch.particles, "
+            "box2d_tpu_torch.particles_kernels; "
+            "assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
