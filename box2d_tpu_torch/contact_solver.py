@@ -18,12 +18,21 @@ feed box2d_tpu.solver_pallas.run_solver_kernel in the tests:
   c < n_colors; lanes [l0, L) are the overflow tail. Buckets at or above
   n_colors must be empty.
   joints (optional): joints.JointRows, the joint region. Its lanes are
-  sorted by color; color c owns lanes [offsets[c], offsets[c + 1]) and is
-  swept just ahead of contact bucket c in every stage but restitution.
-Every window (bucket, joint segment or tail) is a Jacobi window: its lanes read the body
-state at the window's start, then the velocity deltas of dynamic endpoints
-are summed in. Mode 1 sweeps the tail as chunk-wide windows in sequence, so
-it agrees with this when the live tail lanes fit in the first chunk.
+  sorted by color, then type; color c owns lanes [offsets[c],
+  offsets[c + 1]) and is swept just ahead of contact bucket c in every
+  stage but restitution.
+`window_table` lists the windows of a stage in visit order; empty ones are
+left out. A window is a Jacobi window: its lanes read the body state at
+the window's start, then the velocity deltas of dynamic endpoints are
+summed in. Within a color bucket or joint segment no two lanes share a
+dynamic body (the coloring sees to it), so there this equals a Gauss-Seidel
+sweep and the kernel writes each lane's bodies straight away; the
+overflow tail and the overflow color's joint segment, whose lanes do share
+bodies, are true Jacobi windows. The overflow color's joints are swept as
+the tiled Pallas kernel sweeps them: one window per type, cut into windows
+of at most JOINT_WINDOW lanes. Mode 1 sweeps the contact tail as
+chunk-wide windows in sequence, so it agrees with this when the live tail
+lanes fit in the first chunk.
 
 `contact_solve` takes the twin for CPU tensors only. For CUDA tensors it
 launches the kernel or raises; there is no fallback.
@@ -53,6 +62,13 @@ _F = dict(
     relax=32,
 )
 
+# the colors the kernel's window table holds (the coloring's masks hold 32)
+MAX_COLORS = 32
+# the most lanes of a window of the overflow color's joints: the tiled
+# Pallas kernel's window width (box2d_tpu/solver_pallas.py:619-628; its
+# window_width gives 128 for every color chunk at the default target)
+JOINT_WINDOW = 128
+
 # kernel launches made by contact_solve (the twin does not count), and how
 # many of them carried a joint region (the joint sweep ran on the card)
 LAUNCHES = 0
@@ -62,6 +78,7 @@ SOURCE = os.path.join(HERE, "csrc", "contact_solver.cu")
 JOINT_SOURCE = os.path.join(HERE, "csrc", "joint_sweep.cuh")
 _LIB = None
 BUILD_SECONDS = None   # wall time of this process's nvcc build
+_SHAPES = {}           # launch_shape's answers, by whether joints ride
 
 
 def build() -> ctypes.CDLL:
@@ -77,12 +94,33 @@ def build() -> ctypes.CDLL:
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fnj = lib.b2t_contact_solve_joints
-    fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [
+    fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fnj.restype = ctypes.c_int
+    lib.b2t_launch_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.b2t_launch_shape.restype = ctypes.c_int
     lib.ptxas_log = log
     _LIB = lib
     return lib
+
+
+def launch_shape(joints: bool) -> dict:
+    """The kernel's launch on the current card: `cluster` CTAs of `threads`
+    threads, one cluster a launch, and `max_active_clusters`, how many such
+    clusters the card can hold at once (cudaOccupancyMaxActiveClusters).
+    Raises if the cluster does not fit. Asked once per process."""
+    key = bool(joints)
+    if key not in _SHAPES:
+        out = (ctypes.c_int * 3)()
+        rc = build().b2t_launch_shape(int(key), ctypes.addressof(out))
+        shape = dict(cluster=out[0], threads=out[1],
+                     max_active_clusters=out[2])
+        if rc != 0 or shape["max_active_clusters"] < 1:
+            raise RuntimeError(f"contact_solve: a cluster of {out[0]} CTAs "
+                               f"of {out[1]} threads does not fit on this "
+                               f"card (cudaError {rc}, {out[2]} clusters)")
+        _SHAPES[key] = shape
+    return _SHAPES[key]
 
 
 def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
@@ -111,6 +149,9 @@ def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
     if not (0 <= n_colors * chunk <= l0 <= L):
         raise ValueError(f"bad layout: n_colors={n_colors} chunk={chunk} "
                          f"l0={l0} L={L}")
+    if n_colors > MAX_COLORS:
+        raise ValueError(f"n_colors={n_colors}: the kernel's window table "
+                         f"holds {MAX_COLORS} colors")
 
 
 def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
@@ -131,13 +172,13 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
     lib = build()
     L = data.shape[1]
     nb = body.shape[1]
-    lj = 0 if joints is None else joints.data.shape[1]
-    scratch_w = max(chunk, L - l0, lj, 1)
+    scratch_w = max(L - l0, JOINT_WINDOW, 1)
     out_body = torch.empty_like(body)
     out_acc = torch.empty_like(acc)
     scratch = torch.empty((6, scratch_w), dtype=torch.float32,
                           device=body.device)
     with torch.cuda.device(body.device):
+        launch_shape(joints is not None)
         stream = torch.cuda.current_stream(body.device).cuda_stream
         if joints is None:
             rc = lib.b2t_contact_solve(
@@ -154,7 +195,9 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
                 joints.idx.data_ptr(), joints.data.data_ptr(),
                 joints.acc.data_ptr(), joints.type.data_ptr(),
                 joints.offsets.data_ptr(), out_jacc.data_ptr(),
-                nb, L, chunk, l0, n_colors, nsub, scratch_w, lj, stream)
+                nb, L, chunk, l0, n_colors, nsub, scratch_w,
+                joints.data.shape[1], int(joints.overflow), JOINT_WINDOW,
+                stream)
     if rc != 0:
         raise RuntimeError(f"contact_solve kernel launch failed: "
                            f"cudaError {rc}")
@@ -166,6 +209,56 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
 
 
 # ---------------------------------------------------------------------------
+# the windows of a stage
+# ---------------------------------------------------------------------------
+
+def window_table(idx, chunk: int, l0: int, n_colors: int,
+                 joints: JointRows | None = None):
+    """The non-empty windows of one stage in visit order, as (kind, color,
+    lo, hi) lane ranges: for each color c, its joint segment ("joint") or,
+    if it is the overflow color's, that segment's kind-pure Jacobi windows
+    of at most JOINT_WINDOW lanes ("joint_jacobi"), then contact
+    bucket c up to its last live lane ("contact"); then the overflow tail
+    up to its last live lane ("tail", color n_colors). Joint windows take
+    no part in the restitution stage. The kernel builds the same table on
+    the card (its prologue): when the coloring overflowed
+    (joints.overflow), the overflow color, the highest in use, owns the
+    last non-empty joint segment; cutting a segment without shared bodies
+    into windows changes nothing. Reads the layout back to the host."""
+    L = idx.shape[1]
+    live = (idx[0] >= 0).cpu()
+    ends = []
+    for lo, hi in [(c * chunk, (c + 1) * chunk) for c in range(n_colors)] \
+            + [(l0, L)]:
+        nz = torch.nonzero(live[lo:hi])
+        ends.append(lo + int(nz[-1]) + 1 if nz.numel() else lo)
+    joff = [0] * (n_colors + 1) if joints is None else joints.offsets.tolist()
+    split = -1
+    if joints is not None and joints.overflow:
+        split = max((c for c in range(n_colors) if joff[c + 1] > joff[c]),
+                    default=-1)
+    table = []
+    for c in range(n_colors):
+        jlo, jhi = joff[c], joff[c + 1]
+        if c == split:
+            types = joints.type[jlo:jhi].tolist()
+            s = jlo
+            while s < jhi:
+                e = min(s + JOINT_WINDOW, jhi)
+                e = next((k for k in range(s + 1, e)
+                          if types[k - jlo] != types[s - jlo]), e)
+                table.append(("joint_jacobi", c, s, e))
+                s = e
+        elif jhi > jlo:
+            table.append(("joint", c, jlo, jhi))
+        if ends[c] > c * chunk:
+            table.append(("contact", c, c * chunk, ends[c]))
+    if ends[n_colors] > l0:
+        table.append(("tail", n_colors, l0, ends[n_colors]))
+    return table
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch twin
 # ---------------------------------------------------------------------------
 
@@ -173,32 +266,23 @@ def contact_solve_reference(scalars, idx, data, acc, body, params,
                             nsub: int, chunk: int, l0: int, n_colors: int,
                             joints: JointRows | None = None):
     """The kernel's semantics in plain PyTorch on any device: the same
-    stages, windows and arithmetic (mode 1's contact_sweep and the joint
-    sweep, operation by operation), with each window's deltas added by
-    index_add_."""
-    L = data.shape[1]
+    stages, windows (window_table) and arithmetic (mode 1's contact_sweep
+    and the joint sweep, operation by operation), with each window's deltas
+    added by index_add_."""
     out_body = body.clone()   # updated in place below
     out_acc = acc.clone()
     s = scalars.reshape(-1)
     h, inv_h, contact_speed, rthresh, max_lin = s[0], s[1], s[2], s[3], s[4]
     live = idx[0] >= 0
-    bounds = [(c * chunk, (c + 1) * chunk) for c in range(n_colors)]
-    bounds.append((l0, L))
     if joints is not None:
         out_jacc = joints.acc.clone()
         jlive = joints.idx[0] >= 0
-        joff = joints.offsets.tolist()
-    # (is_joint, lanes) in visit order: joints of color c, contacts of
-    # color c, ..., then the overflow tail
+    # (is_joint, live lanes) in visit order
     windows = []
-    for c, (lo, hi) in enumerate(bounds):
-        if joints is not None and c < n_colors and joff[c + 1] > joff[c]:
-            jl = torch.nonzero(jlive[joff[c]:joff[c + 1]]).squeeze(1) + joff[c]
-            if jl.numel():
-                windows.append((True, jl))
-        lanes = torch.nonzero(live[lo:hi]).squeeze(1) + lo
-        if lanes.numel():
-            windows.append((False, lanes))
+    for kind, _, lo, hi in window_table(idx, chunk, l0, n_colors, joints):
+        is_joint = kind.startswith("joint")
+        lanes = torch.nonzero((jlive if is_joint else live)[lo:hi])
+        windows.append((is_joint, lanes.squeeze(1) + lo))
     for k in range(3 * nsub + 1):
         p = 3 if k == 3 * nsub else k % 3
         if p == 0:

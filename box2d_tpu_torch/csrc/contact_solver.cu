@@ -1,5 +1,5 @@
 // TGS-soft solve for one world: the whole substep pipeline, contacts and
-// joints, in one launch.
+// joints, in one launch of one thread-block cluster.
 //
 // Replaces the two Pallas TPU kernels of box2d_tpu/solver_pallas.py that
 // compute this pipeline: `_solver_kernel` (run_solver_kernel, the
@@ -19,39 +19,77 @@
 // solves with bias, p==2 integrates positions then relaxes, p==3 applies
 // restitution.
 //
-// Every window is one Jacobi window, as in the Pallas kernels: all lanes
-// read the body state as it was at the window's start (phase 1 writes the
-// lane's velocity deltas to scratch), then the deltas of dynamic endpoints
-// are added (phase 2, atomicAdd). Within a color bucket no two lanes share
-// a dynamic body, so this equals the Gauss-Seidel sweep; in the overflow
-// tail it is the mass-split Jacobi pass. Static and kinematic endpoints have
-// zero inverse mass, so their delta is exactly zero and is not written.
+// The window table. The prologue finds where the live lanes of each
+// bucket and of the tail end (only dead lanes being -1 is relied on) and
+// keeps the table in each CTA's shared memory; every stage then walks only
+// the non-empty windows, in the order of contact_solver.window_table: for
+// each color c its joint segment and its contact bucket, then the tail. An
+// empty window costs neither a pass nor a barrier. The Pallas kernels walk
+// a list of active windows too (window_metadata); the table is that list,
+// built on the card without a host read.
 //
-// What bounds it: one thread block (one SM of the card's 132) walks all
-// windows, with two block barriers per window, and each lane gathers its
-// two bodies' rows from L2 (Nb x 8 floats: 316 KB at pyramid-140, too big
-// for shared memory). The design keeps everything in one launch (no
-// per-window launch or host round trip) and reads body rows through L2
-// (ld.global.cg) so that other lanes' atomics are seen after each barrier.
-// Spreading windows over more SMs (grid-wide sync) or batching worlds over
-// blocks (gridDim.x) is later work.
+// Two kinds of window. In a color bucket, and in the joint segment of a
+// color that did not overflow, no two lanes share a dynamic body: that is
+// what the coloring guarantees, and joints and contacts are colored
+// together, so joint segment c and bucket c share none either. There a
+// lane reads its two bodies, solves, and adds v - v0 to each dynamic
+// endpoint at once; no other lane of the window touches that body, so the
+// add in L2 leaves v0 + (v - v0), what the twin's index_add_ leaves. Joint
+// segment c and bucket c are one such window, with one barrier behind it.
+// The overflow tail and the overflow color's joint segment share bodies
+// and stay Jacobi windows: phase 1 writes each lane's deltas to scratch,
+// barrier, phase 2 adds them with atomicAdd, barrier. That joint segment is
+// cut as the tiled Pallas kernel cuts it: one window per joint type, at
+// most `jwin` lanes each. Static and kinematic endpoints have zero inverse
+// mass; their delta is exactly zero and is not written.
+//
+// The cluster. A launch is one cluster of kCluster CTAs of kThreads
+// threads on as many SMs. A window's lanes are dealt to the CTAs a warp at
+// a time, so a 2,560-lane bucket of pyramid-140 is one pass spread over
+// eight SMs (its 5,120-lane tail two), and so are the body integration
+// passes; the barriers are the cluster's hardware barrier
+// (barrier.cluster.arrive.release / wait.acquire). A call whose every pass
+// fits in one CTA (pyramid-20: 211 bodies, windows of at most 128 lanes)
+// runs on CTA 0 alone, behind block barriers, which cost less; the other
+// CTAs leave after the prologue. Body rows, accumulators and scratch stay
+// in device memory and are read and written only through L2
+// (ld/st.global.cg and atomics), never through an SM's L1, so a barrier's
+// release/acquire is all it takes for one SM's writes to be seen by the
+// others. Inputs that no one writes go through the read-only path. CTAs of
+// 512 threads leave each thread 128 registers: at 1,024 threads (64
+// registers) the lane's solve spilled 400-600 bytes.
+//
+// What bounds it: latency, not bytes or flops. The windows of a stage are
+// serial, and each costs one lane's dependent chain (idx load, body
+// gathers from L2, ~260 float operations, atomics whose completion the
+// barrier's release waits for) plus the barrier (two for a Jacobi window):
+// a call takes about (windows per stage x stages) x (that chain + a
+// barrier), a few microseconds a window. Its bound from bytes is three
+// orders of magnitude lower. Keeping the body rows in the cluster's
+// distributed shared memory (a shorter chain), one cluster per world for
+// flat batches, and CUDA graphs around the host-bound step are the next
+// levers (ROADMAP.md section 2).
 //
 // Joints: a jointed world launches the second instance of the kernel
-// (solve_kernel<true>), which sweeps a joint segment ahead of each color's
-// contact bucket (joint_sweep.cuh): joints of color c, then contacts of
-// color c, for c ascending, then the overflow tail, in every stage but the
-// restitution stage. A joint segment is a Jacobi window like any other. A
-// world without live joints launches solve_kernel<false>, which holds no
-// joint code, so its registers and its results are those of the
+// (solve_kernel<true>), which sweeps a joint segment with each color's
+// contact bucket (joint_sweep.cuh), in every stage but the restitution
+// stage. A world without live joints launches solve_kernel<false>, which
+// holds no joint code, so its registers and its results are those of the
 // contact-only kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "joint_sweep.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;   // threads of a CTA: 128 registers each
+constexpr int kCluster = 8;     // CTAs of the cluster
+constexpr int kClusterThreads = kThreads * kCluster;
+constexpr int kMaxColors = 32;   // the coloring's color masks hold 32 bits
 
 enum Row {
   NX = 0, NY, FRICTION, RESTITUTION, TANGENT_SPEED, ROLLING_RES,
@@ -68,17 +106,64 @@ struct Problem {
   const float* params;
   float* body;
   float* acc;
-  float* scratch;  // (6, scratch_w) per-lane velocity deltas of a window
+  float* scratch;  // (6, scratch_w) per-lane velocity deltas, Jacobi windows
   int nb, L, chunk, l0, n_colors, nsub, scratch_w;
 };
+
+struct Stage {
+  int p;
+  float h, inv_h, contact_speed, restitution_threshold;
+};
+
+// The window table, one copy in each CTA's shared memory.
+struct Table {
+  int part[kMaxColors + 1];  // this CTA's share: 1 + its last live lane of
+                             // each contact window, 0 if none
+  int end[kMaxColors + 1];   // end of the live lanes of bucket c, and of
+                             // the tail at c = n_colors
+  int joff[kMaxColors + 1];  // joint segment offsets
+  int split;                 // the joint color swept as Jacobi windows, or -1
+  int widest;                // lanes of the call's widest pass
+};
+
+// A solved lane: its endpoints, which of them are dynamic, its deltas.
+struct LaneOut {
+  int ia, ib;
+  bool dyn_a, dyn_b;
+  float d[6];
+};
+
+// This thread's place in the cluster's lane order: the cluster's warps are
+// dealt round-robin over the CTAs, so a window of a few thousand lanes keeps
+// every SM of the cluster busy, and a warp's lanes stay contiguous.
+__device__ __forceinline__ int cluster_lane(unsigned rank) {
+  return ((threadIdx.x >> 5) * kCluster + rank) * 32 + (threadIdx.x & 31);
+}
+
+// The lanes a thread takes in a pass: first, first + step, ... A call
+// runs every pass on the whole cluster, or, when every pass of the call
+// fits in one CTA, on CTA 0 alone, behind that CTA's barrier.
+struct Pass {
+  int first, step;
+  bool cluster;
+};
+
+// The barrier behind a pass. The cluster barrier is
+// barrier.cluster.arrive.release / wait.acquire: what an SM wrote to L2
+// before it is seen by every SM of the cluster after it.
+__device__ __forceinline__ void pass_barrier(const Pass& pass,
+                                             cg::cluster_group cluster) {
+  if (pass.cluster) cluster.sync(); else __syncthreads();
+}
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
-__device__ void integrate_velocities(const Problem& q, float max_lin) {
+__device__ void integrate_velocities(const Problem& q, float max_lin,
+                                     const Pass& pass) {
   const int nb = q.nb;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+  for (int i = pass.first; i < nb; i += pass.step) {
     const float* prm = q.params;
     if (!(prm[11 * nb + i] > 0.0f)) continue;
     float bx = __ldcg(q.body + 0 * nb + i);
@@ -103,9 +188,10 @@ __device__ void integrate_velocities(const Problem& q, float max_lin) {
   }
 }
 
-__device__ void integrate_positions(const Problem& q, float h) {
+__device__ void integrate_positions(const Problem& q, float h,
+                                    const Pass& pass) {
   const int nb = q.nb;
-  for (int i = threadIdx.x; i < nb; i += blockDim.x) {
+  for (int i = pass.first; i < nb; i += pass.step) {
     if (!(__ldcg(q.body + 7 * nb + i) > 0.0f)) continue;
     float vx = __ldcg(q.body + 0 * nb + i);
     float vy = __ldcg(q.body + 1 * nb + i);
@@ -127,8 +213,8 @@ __device__ void integrate_positions(const Problem& q, float h) {
 
 // One constraint lane of stage p: returns the six velocity deltas
 // (a: vx, vy, w; b: vx, vy, w) and, for p != 0, writes the lane's
-// accumulator column. The arithmetic follows _solver_kernel's contact_sweep
-// operation by operation, including its 0/1 stage flags.
+// accumulator column (through L2). The arithmetic follows _solver_kernel's
+// contact_sweep operation by operation, including its 0/1 stage flags.
 __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
                            float inv_h, float contact_speed,
                            float restitution_threshold, float out[6]) {
@@ -142,10 +228,10 @@ __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
   const float tx = ny, ty = -nx;
   const float inv_ma = row(INV_MA), inv_mb = row(INV_MB);
   const float inv_ia = row(INV_IA), inv_ib = row(INV_IB);
-  float ni[2] = {a[0 * L], a[1 * L]};
-  float ti[2] = {a[2 * L], a[3 * L]};
-  float tni[2] = {a[4 * L], a[5 * L]};
-  const float roll = a[6 * L];
+  float ni[2] = {__ldcg(a + 0 * L), __ldcg(a + 1 * L)};
+  float ti[2] = {__ldcg(a + 2 * L), __ldcg(a + 3 * L)};
+  float tni[2] = {__ldcg(a + 4 * L), __ldcg(a + 5 * L)};
+  const float roll = __ldcg(a + 6 * L);
 
   if (p == 0) {  // warm start: deltas from the stored impulses only
     float dvax = 0.0f, dvay = 0.0f, dwa = 0.0f;
@@ -277,153 +363,325 @@ __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
   wa = wa - inv_ia * dl;
   wb = wb + inv_ib * dl;
 
-  a[0 * L] = ni[0];
-  a[1 * L] = ni[1];
-  a[2 * L] = ti[0];
-  a[3 * L] = ti[1];
-  a[4 * L] = tni[0];
-  a[5 * L] = tni[1];
-  a[6 * L] = roll + dl;
+  __stcg(a + 0 * L, ni[0]);
+  __stcg(a + 1 * L, ni[1]);
+  __stcg(a + 2 * L, ti[0]);
+  __stcg(a + 3 * L, ti[1]);
+  __stcg(a + 4 * L, tni[0]);
+  __stcg(a + 5 * L, tni[1]);
+  __stcg(a + 6 * L, roll + dl);
 
   out[0] = vax - va0; out[1] = vay - va1; out[2] = wa - wa0;
   out[3] = vbx - vb0; out[4] = vby - vb1; out[5] = wb - wb0;
 }
 
-// Phase 2 of a window: add the scratch deltas of one lane to its dynamic
-// endpoints.
-__device__ __forceinline__ void add_deltas(float* body, int nb, int ia,
-                                           int ib, bool dyn_a, bool dyn_b,
-                                           const float* s, int sw) {
-  if (dyn_a) {
-    atomicAdd(body + 0 * nb + ia, s[0 * sw]);
-    atomicAdd(body + 1 * nb + ia, s[1 * sw]);
-    atomicAdd(body + 2 * nb + ia, s[2 * sw]);
+// The endpoints of contact lane `lane` (joint lane, when kJoint) and
+// which of them are dynamic (inverse mass or inertia above 0); false for a
+// dead lane.
+template <bool kJoint>
+__device__ __forceinline__ bool endpoints(const Problem& q,
+                                          const JointRegion& jr, int lane,
+                                          LaneOut& o) {
+  constexpr int ma = kJoint ? int(JINV_MA) : int(INV_MA);
+  constexpr int mb = kJoint ? int(JINV_MB) : int(INV_MB);
+  constexpr int ia = kJoint ? int(JINV_IA) : int(INV_IA);
+  constexpr int ib = kJoint ? int(JINV_IB) : int(INV_IB);
+  const int n = kJoint ? jr.LJ : q.L;
+  const int* idx = kJoint ? jr.idx : q.idx;
+  const float* d = (kJoint ? jr.data : q.data) + lane;
+  o.ia = __ldg(idx + lane);
+  if (o.ia < 0) return false;
+  o.ib = __ldg(idx + n + lane);
+  o.dyn_a = __ldg(d + ma * n) > 0.0f || __ldg(d + ia * n) > 0.0f;
+  o.dyn_b = __ldg(d + mb * n) > 0.0f || __ldg(d + ib * n) > 0.0f;
+  return true;
+}
+
+// Solve lane `lane` of stage s into o (joints only for p != 3); false for
+// a dead lane.
+template <bool kJoint>
+__device__ __forceinline__ bool solve(const Problem& q, const JointRegion& jr,
+                                      int lane, const Stage& s, LaneOut& o) {
+  if (!endpoints<kJoint>(q, jr, lane, o)) return false;
+  if constexpr (kJoint) {
+    joint_lane(jr, q.body, q.nb, lane, o.ia, o.ib, s.p, s.h, s.inv_h, o.d);
+  } else {
+    solve_lane(q, lane, o.ia, o.ib, s.p, s.inv_h, s.contact_speed,
+               s.restitution_threshold, o.d);
   }
-  if (dyn_b) {
-    atomicAdd(body + 0 * nb + ib, s[3 * sw]);
-    atomicAdd(body + 1 * nb + ib, s[4 * sw]);
-    atomicAdd(body + 2 * nb + ib, s[5 * sw]);
+  return true;
+}
+
+// Add a lane's velocity deltas to its dynamic endpoints, in L2.
+__device__ __forceinline__ void add_deltas(float* body, int nb,
+                                           const LaneOut& o) {
+  if (o.dyn_a) {
+    atomicAdd(body + 0 * nb + o.ia, o.d[0]);
+    atomicAdd(body + 1 * nb + o.ia, o.d[1]);
+    atomicAdd(body + 2 * nb + o.ia, o.d[2]);
+  }
+  if (o.dyn_b) {
+    atomicAdd(body + 0 * nb + o.ib, o.d[3]);
+    atomicAdd(body + 1 * nb + o.ib, o.d[4]);
+    atomicAdd(body + 2 * nb + o.ib, o.d[5]);
   }
 }
 
-// One joint segment [lo, hi) of stage p as a Jacobi window.
-__device__ void joint_window(const Problem& q, const JointRegion& jr, int lo,
-                             int hi, int p, float h, float inv_h) {
-  const int LJ = jr.LJ;
-  for (int lane = lo + threadIdx.x; lane < hi; lane += blockDim.x) {
-    const int ia = jr.idx[lane];
-    if (ia < 0) continue;
-    const int ib = jr.idx[LJ + lane];
-    float dl[6];
-    joint_lane(jr, q.body, q.nb, lane, ia, ib, p, h, inv_h, dl);
-    float* s = q.scratch + (lane - lo);
-    for (int r = 0; r < 6; ++r) s[r * q.scratch_w] = dl[r];
+// A window whose lanes share no dynamic body: contact lanes
+// [clo, clo + nc), then joint lanes [jlo, jlo + nj). Each lane adds its
+// deltas at once; the caller puts one barrier behind the window. Contacts
+// come first so that a contact lane keeps its thread in every stage.
+template <bool kJoints>
+__device__ void colored_window(const Problem& q, const JointRegion& jr,
+                               int clo, int nc, int jlo, int nj,
+                               const Stage& s, const Pass& pass) {
+  for (int i = pass.first; i < nc + nj; i += pass.step) {
+    LaneOut o;
+    if (i < nc) {
+      if (solve<false>(q, jr, clo + i, s, o)) add_deltas(q.body, q.nb, o);
+    } else if constexpr (kJoints) {
+      if (solve<true>(q, jr, jlo + i - nc, s, o))
+        add_deltas(q.body, q.nb, o);
+    }
   }
-  __syncthreads();
-  for (int lane = lo + threadIdx.x; lane < hi; lane += blockDim.x) {
-    const int ia = jr.idx[lane];
-    if (ia < 0) continue;
-    const int ib = jr.idx[LJ + lane];
-    const float* d = jr.data + lane;
-    add_deltas(q.body, q.nb, ia, ib,
-               d[JINV_MA * LJ] > 0.0f || d[JINV_IA * LJ] > 0.0f,
-               d[JINV_MB * LJ] > 0.0f || d[JINV_IB * LJ] > 0.0f,
-               q.scratch + (lane - lo), q.scratch_w);
+}
+
+// A window [lo, lo + n) whose lanes share bodies: every lane reads the
+// body state at the window's start (phase 1 keeps its deltas in scratch),
+// then the deltas are summed in (phase 2). Contact lanes, or joint lanes
+// when kJoint.
+template <bool kJoint>
+__device__ void jacobi_window(const Problem& q, const JointRegion& jr,
+                              int lo, int n, const Stage& s,
+                              const Pass& pass, cg::cluster_group cluster) {
+  const int sw = q.scratch_w;
+  for (int i = pass.first; i < n; i += pass.step) {
+    LaneOut o;
+    if (!solve<kJoint>(q, jr, lo + i, s, o)) continue;
+    for (int r = 0; r < 6; ++r) __stcg(q.scratch + r * sw + i, o.d[r]);
   }
-  __syncthreads();
+  pass_barrier(pass, cluster);
+  for (int i = pass.first; i < n; i += pass.step) {
+    LaneOut o;
+    if (!endpoints<kJoint>(q, jr, lo + i, o)) continue;
+    for (int r = 0; r < 6; ++r) o.d[r] = __ldcg(q.scratch + r * sw + i);
+    add_deltas(q.body, q.nb, o);
+  }
+  pass_barrier(pass, cluster);
+}
+
+// The overflow color's joint segment [lo, hi), as the tiled Pallas kernel
+// sweeps it: a Jacobi window for each run of one joint type (the lanes are
+// sorted by type), cut every jr.jwin lanes.
+__device__ void overflow_joint_windows(const Problem& q,
+                                       const JointRegion& jr, int lo, int hi,
+                                       const Stage& s, const Pass& pass,
+                                       cg::cluster_group cluster) {
+  int a = lo;
+  while (a < hi) {
+    const int ty = __ldg(jr.type + a);
+    // the first lane in (a, a + jwin) of a later type
+    int l = a + 1, r = min(a + jr.jwin, hi);
+    while (l < r) {
+      const int mid = (l + r) >> 1;
+      if (__ldg(jr.type + mid) == ty) l = mid + 1; else r = mid;
+    }
+    jacobi_window<true>(q, jr, a, l - a, s, pass, cluster);
+    a = l;
+  }
 }
 
 template <bool kJoints>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 solve_kernel(Problem q, JointRegion jr, const float* acc_in,
              const float* body_in, const float* jacc_in) {
-  const float h = q.scal[0];
-  const float inv_h = q.scal[1];
-  const float contact_speed = q.scal[2];
-  const float restitution_threshold = q.scal[3];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int t0 = cluster_lane(rank);
+  __shared__ Table tab;
+  Stage s;
+  s.h = q.scal[0];
+  s.inv_h = q.scal[1];
+  s.contact_speed = q.scal[2];
+  s.restitution_threshold = q.scal[3];
   const float max_lin = q.scal[4];
   const int L = q.L;
-  const int nb = q.nb;
+  const int ncol = q.n_colors;
 
-  for (int i = threadIdx.x; i < 8 * nb; i += blockDim.x)
-    __stcg(q.body + i, body_in[i]);
-  for (int i = threadIdx.x; i < 9 * L; i += blockDim.x)
-    q.acc[i] = acc_in[i];
+  for (int i = t0; i < 8 * q.nb; i += kClusterThreads)
+    __stcg(q.body + i, __ldg(body_in + i));
+  for (int i = t0; i < 9 * L; i += kClusterThreads)
+    __stcg(q.acc + i, __ldg(acc_in + i));
   if constexpr (kJoints) {
-    for (int i = threadIdx.x; i < 9 * jr.LJ; i += blockDim.x)
-      jr.acc[i] = jacc_in[i];
+    for (int i = t0; i < 9 * jr.LJ; i += kClusterThreads)
+      __stcg(jr.acc + i, __ldg(jacc_in + i));
+  }
+
+  // The window table. Each CTA marks the last live lane of each contact
+  // window within its share of the lanes (a live lane whose next lane in
+  // the warp is not a live lane of the same window), then takes the maximum
+  // over the eight CTAs' shares from their shared memory.
+  for (int c = threadIdx.x; c <= ncol; c += kThreads) {
+    tab.part[c] = 0;
+    if constexpr (kJoints) tab.joff[c] = __ldg(jr.off + c);
   }
   __syncthreads();
+  const int wl = threadIdx.x & 31;
+  const int lc = ncol * q.chunk;
+  for (int base = t0 - wl; base < L; base += kClusterThreads) {
+    const int lane = base + wl;
+    const int win = lane < lc ? lane / q.chunk
+                              : (lane >= q.l0 && lane < L ? ncol : -1);
+    const int v = (win >= 0 && __ldg(q.idx + lane) >= 0) ? lane + 1 : 0;
+    const int win_next = __shfl_down_sync(0xffffffffu, win, 1);
+    const int v_next = __shfl_down_sync(0xffffffffu, v, 1);
+    if (v > 0 && (wl == 31 || win_next != win || v_next == 0))
+      atomicMax(&tab.part[win], v);
+  }
+  // every CTA's share is complete, and the copies above are in L2
+  cluster.sync();
+  for (int c = threadIdx.x; c <= ncol; c += kThreads) {
+    int e = c < ncol ? c * q.chunk : q.l0;
+    for (unsigned r = 0; r < kCluster; ++r)
+      e = max(e, *cluster.map_shared_rank(&tab.part[c], r));
+    tab.end[c] = e;
+  }
+  if (threadIdx.x == 0) {
+    // the widest pass of the call: a color's window, the tail, the bodies
+    int widest = max(q.nb, tab.end[ncol] - q.l0);
+    for (int c = 0; c < ncol; ++c) {
+      int n = tab.end[c] - c * q.chunk;
+      if constexpr (kJoints) n += tab.joff[c + 1] - tab.joff[c];
+      widest = max(widest, n);
+    }
+    tab.widest = widest;
+    // the overflow color is the highest in use, so when the coloring
+    // overflowed it owns the last non-empty joint segment (if it holds
+    // joints at all); sweeping a segment without shared bodies as Jacobi
+    // windows changes nothing
+    int split = -1;
+    if constexpr (kJoints) {
+      if (jr.overflow) {
+        for (int c = ncol - 1; c >= 0 && split < 0; --c)
+          if (tab.joff[c + 1] > tab.joff[c]) split = c;
+      }
+    }
+    tab.split = split;
+  }
+  // the table is complete in every CTA, and no CTA reads another's shared
+  // memory after this barrier
+  cluster.sync();
 
+  // A call whose every pass fits in one CTA (a small world) runs on CTA 0
+  // alone: a block barrier costs less than the cluster's. The other CTAs
+  // leave; none of them is waited for again.
+  const bool on_cluster = tab.widest > kThreads;
+  if (!on_cluster && rank != 0) return;
+  const Pass pass = on_cluster
+      ? Pass{t0, kClusterThreads, true}
+      : Pass{static_cast<int>(threadIdx.x), kThreads, false};
   const int stages = 3 * q.nsub + 1;
   for (int k = 0; k < stages; ++k) {
-    const int p = (k == stages - 1) ? 3 : k % 3;
-    if (p == 0) {
-      integrate_velocities(q, max_lin);
-      __syncthreads();
-    } else if (p == 2) {
-      integrate_positions(q, h);
-      __syncthreads();
+    s.p = (k == stages - 1) ? 3 : k % 3;
+    if (s.p == 0 || s.p == 2) {
+      if (s.p == 0) integrate_velocities(q, max_lin, pass);
+      else integrate_positions(q, s.h, pass);
+      pass_barrier(pass, cluster);
     }
-    for (int win = 0; win <= q.n_colors; ++win) {
+    for (int c = 0; c < ncol; ++c) {
+      const int clo = c * q.chunk;
+      const int nc = tab.end[c] - clo;
+      int jlo = 0, nj = 0;
       if constexpr (kJoints) {
-        if (p != 3 && win < q.n_colors) {
-          const int jlo = jr.off[win];
-          const int jhi = jr.off[win + 1];
-          if (jhi > jlo) joint_window(q, jr, jlo, jhi, p, h, inv_h);
+        if (s.p != 3) {
+          jlo = tab.joff[c];
+          nj = tab.joff[c + 1] - jlo;
+          if (c == tab.split) {
+            overflow_joint_windows(q, jr, jlo, jlo + nj, s, pass, cluster);
+            nj = 0;
+          }
         }
       }
-      const int lo = win < q.n_colors ? win * q.chunk : q.l0;
-      const int hi = win < q.n_colors ? lo + q.chunk : L;
-      // phase 1: every lane reads the window-start state
-      for (int lane = lo + threadIdx.x; lane < hi; lane += blockDim.x) {
-        const int ia = q.idx[lane];
-        if (ia < 0) continue;
-        const int ib = q.idx[L + lane];
-        float dl[6];
-        solve_lane(q, lane, ia, ib, p, inv_h, contact_speed,
-                   restitution_threshold, dl);
-        float* s = q.scratch + (lane - lo);
-        for (int r = 0; r < 6; ++r) s[r * q.scratch_w] = dl[r];
+      if (nc + nj > 0) {
+        colored_window<kJoints>(q, jr, clo, nc, jlo, nj, s, pass);
+        pass_barrier(pass, cluster);
       }
-      __syncthreads();
-      // phase 2: add the deltas of dynamic endpoints
-      for (int lane = lo + threadIdx.x; lane < hi; lane += blockDim.x) {
-        const int ia = q.idx[lane];
-        if (ia < 0) continue;
-        const int ib = q.idx[L + lane];
-        const float* d = q.data + lane;
-        add_deltas(q.body, nb, ia, ib,
-                   d[INV_MA * L] > 0.0f || d[INV_IA * L] > 0.0f,
-                   d[INV_MB * L] > 0.0f || d[INV_IB * L] > 0.0f,
-                   q.scratch + (lane - lo), q.scratch_w);
-      }
-      __syncthreads();
     }
+    const int nt = tab.end[ncol] - q.l0;
+    if (nt > 0) jacobi_window<false>(q, jr, q.l0, nt, s, pass, cluster);
   }
+}
+
+// The launch: one cluster of kCluster CTAs.
+cudaLaunchConfig_t launch_config(cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool kJoints>
+int launch(const Problem& q, const JointRegion& jr, const float* acc_in,
+           const float* body_in, const float* jacc_in, void* stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(
+      static_cast<cudaStream_t>(stream), attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, solve_kernel<kJoints>, q,
+                                             jr, acc_in, body_in, jacc_in);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes. Each launches on `stream`, does not
-// synchronise, allocates nothing, and returns cudaGetLastError() of the
-// launch.
+// Plain C entry points for ctypes. Each launch is one cluster on `stream`;
+// it does not synchronise, allocates nothing, and returns the launch's
+// error code (cudaLaunchKernelEx, then cudaGetLastError()).
+
+// The launch shape of solve_kernel<joints>: out[0] CTAs of the cluster,
+// out[1] threads of a CTA, out[2] how many such clusters the card can hold
+// at once (cudaOccupancyMaxActiveClusters; 0: the cluster does not fit).
+extern "C" int b2t_launch_shape(int joints, int* out) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = launch_config(nullptr, attr);
+  int n = 0;
+  const cudaError_t err = joints
+      ? cudaOccupancyMaxActiveClusters(
+            &n, reinterpret_cast<void*>(solve_kernel<true>), &cfg)
+      : cudaOccupancyMaxActiveClusters(
+            &n, reinterpret_cast<void*>(solve_kernel<false>), &cfg);
+  out[0] = kCluster;
+  out[1] = kThreads;
+  out[2] = err == cudaSuccess ? n : 0;
+  return static_cast<int>(err);
+}
+
 extern "C" int b2t_contact_solve(
     const float* scalars, const int* idx, const float* data,
     const float* acc_in, const float* body_in, const float* params,
     float* out_body, float* out_acc, float* scratch,
     int nb, int L, int chunk, int l0, int n_colors, int nsub, int scratch_w,
     void* stream) {
-  Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
-            nb, L, chunk, l0, n_colors, nsub, scratch_w};
-  JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0};
-  solve_kernel<false><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, none, acc_in, body_in, nullptr);
-  return static_cast<int>(cudaGetLastError());
+  const Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
+                  nb, L, chunk, l0, n_colors, nsub, scratch_w};
+  const JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
+                         0};
+  return launch<false>(q, none, acc_in, body_in, nullptr, stream);
 }
 
 // The same pipeline with a joint region: jidx (2, LJ), jdata (39, LJ),
-// jacc_in / out_jacc (9, LJ), jtype (LJ), joff (n_colors + 1).
+// jacc_in / out_jacc (9, LJ), jtype (LJ), joff (n_colors + 1); overflow:
+// the coloring overflowed (contact_solver.window_table); jwin: the width of
+// the overflow color's joint windows.
 extern "C" int b2t_contact_solve_joints(
     const float* scalars, const int* idx, const float* data,
     const float* acc_in, const float* body_in, const float* params,
@@ -431,11 +689,10 @@ extern "C" int b2t_contact_solve_joints(
     const int* jidx, const float* jdata, const float* jacc_in,
     const int* jtype, const int* joff, float* out_jacc,
     int nb, int L, int chunk, int l0, int n_colors, int nsub, int scratch_w,
-    int LJ, void* stream) {
-  Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
-            nb, L, chunk, l0, n_colors, nsub, scratch_w};
-  JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ};
-  solve_kernel<true><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      q, jr, acc_in, body_in, jacc_in);
-  return static_cast<int>(cudaGetLastError());
+    int LJ, int overflow, int jwin, void* stream) {
+  const Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
+                  nb, L, chunk, l0, n_colors, nsub, scratch_w};
+  const JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ, overflow,
+                       jwin};
+  return launch<true>(q, jr, acc_in, body_in, jacc_in, stream);
 }

@@ -15,18 +15,21 @@
 // the restitution stage.
 //
 // What differs from the TPU kernel, on purpose: a lane branches on its own
-// type (a `switch`), so windows need not be kind-pure and carry no padding
-// to a lane multiple; bodies are gathered by index from L2 instead of by
-// one-hot products; the relative angle is `atan2f`, where the TPU kernel
-// carries a polynomial for want of the primitive.
+// type (a `switch`), so windows of a color that did not overflow need not
+// be kind-pure and carry no padding to a lane multiple; bodies are gathered
+// by index from L2 instead of by one-hot products; the relative angle is
+// `atan2f`, where the TPU kernel carries a polynomial for want of the
+// primitive.
 //
-// What bounds it: like the contact sweep, latency. One block walks the
+// What bounds it: like the contact sweep, latency. The cluster walks the
 // windows in order, each lane gathers sixteen body floats and up to 39 data
-// rows, and a window of a thousand lanes is one pass of the block's 1,024
-// threads between two barriers. Lanes are sorted by type inside a color so a
-// warp runs one branch. The arithmetic is written operation by operation as
-// the plain PyTorch twin (joints.joint_lanes) and built with -fmad=false, so
-// the two round alike.
+// rows, and a color's joint segment rides in one window with its contact
+// bucket, one pass of the cluster's 8,192 threads before one barrier. Lanes
+// are sorted by type inside a color so a warp runs one branch. The
+// overflow color's segment is swept as kind-pure Jacobi windows, as the
+// Pallas kernel sweeps every segment. The arithmetic is written operation
+// by operation as the plain PyTorch twin (joints.joint_lanes) and built
+// with -fmad=false, so the two round alike.
 
 #pragma once
 
@@ -54,10 +57,12 @@ enum JAcc { IX = 0, IY, A_SPRING, A_MOTOR, A_LOWER, A_UPPER, A_ANGULAR,
 struct JointRegion {
   const int* idx;    // (2, LJ)
   const float* data; // (39, LJ)
-  float* acc;        // (9, LJ), in place
+  float* acc;        // (9, LJ), in place, read and written through L2
   const int* type;   // (LJ)
   const int* off;    // (n_colors + 1)
   int LJ;
+  int overflow;      // the coloring overflowed this step
+  int jwin;          // the width of the overflow color's joint windows
 };
 
 __device__ __forceinline__ float jclamp(float x, float lo, float hi) {
@@ -116,11 +121,11 @@ __device__ void joint_lane(const JointRegion& jr, const float* body, int nb,
   const float dy = dpby - dpay + dcy + rby - ray;
 
   const float axial = R(AXIAL_MASS);
-  float imp_x = a[IX * LJ], imp_y = a[IY * LJ];
-  float spr_i = a[A_SPRING * LJ], mot_i = a[A_MOTOR * LJ];
-  float low_i = a[A_LOWER * LJ], up_i = a[A_UPPER * LJ];
-  float ang_i = a[A_ANGULAR * LJ];
-  float s2x = a[S2X * LJ], s2y = a[S2Y * LJ];
+  float imp_x = __ldcg(a + IX * LJ), imp_y = __ldcg(a + IY * LJ);
+  float spr_i = __ldcg(a + A_SPRING * LJ), mot_i = __ldcg(a + A_MOTOR * LJ);
+  float low_i = __ldcg(a + A_LOWER * LJ), up_i = __ldcg(a + A_UPPER * LJ);
+  float ang_i = __ldcg(a + A_ANGULAR * LJ);
+  float s2x = __ldcg(a + S2X * LJ), s2y = __ldcg(a + S2Y * LJ);
   // new accumulator values (start as the old ones)
   float n_ix = imp_x, n_iy = imp_y, n_spr = spr_i, n_mot = mot_i;
   float n_low = low_i, n_up = up_i, n_ang = ang_i, n_s2x = s2x, n_s2y = s2y;
@@ -534,15 +539,15 @@ __device__ void joint_lane(const JointRegion& jr, const float* body, int nb,
   }
 
   if (!warm) {
-    a[IX * LJ] = n_ix;
-    a[IY * LJ] = n_iy;
-    a[A_SPRING * LJ] = n_spr;
-    a[A_MOTOR * LJ] = n_mot;
-    a[A_LOWER * LJ] = n_low;
-    a[A_UPPER * LJ] = n_up;
-    a[A_ANGULAR * LJ] = n_ang;
-    a[S2X * LJ] = n_s2x;
-    a[S2Y * LJ] = n_s2y;
+    __stcg(a + IX * LJ, n_ix);
+    __stcg(a + IY * LJ, n_iy);
+    __stcg(a + A_SPRING * LJ, n_spr);
+    __stcg(a + A_MOTOR * LJ, n_mot);
+    __stcg(a + A_LOWER * LJ, n_low);
+    __stcg(a + A_UPPER * LJ, n_up);
+    __stcg(a + A_ANGULAR * LJ, n_ang);
+    __stcg(a + S2X * LJ, n_s2x);
+    __stcg(a + S2Y * LJ, n_s2y);
   }
   out[0] = vax - vax0; out[1] = vay - vay0; out[2] = wa - wa0;
   out[3] = vbx - vbx0; out[4] = vby - vby0; out[5] = wb - wb0;

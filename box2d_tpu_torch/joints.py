@@ -12,8 +12,11 @@ plain version, the twin.
 
 `joint_window` differs from the Pallas sweep in two primitives only: the
 relative angle is `torch.atan2` (the TPU kernel carries a polynomial
-stand-in), and a window may mix joint types (each lane takes its own
-type's branch; the TPU windows are kind-pure).
+stand-in), and the window of a color that did not overflow may mix joint
+types (each lane takes its own type's branch; its lanes share no body, so
+how it is cut changes nothing). The overflow color's joints, which share
+bodies, are cut into kind-pure windows as on the TPU
+(contact_solver.window_table).
 """
 
 from __future__ import annotations
@@ -80,13 +83,17 @@ class JointConstraints(NamedTuple):
 
 class JointRows(NamedTuple):
     """The joint region of the solver's layout: lanes sorted by (color,
-    type); color c owns lanes [offsets[c], offsets[c + 1])."""
+    type); color c owns lanes [offsets[c], offsets[c + 1]). `overflow`:
+    the coloring overflowed this step, so the last non-empty segment may
+    hold the overflow color, whose lanes share bodies (the solver then
+    sweeps that segment as kind-pure Jacobi windows)."""
 
     idx: torch.Tensor       # (2, LJ) i32, -1 = dead lane
     data: torch.Tensor      # (NFJ, LJ) f32
     acc: torch.Tensor       # (NAJ, LJ) f32
     type: torch.Tensor      # (LJ,) i32
     offsets: torch.Tensor   # (n_colors + 1,) i32
+    overflow: bool = False
 
 
 def joint_types_present(types) -> frozenset:
@@ -269,10 +276,12 @@ def unpack_joint_acc(jc: JointConstraints, jacc, active) -> JointConstraints:
     )
 
 
-def layout_joint_rows(jn, jc: JointConstraints, n_colors: int):
+def layout_joint_rows(jn, jc: JointConstraints, n_colors: int,
+                      overflow: bool = False):
     """Sort the packed joint rows into the solver's joint region: live lanes
     first, by (color, type), so that each color is one contiguous segment
-    and each warp of a segment mostly runs one type's branch. Returns
+    and each warp of a segment mostly runs one type's branch. `overflow`:
+    the step's coloring overflowed (JointRows.overflow). Returns
     (JointRows, jpos) where jpos (J,) is each joint's lane."""
     data, acc, idx = pack_joint_rows(jn, jc)
     J = idx.shape[0]
@@ -289,7 +298,7 @@ def layout_joint_rows(jn, jc: JointConstraints, n_colors: int):
                      data=data[order].T.contiguous(),
                      acc=acc[order].T.contiguous(),
                      type=jn.type[order].to(torch.int32).contiguous(),
-                     offsets=offsets)
+                     offsets=offsets, overflow=overflow)
     return rows, jpos
 
 

@@ -297,13 +297,14 @@ def _step_work(state: WorldState, dt, cap: Capacity,
         f32(h), f32(inv_h), tn.contact_speed, tn.restitution_threshold,
         tn.max_linear_speed, f32(0.0), f32(0.0), f32(0.0)])[None, :]
     bodyp, paramsp = pack_bodies(b, bs, tn, h, inv_dt)
-    # every bucket is swept (empty ones are no-ops), so the live color
-    # count is never read back to the host
+    # the kernel finds each bucket's live lanes itself and skips empty
+    # ones, so the live color count is never read back to the host
     # joint region: the live joints' packed rows sorted by (color, type),
     # one segment per color, swept ahead of that color's contact bucket
     jrows = jpos = None
     if with_joints:
-        jrows, jpos = layout_joint_rows(state.joints, jc, cap.max_colors)
+        jrows, jpos = layout_joint_rows(state.joints, jc, cap.max_colors,
+                                        overflow=n_ovf > 0)
     kernel_args = (scalars, idxL.T.contiguous(),
                    rowsL[:, :NF].T.contiguous(),
                    rowsL[:, NF:NF + NA].T.contiguous(), bodyp, paramsp,

@@ -13,8 +13,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    same CUDA tensors, at the solver inputs the port's own step packs for
    pyramid-20 and pyramid-140 after 30 steps from spawn (timed), for
    pyramid-140 0 and 2 steps from spawn (live overflow tail), and with
-   joints: joint_farm(1000) after 30 steps (timed) and an all-types scene
-   (weld, wheel, motor, mouse, distance spring with limits and motor);
+   joints: joint_farm(1000) after 30 steps (timed), an all-types scene
+   (weld, wheel, motor, mouse, distance spring with limits and motor) and
+   a hub whose joint colors overflow; each case prints the kernel's live
+   windows per stage, its launch shape (one thread-block cluster) and
+   what ptxas reported for the kernel instance it ran;
    then the particle kernels at the inputs the port's dam_break(100000)
    step gives them after 30 steps: the window pass K3 in its three phases
    and the rank repair K4 (also against torch.argsort(stable=True)), timed;
@@ -44,7 +47,8 @@ WARM_STEPS = 30
 TIMED_CALLS = 20
 # kernel vs twin: the kernel rounds each operation like the twin (built
 # with -fmad=false); what differs is the order of float additions where
-# lanes of the overflow tail share a body (atomicAdd vs index_add_)
+# lanes of a Jacobi window (the overflow tail, the overflow color's joint
+# windows) share a body (atomicAdd vs index_add_)
 ATOL, RTOL = 1e-5, 1e-4
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores
@@ -60,6 +64,11 @@ FLOP_BODY_SUBSTEP = 45
 # configuration (bench.py:223, BASELINE.json config 5)
 PARTICLES = 100000
 PARTICLE_STEPS = 120
+# the hub scenes' joints: 16 colored, the rest (135-195 of each of three
+# types) in the overflow color, more than one window of each type; with
+# 420 every pass fits in one CTA (the call runs on CTA 0), with 600 the
+# bodies do not (it runs on the whole cluster)
+HUB_SPOKES = (420, 600)
 # float operations of K3 (csrc/particles.cu window_kernel) per candidate in
 # a neighbour range (the distance test) and per neighbour within one
 # diameter, by phase (weight, pressure, damping)
@@ -142,6 +151,91 @@ def _bound_ms(args):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ptxas_kernels(log):
+    """What `ptxas -v` reported for each instance of the solver kernel, by
+    whether it holds the joint sweep: registers, static shared memory and
+    spill stores / loads."""
+    out, entry, props = {}, None, {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "Function properties for" in line:
+            props["name"] = line.rsplit(" ", 1)[-1]
+        elif "spill stores" in line and props.get("name"):
+            props[props.pop("name")] = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            regs = line.split("Used", 1)[1].split(",")
+            smem = next((x.strip() for x in regs if "smem" in x),
+                        "0 bytes smem")
+            spill = props.get(entry, "no spill line")
+            if "solve_kernel" in entry:
+                out["ILb1E" in entry] = (f"{regs[0].strip()}, {smem}, "
+                                         f"{spill}")
+            entry = None
+    return out
+
+
+def _window_stats(args):
+    """The kernel's window table at these inputs
+    (contact_solver.window_table): per stage, its colored windows (a
+    color's joint segment with its contact bucket; one barrier each) and
+    Jacobi windows (the overflow tail, the overflow color's joint windows;
+    two barriers each); over the call, the serial windows and the barriers
+    after the prologue (one after each integration pass); and the widest
+    pass, which decides whether the call runs on the whole cluster or on
+    one CTA (csrc/contact_solver.cu)."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    joints = args[10] if len(args) > 10 else None
+    table = cs.window_table(args[1], args[7], args[8], args[9], joints)
+    stages = 3 * args[6] + 1
+    out = dict(windows=0, barriers=0)
+    for k in range(stages):
+        p = 3 if k == stages - 1 else k % 3
+        ents = [e for e in table if p != 3 or not e[0].startswith("joint")]
+        colored = len({c for kind, c, _, _ in ents
+                       if kind in ("joint", "contact")})
+        jacobi = sum(kind in ("joint_jacobi", "tail") for kind, *_ in ents)
+        out["solve" if p != 3 else "restitution"] = (colored, jacobi)
+        out["windows"] += colored + jacobi
+        out["barriers"] += colored + 2 * jacobi + (p in (0, 2))
+    # the kernel's rule: a color's live contact lanes plus its whole joint
+    # segment, the tail, the bodies
+    width = {c: hi - lo for kind, c, lo, hi in table
+             if kind in ("contact", "tail")}
+    if joints is not None:
+        off = joints.offsets.tolist()
+        for c in range(args[9]):
+            width[c] = width.get(c, 0) + off[c + 1] - off[c]
+    out["widest"] = max([args[4].shape[1]] + list(width.values()))
+    return out
+
+
+def _kernel_note(args, lib):
+    """One line on the launch these inputs get: windows, launch shape, where
+    the call runs, and what ptxas said of the kernel instance."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    joints = len(args) > 10 and args[10] is not None
+    st = _window_stats(args)
+    shape = cs.launch_shape(joints)
+    assert shape["cluster"] >= 2, f"launch shape {shape}"
+    where = ("the whole cluster, behind cluster barriers"
+             if st["widest"] > shape["threads"] else
+             "CTA 0 alone (every pass fits in one CTA), behind block "
+             "barriers")
+    ptx = _ptxas_kernels(lib.ptxas_log).get(joints, "not reported")
+    return (f"live windows per solve stage {st['solve'][0]} colored + "
+            f"{st['solve'][1]} Jacobi, restitution stage "
+            f"{st['restitution'][0]} + {st['restitution'][1]}; "
+            f"{st['windows']} serial windows and {st['barriers']} barriers "
+            f"a call; launch: 1 cluster of {shape['cluster']} CTAs x "
+            f"{shape['threads']} threads ({shape['max_active_clusters']} "
+            f"such clusters fit on the card), widest pass {st['widest']} "
+            f"lanes, so the call runs on {where}; ptxas "
+            f"solve_kernel<{str(joints).lower()}>: {ptx}"), st
+
+
 def phase_kernel_vs_twin():
     """Kernel vs twin at the inputs the port's step packs. Timed cases are
     the main-path shapes after WARM_STEPS; the cases 0 and 2 steps from
@@ -172,11 +266,17 @@ def phase_kernel_vs_twin():
         live = int((idx[0] >= 0).sum())
         tail = int((idx[0, l0:] >= 0).sum())
         warm = int((acc[0:2] != 0).any(0).sum())
+        note, wst = _kernel_note(args, cs.build())
         print(f"[kernel] {tag}: Nb={body.shape[1]} L={data.shape[1]}"
               f" chunk={chunk} live lanes={live} warm lanes={warm} live tail"
               f" lanes={tail} max_abs_err body={err_b:.3e} acc={err_a:.3e}")
+        print(f"[kernel] {tag}: {note}")
         torch.testing.assert_close(kb, tb, atol=ATOL, rtol=RTOL)
         torch.testing.assert_close(ka, ta, atol=ATOL, rtol=RTOL)
+        if tail == 0:
+            # no window shares a body: each body gets its lanes' deltas in
+            # the twin's order, so the two agree bit for bit
+            assert err_b == 0.0 and err_a == 0.0, f"{tag}: not bit-exact"
         if steps >= 2:
             assert warm > 0, f"{tag}: warm impulses expected"
         if not timed:
@@ -189,6 +289,8 @@ def phase_kernel_vs_twin():
         print(f"[kernel] {tag}: median of {TIMED_CALLS} calls: "
               f"kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
               f"{bound_ms:.6f} ms ({bound_by})")
+        print(f"[kernel] {tag}: {ms / wst['windows'] * 1e3:.3f} us per "
+              f"serial window")
         results[(rows, steps)] = dict(err=max(err_b, err_a), ms=ms,
                                       plain_ms=plain_ms, bound_ms=bound_ms,
                                       bound_by=bound_by)
@@ -248,10 +350,52 @@ def all_types_scene(World, t, g, **kw):
     return w
 
 
+def hub_scene(World, t, g, spokes=24, **kw):
+    """One dynamic hub, a disc, joined to `spokes` dynamic balls on a ring
+    1 m outside its rim, by revolute, distance and weld joints in turn;
+    built through the modules it is given (as all_types_scene). The
+    coloring gives a lane between two dynamic bodies one of 16 colors, so
+    all but 16 of the hub's joints overflow into the last color: its joint
+    segment mixes three types whose lanes share the hub. The balls stand
+    1 m apart and the whole falls freely, so no contact is ever found; the
+    hub's inertia grows with its radius, which keeps the overflow color's
+    Jacobi windows, whose lanes all push the hub at once, stable. Stepped
+    without continuous collision."""
+    w = World(t.WorldDef(gravity=(0.0, -10.0), enable_continuous=False),
+              **kw)
+    ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.5)))
+    w.create_polygon_shape(ground, t.ShapeDef(), g.box(50.0, 0.5))
+    radius = max(2.0, spokes / (2.0 * math.pi))
+    y0 = radius + 10.0
+    hub = w.create_body(t.BodyDef(type=2, position=(0.0, y0),
+                                  angular_velocity=0.5))
+    w.create_circle_shape(hub, t.ShapeDef(), (0.0, 0.0), radius - 1.0)
+    for i in range(spokes):
+        a = 2.0 * math.pi * i / spokes
+        x, y = radius * math.cos(a), radius * math.sin(a)
+        ball = w.create_body(t.BodyDef(type=2, position=(x, y0 + y)))
+        w.create_circle_shape(ball, t.ShapeDef(), (0.0, 0.0), 0.15)
+        if i % 3 == 0:
+            w.create_joint(t.RevoluteJointDef(body_a=hub, body_b=ball,
+                                              local_anchor_a=(x, y)))
+        elif i % 3 == 1:
+            rim = (radius - 1.0) / radius
+            w.create_joint(t.DistanceJointDef(
+                body_a=hub, body_b=ball, local_anchor_a=(rim * x, rim * y),
+                length=1.0))
+        else:
+            w.create_joint(t.WeldJointDef(body_a=hub, body_b=ball,
+                                          local_anchor_a=(x, y)))
+    return w
+
+
 def phase_joint_kernel_vs_twin():
     """The kernel with a joint region against the twin, at the inputs the
-    port's step packs: joint_farm(1000) after WARM_STEPS steps (timed) and
-    the all-types scene after 8 steps (every joint branch; untimed)."""
+    port's step packs: joint_farm(1000) after WARM_STEPS steps (timed), the
+    all-types scene after 8 steps (every joint branch; untimed) and the
+    hubs of HUB_SPOKES joints after 8 steps (the overflow color's joints,
+    swept as kind-pure Jacobi windows, some cut at the window width;
+    untimed)."""
     from box2d_tpu_torch import contact_solver as cs
     from box2d_tpu_torch import geometry, scenes, types, world
     from box2d_tpu_torch.api import World
@@ -261,7 +405,10 @@ def phase_joint_kernel_vs_twin():
                                                            device="cuda"),
               WARM_STEPS, True),
              ("all-types", lambda: all_types_scene(World, types, geometry,
-                                                   device="cuda"), 8, False))
+                                                   device="cuda"), 8, False),
+             *((f"hub-{n}", lambda n=n: hub_scene(
+                 World, types, geometry, spokes=n, device="cuda"), 8, False)
+               for n in HUB_SPOKES))
     for name, make, steps, timed in cases:
         tag = f"{name} after {steps} steps"
         w = make()
@@ -283,13 +430,19 @@ def phase_joint_kernel_vs_twin():
         jwarm = int((jr.acc != 0).any(0).sum())
         jtypes = sorted(set(jr.type[jr.idx[0] >= 0].tolist()))
         ncol = int((jr.offsets[1:] > jr.offsets[:-1]).sum())
+        note, wst = _kernel_note(args, cs.build())
         print(f"[kernel] {tag}: Nb={body.shape[1]} LJ={jr.data.shape[1]} "
               f"live joint lanes={jlive} in {ncol} colors, types {jtypes}, "
               f"warm joint lanes={jwarm}, live contact lanes="
-              f"{int((idx[0] >= 0).sum())} max_abs_err body={errs[0]:.3e} "
+              f"{int((idx[0] >= 0).sum())} live tail lanes="
+              f"{int((idx[0, args[8]:] >= 0).sum())} coloring overflowed="
+              f"{jr.overflow} max_abs_err body={errs[0]:.3e} "
               f"contact acc={errs[1]:.3e} joint acc={errs[2]:.3e}")
+        print(f"[kernel] {tag}: {note}")
         for x, y in ((kb, tb), (ka, ta), (kj, tj)):
             torch.testing.assert_close(x, y, atol=ATOL, rtol=RTOL)
+        if not jr.overflow and not (idx[0, args[8]:] >= 0).any():
+            assert max(errs) == 0.0, f"{tag}: not bit-exact"
         assert jlive > 0, f"{tag}: live joint lanes expected"
         assert jwarm > 0, f"{tag}: warm joint impulses expected"
         assert float((kj - jr.acc).abs().max()) > 0, f"{tag}: nothing solved"
@@ -297,6 +450,13 @@ def phase_joint_kernel_vs_twin():
         if name == "all-types":
             assert jtypes == [0, 1, 4, 5, 7], (
                 f"{tag}: joint types {jtypes}")
+        if name.startswith("hub"):
+            table = cs.window_table(idx, args[7], args[8], args[9], jr)
+            widths = [hi - lo for kind, _, lo, hi in table
+                      if kind == "joint_jacobi"]
+            assert jr.overflow and len(widths) > 3, f"{tag}: {widths}"
+            assert max(widths) == cs.JOINT_WINDOW, (
+                f"{tag}: no joint window was cut at the window width")
         if timed:
             res["ms"] = _time_ms(lambda: cs.contact_solve(*args))
             res["plain_ms"] = _time_ms(
@@ -304,7 +464,9 @@ def phase_joint_kernel_vs_twin():
             res["bound_ms"], res["bound_by"] = _bound_ms(args)
             print(f"[kernel] {tag}: median of {TIMED_CALLS} calls: kernel "
                   f"{res['ms']:.4f} ms, twin {res['plain_ms']:.4f} ms, "
-                  f"bound {res['bound_ms']:.6f} ms ({res['bound_by']})")
+                  f"bound {res['bound_ms']:.6f} ms ({res['bound_by']}); "
+                  f"{res['ms'] / wst['windows'] * 1e3:.3f} us per serial "
+                  f"window")
         results[name] = res
     return results
 
@@ -694,17 +856,33 @@ def main():
     k3, k4 = phase_particle_kernels()
     launches = phase_main_path()
     big = kern[(140, WARM_STEPS)]
+    small = kern[(20, WARM_STEPS)]
     farm = jkern["joint_farm-1000"]
     mean = statistics.fmean
     # no single PyTorch call computes either function (a persistent
     # multi-stage constraint solve), so library_ms is null
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
+    # K1 and K2 are one kernel: its row at pyramid-20 (the mode-1 TPU
+    # kernel's scenes) and at pyramid-140 (the tiled one's)
     print(json.dumps({"kernels": [{
+        "name": "contact_solve_mode1",
+        "route": "cuda",
+        "source": "box2d_tpu_torch/csrc/contact_solver.cu",
+        "replaces": "box2d_tpu/solver_pallas.py:410 (run_solver_kernel; "
+                    "body _solver_kernel :101)",
+        "launches": launches["pyramid-20"],
+        "max_abs_err": small["err"],
+        "ms": small["ms"],
+        "plain_ms": small["plain_ms"],
+        "bound_ms": small["bound_ms"],
+        "bound_by": small["bound_by"],
+        "library_ms": None,
+    }, {
         "name": "contact_solve",
         "route": "cuda",
         "source": "box2d_tpu_torch/csrc/contact_solver.cu",
-        "replaces": "box2d_tpu/solver_pallas.py:101 (_solver_kernel), "
-                    "box2d_tpu/solver_pallas.py:1250 (_tiled_kernel)",
+        "replaces": "box2d_tpu/solver_pallas.py:1747 "
+                    "(run_solver_kernel_tiled; body _tiled_kernel :1250)",
         "launches": launches["pyramid-140"],
         "max_abs_err": max(r["err"] for r in kern.values()),
         "ms": big["ms"],

@@ -13,6 +13,11 @@ The "tail" case moves the lanes of the first three color buckets into the
 overflow tail, so tail lanes share bodies and the window is a true Jacobi
 window. Mode 1 sweeps the tail as chunk-wide windows in sequence, so the
 case keeps every tail lane inside the tail's first chunk (asserted).
+
+`test_colored_windows_share_no_dynamic_body` checks, on layouts the port
+packs itself (no JAX compile), what the kernel's one-barrier window rests
+on: within a color bucket, a joint segment of a color that did not
+overflow, and the two together, no dynamic endpoint appears twice.
 """
 
 import jax
@@ -32,9 +37,15 @@ from box2d_tpu.solver_pallas import (max_active_windows, pack_bodies,
                                      window_metadata, window_width)
 from box2d_tpu.state import auto_chunk
 from box2d_tpu.world import _step_work
+from box2d_tpu_torch import geometry as tgeo
 from box2d_tpu_torch import scenes as tscenes
-from box2d_tpu_torch.contact_solver import contact_solve
+from box2d_tpu_torch import types as ttypes
+from box2d_tpu_torch import world as tworld
+from box2d_tpu_torch.api import World as TWorld
+from box2d_tpu_torch.contact_solver import _F, contact_solve, window_table
+from box2d_tpu_torch.joints import _JF
 from box2d_tpu_torch.state import state_to_numpy
+from chip_smoke import all_types_scene
 from test_torch_phases import to_jax_state
 
 torch.set_num_threads(1)
@@ -166,3 +177,73 @@ def test_twin_matches_pallas_kernel(layout, case, mode):
     # the solve moved something: velocities and impulses changed
     assert np.abs(body[0:3] - lay["body"][0:3]).max() > 1e-3
     assert np.abs(acc - lay["acc"]).max() > 1e-4
+
+
+def _port_layout(name):
+    """The solver inputs the port's own step packs (on the CPU): pyramid-20
+    after 5 steps, joint_farm(8) after 30 and the all-types scene after 30,
+    when their first bodies have reached the ground, so that joint segments
+    and contact buckets of one color ride one window."""
+    if name == "pyramid-20":
+        w, steps = tscenes.pyramid(rows=20, device="cpu"), 5
+    elif name == "joint_farm-8":
+        w, steps = tscenes.joint_farm(8, device="cpu"), 30
+    else:
+        w, steps = all_types_scene(TWorld, ttypes, tgeo, device="cpu"), 30
+    w.compile()
+    w.run(steps)
+    st = w._step
+    return tworld._step_work(w.state, DT, w.capacity, st.classes, NSUB,
+                             st.continuous, tworld.StepStats(),
+                             until="layout", joint_types=st.joint_types)
+
+
+@pytest.mark.parametrize("name", ["pyramid-20", "joint_farm-8", "all_types"])
+def test_colored_windows_share_no_dynamic_body(name):
+    """No dynamic endpoint twice in a colored window (a color bucket, a
+    joint segment of a color that did not overflow, and the two together,
+    which the kernel sweeps as one window behind one barrier). "Dynamic"
+    is the kernel's test, from the data rows: inverse mass or inverse
+    inertia above 0. Also: the window table covers every live lane once."""
+    args = _port_layout(name)
+    idx, data, chunk, l0, n_colors, jr = (args[1].numpy(), args[2].numpy(),
+                                          args[7], args[8], args[9],
+                                          args[10])
+    table = window_table(args[1], chunk, l0, n_colors, jr)
+    ends = {}
+    for kind, c, lo, hi in table:
+        if kind == "joint_jacobi":
+            continue
+        if kind in ("contact", "tail"):
+            lanes = np.arange(lo, hi)[idx[0, lo:hi] >= 0]
+            ia, ib = idx[0, lanes], idx[1, lanes]
+            d = data[:, lanes]
+            f = _F
+        else:
+            ji, jd = jr.idx.numpy(), jr.data.numpy()
+            lanes = np.arange(lo, hi)[ji[0, lo:hi] >= 0]
+            ia, ib = ji[0, lanes], ji[1, lanes]
+            d = jd[:, lanes]
+            f = _JF
+        dyn_a = (d[f["inv_ma"]] > 0) | (d[f["inv_ia"]] > 0)
+        dyn_b = (d[f["inv_mb"]] > 0) | (d[f["inv_ib"]] > 0)
+        if kind != "tail":
+            ends.setdefault(c, []).append(
+                np.concatenate([ia[dyn_a], ib[dyn_b]]))
+    colored = [np.concatenate(e) for e in ends.values()]
+    assert sum(e.size for e in colored) > 0
+    for c, e in zip(ends, colored):
+        uniq, count = np.unique(e, return_counts=True)
+        assert count.max(initial=1) == 1, (
+            f"color {c}: bodies {uniq[count > 1]} appear twice")
+    if jr is not None:
+        # joints and contacts share the window of some color
+        assert any(len(e) == 2 for e in ends.values())
+        assert not jr.overflow
+    # every live contact lane lies in exactly one window of the table
+    cover = np.zeros(idx.shape[1], np.int64)
+    for kind, _, lo, hi in table:
+        if kind in ("contact", "tail"):
+            cover[lo:hi] += 1
+    live = idx[0] >= 0
+    assert (cover[live] == 1).all() and live.sum() > 0

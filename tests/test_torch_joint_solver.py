@@ -12,6 +12,12 @@ contact accumulators and joint accumulators. No loosening was needed: the
 Pallas `_atan2` is a polynomial within 1e-7 rad of `torch.atan2`, and the
 angles only enter through softness-scaled biases.
 
+The hub scene (chip_smoke.hub_scene: 24 joints of three types on one
+dynamic hub) overflows its joint colors: the overflow color's segment is
+swept as kind-pure Jacobi windows, as the tiled kernel sweeps it. It is
+warmed by the port alone, 2 steps (no JAX trajectory), and held to the
+same bounds.
+
 Whole slice: both scenes stepped 6 times from spawn through the port on the
 CPU and through the JAX step on its XLA path (`use_pallas=0`); bounds are
 those of tests/test_pallas_solver.py:178-185: centres 1e-4, velocities
@@ -25,13 +31,21 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from box2d_tpu import geometry as jgeo
+from box2d_tpu import types as jtypes_mod
+from box2d_tpu.api import World as JWorld
 from box2d_tpu.world import _step as jax_step
 from box2d_tpu.world import _step_work as jax_step_work
-from box2d_tpu_torch.contact_solver import NA, NF, contact_solve
+from box2d_tpu_torch import geometry as tgeo
+from box2d_tpu_torch import types as ttypes_mod
+from box2d_tpu_torch.api import World as TWorld
+from box2d_tpu_torch.contact_solver import (NA, NF, contact_solve,
+                                            window_table)
 from box2d_tpu_torch.joints import NFJ, JointRows
 from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
 from box2d_tpu_torch.world import StepStats
 from box2d_tpu_torch.world import _step_work as torch_step_work
+from chip_smoke import hub_scene
 from test_torch_joints import SCENES, build_scene, scene_statics
 from test_torch_phases import to_jax_state
 
@@ -65,6 +79,22 @@ def scenes():
         out[name] = dict(jw=jw, tw=tw, jstate=jstate, jcap=jcap,
                          classes=classes, jt=jt, jtraj=jtraj, ttraj=ttraj)
     return out
+
+
+@pytest.fixture(scope="module")
+def hub():
+    """The hub scene after 2 port steps on the CPU, while its joint impulses
+    still grow, in the shape of one entry of `scenes` (its trajectory holds
+    only the last state)."""
+    jw = hub_scene(JWorld, jtypes_mod, jgeo)
+    tw = hub_scene(TWorld, ttypes_mod, tgeo, device="cpu")
+    jstate, jcap = jw.builder.build()
+    classes, jt = scene_statics(jw)
+    tw.compile()
+    for _ in range(2):
+        tw.step(DT)
+    return dict(jw=jw, tw=tw, jstate=jstate, jcap=jcap, classes=classes,
+                jt=jt, ttraj=[state_to_numpy(tw.state)])
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -132,7 +162,7 @@ def _port_layout_from_jax(sc, leaves, data, acc, idx):
     jr = JointRows(idx=t(idx[:, lanes]), data=t(data[:NFJ, lanes]),
                    acc=t(acc[:, lanes]),
                    type=t(ty[jid][order].astype(np.int32)),
-                   offsets=t(offsets))
+                   offsets=t(offsets), overflow=tjr.overflow)
     # the port's own joint region holds the same columns
     np.testing.assert_array_equal(jr.idx.numpy(),
                                   tjr.idx.numpy()[:, :len(lanes)])
@@ -143,17 +173,20 @@ def _port_layout_from_jax(sc, leaves, data, acc, idx):
     return args, lanes
 
 
-@pytest.mark.parametrize("name", SCENES)
-def test_joint_twin_matches_pallas_tiled_kernel(scenes, name):
-    sc = scenes[name]
+@pytest.mark.parametrize("name", SCENES + ["hub"])
+def test_joint_twin_matches_pallas_tiled_kernel(request, name):
+    sc = (request.getfixturevalue("hub") if name == "hub"
+          else request.getfixturevalue("scenes")[name])
     leaves = sc["ttraj"][-1]            # warm: 6 steps from spawn
     jstate = to_jax_state(sc["jstate"], leaves)
-    fns = {u: jax.jit(lambda s, u=u: jax_step_work(
+    # the layout and the kernel's outputs from one compile
+    fn = jax.jit(lambda s: tuple(jax_step_work(
         s, jnp.float32(DT), sc["jcap"], sc["classes"], NSUB, sc["jt"], (),
-        True, None, 2, until=u)) for u in ("layout", "kernel")}
-    data, acc, idx = (np.asarray(x) for x in fns["layout"](jstate))
+        True, None, 2, until=u) for u in ("layout", "kernel")))
     with pltpu.force_tpu_interpret_mode():
-        ref_body, ref_acc = (np.asarray(x) for x in fns["kernel"](jstate))
+        lay, ker = fn(jstate)
+    data, acc, idx = (np.asarray(x) for x in lay)
+    ref_body, ref_acc = (np.asarray(x) for x in ker)
     ref_body = ref_body.copy()
     ref_body[5] += 1.0       # the tiled layout stores dq.c shifted by -1
 
@@ -161,7 +194,13 @@ def test_joint_twin_matches_pallas_tiled_kernel(scenes, name):
     jr = args[10]
     n_types = len(set(jr.type.tolist()))
     assert len(lanes) == len(sc["jw"].builder._joints)
-    assert n_types == (3 if name == "farm" else 5)
+    assert n_types == {"farm": 3, "all_types": 5, "hub": 3}[name]
+    if name == "hub":
+        # the overflow color's segment: kind-pure windows sharing the hub
+        assert jr.overflow
+        kinds = [k for k, _, _, _ in window_table(args[1], args[7], args[8],
+                                                  args[9], jr)]
+        assert kinds.count("joint_jacobi") >= 2
     assert np.abs(jr.acc.numpy()).max() > 1e-4     # warm joint impulses
     body, cacc, jacc = (x.numpy() for x in contact_solve(*args))
     L = args[1].shape[1]
