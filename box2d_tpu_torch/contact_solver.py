@@ -15,7 +15,8 @@ feed box2d_tpu.solver_pallas.run_solver_kernel in the tests:
   idx (2, L) i32 (-1 = dead lane), data (NF, L), acc (NA, L) f32
   body (8, Nb) f32 (unshifted dq), params (12, Nb) f32
   nsub substeps; color bucket c owns lanes [c*chunk, (c+1)*chunk) for
-  c < n_colors; lanes [l0, L) are the overflow tail. Buckets at or above
+  c < n_colors; lanes [l0, L) are the overflow tail, swept as consecutive
+  Jacobi windows of tail_w lanes (tail_window). Buckets at or above
   n_colors must be empty.
   joints (optional): joints.JointRows, the joint region. Its lanes are
   sorted by color, then type; color c owns lanes [offsets[c],
@@ -30,9 +31,9 @@ sweep and the kernel writes each lane's bodies straight away; the
 overflow tail and the overflow color's joint segment, whose lanes do share
 bodies, are true Jacobi windows. The overflow color's joints are swept as
 the tiled Pallas kernel sweeps them: one window per type, cut into windows
-of at most JOINT_WINDOW lanes. Mode 1 sweeps the contact tail as
-chunk-wide windows in sequence, so it agrees with this when the live tail
-lanes fit in the first chunk.
+of at most JOINT_WINDOW lanes. The contact tail is cut as the Pallas path
+the JAX package would take for the same world cuts it (tail_window): the
+width of a Jacobi window changes the physics.
 
 `contact_solve` takes the twin for CPU tensors only. For CUDA tensors it
 launches the kernel or raises; there is no fallback.
@@ -41,12 +42,14 @@ launches the kernel or raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 from .cuda_build import HERE, nvcc_build
-from .joints import NAJ, NFJ, JointRows, joint_window
+from .joints import NAJ, NFJ, JointRows, joint_window, solvable_joint_types
+from .state import Capacity, auto_chunk
 
 NF = 33
 NA = 9
@@ -69,6 +72,12 @@ MAX_COLORS = 32
 # window_width gives 128 for every color chunk at the default target)
 JOINT_WINDOW = 128
 
+# the JAX package's default window of its tiled kernel
+# (box2d_tpu/solver_pallas.py:619, DEFAULT_WINDOW) and its body tile
+# (:620, DEFAULT_BODY_TILE), which its VMEM budgets are reckoned at
+TILED_WINDOW = 128
+TILED_BODY_TILE = 512
+
 # kernel launches made by contact_solve (the twin does not count), and how
 # many of them carried a joint region (the joint sweep ran on the card)
 LAUNCHES = 0
@@ -90,11 +99,11 @@ def build() -> ctypes.CDLL:
         return _LIB
     lib, log, BUILD_SECONDS = nvcc_build(SOURCE, "contact_solver")
     fn = lib.b2t_contact_solve
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fnj = lib.b2t_contact_solve_joints
-    fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
+    fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
     fnj.restype = ctypes.c_int
     lib.b2t_launch_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
@@ -124,7 +133,7 @@ def launch_shape(joints: bool) -> dict:
 
 
 def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
-           joints=None):
+           tail_w, joints=None):
     dev = body.device
     L = data.shape[1]
     nb = body.shape[1]
@@ -152,27 +161,30 @@ def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
     if n_colors > MAX_COLORS:
         raise ValueError(f"n_colors={n_colors}: the kernel's window table "
                          f"holds {MAX_COLORS} colors")
+    if tail_w < 1:
+        raise ValueError(f"tail window of {tail_w} lanes")
 
 
 def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
-                  chunk: int, l0: int, n_colors: int,
+                  chunk: int, l0: int, n_colors: int, tail_w: int,
                   joints: JointRows | None = None):
     """Run the solver pipeline; returns (body (8, Nb), acc (NA, L)), and
     the joint accumulators (NAJ, LJ) as a third value when `joints` is
-    given."""
+    given. tail_w: the width of the overflow tail's Jacobi windows
+    (tail_window)."""
     _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
-           joints)
+           tail_w, joints)
     if body.device.type == "cpu":
         return contact_solve_reference(scalars, idx, data, acc, body,
                                        params, nsub, chunk, l0, n_colors,
-                                       joints)
+                                       tail_w, joints)
     if body.device.type != "cuda":
         raise ValueError(f"contact_solve: unsupported device {body.device}")
     global LAUNCHES, JOINT_LAUNCHES
     lib = build()
     L = data.shape[1]
     nb = body.shape[1]
-    scratch_w = max(L - l0, JOINT_WINDOW, 1)
+    scratch_w = max(min(L - l0, tail_w), JOINT_WINDOW, 1)
     out_body = torch.empty_like(body)
     out_acc = torch.empty_like(acc)
     scratch = torch.empty((6, scratch_w), dtype=torch.float32,
@@ -185,7 +197,7 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
                 scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
                 acc.data_ptr(), body.data_ptr(), params.data_ptr(),
                 out_body.data_ptr(), out_acc.data_ptr(), scratch.data_ptr(),
-                nb, L, chunk, l0, n_colors, nsub, scratch_w, stream)
+                nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w, stream)
         else:
             out_jacc = torch.empty_like(joints.acc)
             rc = lib.b2t_contact_solve_joints(
@@ -195,7 +207,7 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
                 joints.idx.data_ptr(), joints.data.data_ptr(),
                 joints.acc.data_ptr(), joints.type.data_ptr(),
                 joints.offsets.data_ptr(), out_jacc.data_ptr(),
-                nb, L, chunk, l0, n_colors, nsub, scratch_w,
+                nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w,
                 joints.data.shape[1], int(joints.overflow), JOINT_WINDOW,
                 stream)
     if rc != 0:
@@ -209,22 +221,104 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
 
 
 # ---------------------------------------------------------------------------
+# the width of the overflow tail's windows
+# ---------------------------------------------------------------------------
+# The one piece of the JAX package's VMEM budgeting (fits_kernel,
+# fits_tiled, fits_tiled_streamed and the `halves` choice) that the port
+# keeps: which Pallas path a world takes there decides how wide the Jacobi
+# windows of its overflow tail are, and the width of a Jacobi window
+# changes the physics. Jax-free copies of box2d_tpu/solver_pallas.py:86-94
+# and :623-662, box2d_tpu/api.py:252-279 and box2d_tpu/world.py:503-525.
+
+def window_width(chunk: int, target: int = TILED_WINDOW) -> int:
+    """Largest multiple of 128 <= target that divides the color chunk
+    (solver_pallas.window_width)."""
+    w = min(chunk, target)
+    while w > 128 and chunk % w != 0:
+        w -= 128
+    return max(w, 128) if chunk % max(w, 128) == 0 else 128
+
+
+def _fits_kernel(nb: int, layout_len: int, chunk: int) -> bool:
+    if layout_len % chunk != 0:
+        return False
+    budget = 12 * 1024 * 1024 / 4
+    return (6 * nb * chunk + (NF + 2 * NA + 8) * layout_len + 48 * nb) < budget
+
+
+def _fits_tiled(nb: int, layout_len: int, w: int, halves: int = 1) -> bool:
+    tb = TILED_BODY_TILE
+    nb_pad = ((max(nb, 128) + tb - 1) // tb) * tb
+    words = (28 * nb_pad + (2 * NA + 2) * layout_len + 3 * NF * w
+             + 4 * tb * (w // halves) + 48 * w + 65536)
+    return words * 4 < 12 * 1024 * 1024
+
+
+def _fits_tiled_streamed(nb: int, w: int) -> bool:
+    tb = TILED_BODY_TILE
+    nb_pad = ((max(nb, 128) + tb - 1) // tb) * tb
+    words = (28 * nb_pad + 3 * (NFJ + NA + 2) * w + 4 * tb * w + 48 * w
+             + 65536)
+    return words * 4 < 12 * 1024 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def tail_window(cap: Capacity, joint_types=frozenset()) -> int:
+    """The width of the overflow tail's Jacobi windows for a world of this
+    capacity and these joint types: the width the JAX package's Pallas path
+    sweeps it at. Mode 1 (a joint-free world whose layout fits the
+    resident kernel) sweeps chunk-wide windows; the tiled kernel sweeps
+    w_k-wide ones, where w_k is window_width(chunk) widened by `halves` for
+    a contact-only resident layout, and window_width(chunk) for a jointed
+    or streamed one; a world that fits no kernel takes the XLA path, which
+    sweeps the whole tail as one window. Computed once per (capacity,
+    joint types), when the world's step is made (world.Step)."""
+    chunk = cap.color_chunk or auto_chunk(cap.max_contact_pairs)
+    nb = cap.max_bodies
+    l0 = cap.max_colors * chunk
+    ovf = ((min(cap.max_contact_pairs, 2 * chunk) + chunk - 1)
+           // chunk) * chunk
+    w_win = window_width(chunk)
+    solvable = solvable_joint_types(joint_types)
+    jl = 0
+    if solvable:
+        n_groups = cap.max_colors * len(solvable)
+        mj = cap.max_joints
+        jl = (-(-mj // w_win)) * w_win + min(n_groups, mj) * w_win
+    if not solvable and _fits_kernel(nb, l0 + ovf, chunk):
+        return chunk
+    if _fits_tiled(nb, l0 + ovf + jl, w_win):
+        if solvable:
+            return w_win
+        for cand in (chunk // w_win, 20, 10, 5, 4, 2):
+            if (cand > 1 and chunk % (cand * w_win) == 0
+                    and _fits_tiled(nb, l0 + ovf, cand * w_win,
+                                    halves=cand)):
+                return cand * w_win
+        return w_win
+    if _fits_tiled_streamed(nb, w_win):
+        return w_win
+    return ovf
+
+
+# ---------------------------------------------------------------------------
 # the windows of a stage
 # ---------------------------------------------------------------------------
 
-def window_table(idx, chunk: int, l0: int, n_colors: int,
+def window_table(idx, chunk: int, l0: int, n_colors: int, tail_w: int,
                  joints: JointRows | None = None):
     """The non-empty windows of one stage in visit order, as (kind, color,
     lo, hi) lane ranges: for each color c, its joint segment ("joint") or,
     if it is the overflow color's, that segment's kind-pure Jacobi windows
     of at most JOINT_WINDOW lanes ("joint_jacobi"), then contact
     bucket c up to its last live lane ("contact"); then the overflow tail
-    up to its last live lane ("tail", color n_colors). Joint windows take
-    no part in the restitution stage. The kernel builds the same table on
-    the card (its prologue): when the coloring overflowed
-    (joints.overflow), the overflow color, the highest in use, owns the
-    last non-empty joint segment; cutting a segment without shared bodies
-    into windows changes nothing. Reads the layout back to the host."""
+    up to its last live lane, cut every tail_w lanes from l0 ("tail",
+    color n_colors). Joint windows take no part in the restitution stage.
+    The kernel builds the same table on the card (its prologue): when the
+    coloring overflowed (joints.overflow), the overflow color, the highest
+    in use, owns the last non-empty joint segment; cutting a segment
+    without shared bodies into windows changes nothing. Reads the layout
+    back to the host."""
     L = idx.shape[1]
     live = (idx[0] >= 0).cpu()
     ends = []
@@ -253,8 +347,10 @@ def window_table(idx, chunk: int, l0: int, n_colors: int,
             table.append(("joint", c, jlo, jhi))
         if ends[c] > c * chunk:
             table.append(("contact", c, c * chunk, ends[c]))
-    if ends[n_colors] > l0:
-        table.append(("tail", n_colors, l0, ends[n_colors]))
+    for lo in range(l0, ends[n_colors], tail_w):
+        hi = min(lo + tail_w, ends[n_colors])
+        if live[lo:hi].any():
+            table.append(("tail", n_colors, lo, hi))
     return table
 
 
@@ -264,7 +360,7 @@ def window_table(idx, chunk: int, l0: int, n_colors: int,
 
 def contact_solve_reference(scalars, idx, data, acc, body, params,
                             nsub: int, chunk: int, l0: int, n_colors: int,
-                            joints: JointRows | None = None):
+                            tail_w: int, joints: JointRows | None = None):
     """The kernel's semantics in plain PyTorch on any device: the same
     stages, windows (window_table) and arithmetic (mode 1's contact_sweep
     and the joint sweep, operation by operation), with each window's deltas
@@ -279,7 +375,8 @@ def contact_solve_reference(scalars, idx, data, acc, body, params,
         jlive = joints.idx[0] >= 0
     # (is_joint, live lanes) in visit order
     windows = []
-    for kind, _, lo, hi in window_table(idx, chunk, l0, n_colors, joints):
+    for kind, _, lo, hi in window_table(idx, chunk, l0, n_colors, tail_w,
+                                        joints):
         is_joint = kind.startswith("joint")
         lanes = torch.nonzero((jlive if is_joint else live)[lo:hi])
         windows.append((is_joint, lanes.squeeze(1) + lo))

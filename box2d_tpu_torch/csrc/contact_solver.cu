@@ -14,7 +14,9 @@
 //   params (12, Nb) [inv_m, inv_I, ext_dvx, ext_dvy, ext_dw, lin_damp,
 //                    ang_damp, lock_x, lock_y, lock_w, max_w, vel_active]
 // Windows: color bucket c is lanes [c*chunk, (c+1)*chunk) for c < n_colors,
-// then the overflow tail [l0, L). Per stage k of 3*nsub+1 (p = k % 3, the
+// then the overflow tail [l0, L), cut into windows of tail_w lanes from l0
+// (contact_solver.tail_window: the width the JAX package's Pallas path
+// sweeps the tail at). Per stage k of 3*nsub+1 (p = k % 3, the
 // last stage p = 3): p==0 integrates velocities then warm-starts, p==1
 // solves with bias, p==2 integrates positions then relaxes, p==3 applies
 // restitution.
@@ -23,10 +25,13 @@
 // bucket and of the tail end (only dead lanes being -1 is relied on) and
 // keeps the table in each CTA's shared memory; every stage then walks only
 // the non-empty windows, in the order of contact_solver.window_table: for
-// each color c its joint segment and its contact bucket, then the tail. An
-// empty window costs neither a pass nor a barrier. The Pallas kernels walk
-// a list of active windows too (window_metadata); the table is that list,
-// built on the card without a host read.
+// each color c its joint segment and its contact bucket, then the tail's
+// windows [l0 + k*tail_w, l0 + (k+1)*tail_w) up to its last live lane. An
+// empty bucket costs neither a pass nor a barrier. (A tail window between
+// two live ones that holds no live lane would be visited, as a no-op: the
+// layout packs the live tail lanes from l0, so there is none.) The Pallas
+// kernels walk a list of active windows too (window_metadata); the table
+// is that list, built on the card without a host read.
 //
 // Two kinds of window. In a color bucket, and in the joint segment of a
 // color that did not overflow, no two lanes share a dynamic body: that is
@@ -36,9 +41,11 @@
 // endpoint at once; no other lane of the window touches that body, so the
 // add in L2 leaves v0 + (v - v0), what the twin's index_add_ leaves. Joint
 // segment c and bucket c are one such window, with one barrier behind it.
-// The overflow tail and the overflow color's joint segment share bodies
-// and stay Jacobi windows: phase 1 writes each lane's deltas to scratch,
-// barrier, phase 2 adds them with atomicAdd, barrier. That joint segment is
+// The overflow tail's windows and the overflow color's joint segment share
+// bodies and stay Jacobi windows, each in two phases: phase 1 writes each
+// lane's deltas to scratch, barrier, phase 2 adds them with atomicAdd,
+// barrier; so every tail window reads the body state its predecessor
+// left, as the reference's windows in sequence do. That joint segment is
 // cut as the tiled Pallas kernel cuts it: one window per joint type, at
 // most `jwin` lanes each. Static and kinematic endpoints have zero inverse
 // mass; their delta is exactly zero and is not written.
@@ -46,8 +53,8 @@
 // The cluster. A launch is one cluster of kCluster CTAs of kThreads
 // threads on as many SMs. A window's lanes are dealt to the CTAs a warp at
 // a time, so a 2,560-lane bucket of pyramid-140 is one pass spread over
-// eight SMs (its 5,120-lane tail two), and so are the body integration
-// passes; the barriers are the cluster's hardware barrier
+// eight SMs (so is each of its tail's two 2,560-lane windows), and so
+// are the body integration passes; the barriers are the cluster's hardware barrier
 // (barrier.cluster.arrive.release / wait.acquire). A call whose every pass
 // fits in one CTA (pyramid-20: 211 bodies, windows of at most 128 lanes)
 // runs on CTA 0 alone, behind block barriers, which cost less; the other
@@ -108,6 +115,7 @@ struct Problem {
   float* acc;
   float* scratch;  // (6, scratch_w) per-lane velocity deltas, Jacobi windows
   int nb, L, chunk, l0, n_colors, nsub, scratch_w;
+  int tail_w;      // lanes of a tail window
 };
 
 struct Stage {
@@ -547,8 +555,9 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
     tab.end[c] = e;
   }
   if (threadIdx.x == 0) {
-    // the widest pass of the call: a color's window, the tail, the bodies
-    int widest = max(q.nb, tab.end[ncol] - q.l0);
+    // the widest pass of the call: a color's window, a tail window, the
+    // bodies
+    int widest = max(q.nb, min(tab.end[ncol] - q.l0, q.tail_w));
     for (int c = 0; c < ncol; ++c) {
       int n = tab.end[c] - c * q.chunk;
       if constexpr (kJoints) n += tab.joff[c + 1] - tab.joff[c];
@@ -607,8 +616,18 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
         pass_barrier(pass, cluster);
       }
     }
+    // The tail's windows. A tail of one window is swept apart from the
+    // loop: the same work, but the kernel built this way runs its colored
+    // windows 10% faster than the loop alone, on inputs with no tail at all
+    // (code layout; time_solver.py --one-process, PERF.md).
     const int nt = tab.end[ncol] - q.l0;
-    if (nt > 0) jacobi_window<false>(q, jr, q.l0, nt, s, pass, cluster);
+    if (nt > 0 && nt <= q.tail_w) {
+      jacobi_window<false>(q, jr, q.l0, nt, s, pass, cluster);
+    } else if (nt > 0) {
+      for (int a = 0; a < nt; a += q.tail_w)
+        jacobi_window<false>(q, jr, q.l0 + a, min(q.tail_w, nt - a), s,
+                             pass, cluster);
+    }
   }
 }
 
@@ -643,7 +662,9 @@ int launch(const Problem& q, const JointRegion& jr, const float* acc_in,
 
 }  // namespace
 
-// Plain C entry points for ctypes. Each launch is one cluster on `stream`;
+// Plain C entry points for ctypes. tail_w: the width of the tail's Jacobi
+// windows; scratch_w >= min(L - l0, tail_w) and >= jwin. Each launch is one
+// cluster on `stream`;
 // it does not synchronise, allocates nothing, and returns the launch's
 // error code (cudaLaunchKernelEx, then cudaGetLastError()).
 
@@ -670,9 +691,9 @@ extern "C" int b2t_contact_solve(
     const float* acc_in, const float* body_in, const float* params,
     float* out_body, float* out_acc, float* scratch,
     int nb, int L, int chunk, int l0, int n_colors, int nsub, int scratch_w,
-    void* stream) {
+    int tail_w, void* stream) {
   const Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
-                  nb, L, chunk, l0, n_colors, nsub, scratch_w};
+                  nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w};
   const JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
                          0};
   return launch<false>(q, none, acc_in, body_in, nullptr, stream);
@@ -689,9 +710,9 @@ extern "C" int b2t_contact_solve_joints(
     const int* jidx, const float* jdata, const float* jacc_in,
     const int* jtype, const int* joff, float* out_jacc,
     int nb, int L, int chunk, int l0, int n_colors, int nsub, int scratch_w,
-    int LJ, int overflow, int jwin, void* stream) {
+    int tail_w, int LJ, int overflow, int jwin, void* stream) {
   const Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
-                  nb, L, chunk, l0, n_colors, nsub, scratch_w};
+                  nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w};
   const JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ, overflow,
                        jwin};
   return launch<true>(q, jr, acc_in, body_in, jacc_in, stream);

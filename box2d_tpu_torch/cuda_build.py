@@ -16,10 +16,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(HERE, "_build")
 
 
-def nvcc_build(source: str, name: str) -> tuple[ctypes.CDLL, str, float]:
+def nvcc_build(source: str, name: str,
+               defines=()) -> tuple[ctypes.CDLL, str, float]:
     """Compile `source` with $CUDA_HOME/bin/nvcc (default /usr/local/cuda)
-    into _build/lib<name>.so and load it. Returns (library, the ptxas
-    lines nvcc printed, wall seconds of the build). Raises if nvcc fails."""
+    into _build/lib<name>.so and load it; `defines`: macros to define.
+    Returns (library, the ptxas lines nvcc printed, wall seconds of the
+    build). Raises if nvcc fails."""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -32,7 +34,8 @@ def nvcc_build(source: str, name: str) -> tuple[ctypes.CDLL, str, float]:
     # are separate kernels and never fuse)
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", tmp, source]
+           "-Xptxas", "-v", *(f"-D{d}" for d in defines), "-o", tmp,
+           source]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:

@@ -8,9 +8,11 @@ csrc/particles.cu run inside each particle sub-iteration:
   one diameter of the weight, pressure or damping term. The JAX kernel
   works on 256-lane blocks against three 128-aligned bands of the sorted
   table (`build_tab`, `block_offsets`) and flags a block whose bands miss
-  a neighbour cell; the port finds each particle's three neighbour key
-  ranges by binary search and visits every neighbour, so it has no band
-  layout and never truncates (its overflow count is always 0).
+  a neighbour cell; the port visits every lane of each particle's three
+  neighbour key ranges, so it has no band layout and never truncates (its
+  overflow count is always 0). The kernel stages each 256-lane block's
+  union of ranges in shared memory when it fits (`k3_block_paths` says
+  which blocks do).
 - `rank_pass` (K4, replaces `particles_pallas._rank_kernel` / `rank_pass`):
   the nearly-sorted rank repair, the new sorted position of every lane as
   a windowed rank over the previously sorted key table; with
@@ -33,6 +35,9 @@ import torch
 from .cuda_build import HERE, nvcc_build
 
 B_BLK = 256
+# the candidate records a K3 block stages in shared memory
+# (csrc/particles.cu kStage)
+K3_STAGE = 2048
 PH_WEIGHT, PH_PRESSURE, PH_DAMPING = 0, 1, 2
 INT32_MIN = -(1 << 31)
 INT32_MAX = (1 << 31) - 1
@@ -53,7 +58,7 @@ def build() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib, log, BUILD_SECONDS = nvcc_build(SOURCE, "particles")
-    lib.b2t_particle_window.argtypes = [ctypes.c_void_p] * 7 + [
+    lib.b2t_particle_window.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.b2t_particle_window.restype = ctypes.c_int
     lib.b2t_particle_rank.argtypes = [ctypes.c_void_p] * 3 + [
@@ -84,7 +89,8 @@ def _stream(dev):
 # K3: the neighbour window pass
 # ---------------------------------------------------------------------------
 
-def window_pass(pos, skey, alive, p0, p1, scalars, phase: int):
+def window_pass(pos, skey, alive, p0, p1, scalars, phase: int,
+                paths=None):
     """One pair pass over the cell-sorted table.
 
     pos (n, 2) f32, skey (n,) i32 ascending cell keys (INT32_MAX for dead
@@ -93,7 +99,10 @@ def window_pass(pos, skey, alive, p0, p1, scalars, phase: int):
     scalars (8,) f32 [inv_diameter, diameter^2, lin_damping, quad_damping,
     vel_per_pressure, 0, 0, 0]. Returns (n, 2) f32: (weight, 0) for
     PH_WEIGHT, the velocity change for PH_PRESSURE and PH_DAMPING. Dead
-    lanes get 0 and are nobody's neighbour."""
+    lanes get 0 and are nobody's neighbour. paths: None, or a (2,) int32
+    tensor on the same device to which the 256-lane blocks that walked
+    staged candidates (paths[0]) and global ones (paths[1]) are added
+    (on the CPU, as k3_block_paths counts them)."""
     global K3_LAUNCHES
     n = skey.shape[0]
     dev = pos.device
@@ -102,9 +111,14 @@ def window_pass(pos, skey, alive, p0, p1, scalars, phase: int):
         (pos, (n, 2), f32), (skey, (n,), torch.int32),
         (alive, (n,), torch.bool), (p0, (n,), f32), (p1, (n,), f32),
         (scalars, (8,), f32)])
+    if paths is not None:
+        _check("window_pass", dev, [(paths, (2,), torch.int32)])
     if phase not in (PH_WEIGHT, PH_PRESSURE, PH_DAMPING):
         raise ValueError(f"window_pass: unknown phase {phase}")
     if dev.type == "cpu":
+        if paths is not None:
+            paths += torch.tensor(k3_block_paths(skey, alive),
+                                  dtype=torch.int32)
         return window_pass_reference(pos, skey, alive, p0, p1, scalars,
                                      phase)
     if dev.type != "cuda":
@@ -115,7 +129,8 @@ def window_pass(pos, skey, alive, p0, p1, scalars, phase: int):
         rc = lib.b2t_particle_window(
             pos.data_ptr(), skey.data_ptr(), alive.data_ptr(),
             p0.data_ptr(), p1.data_ptr(), scalars.data_ptr(),
-            out.data_ptr(), n, phase, _stream(dev))
+            out.data_ptr(), 0 if paths is None else paths.data_ptr(), n,
+            phase, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"window_pass kernel launch failed: cudaError {rc}")
     if n > 0:
@@ -144,6 +159,29 @@ def neighbour_ranges(skey, alive):
         end = torch.searchsorted(skey, hi.to(torch.int32), right=True)
         out.append((start, torch.where(ok, end, start)))
     return out
+
+
+def k3_block_paths(skey, alive):
+    """(staged, global): how many 256-lane blocks of the K3 kernel stage
+    their candidates in shared memory and how many walk them in global
+    memory, by the kernel's rule: a block stages when its three unions of
+    neighbour ranges (one lane range per row offset, from the least lower
+    key to the largest upper key of its lanes) hold at most K3_STAGE lanes
+    together."""
+    n = skey.shape[0]
+    nbk = -(-n // B_BLK)
+    total = torch.zeros(nbk, dtype=torch.int64, device=skey.device)
+    blocks = lambda x: torch.nn.functional.pad(
+        x, (0, nbk * B_BLK - n)).view(nbk, B_BLK)
+    row = (skey >> 16).to(torch.int64)
+    for d, (start, end) in zip((0, 1, -1), neighbour_ranges(skey, alive)):
+        # the lanes that search row + d (an empty range counts too)
+        has = blocks(alive & (row + d >= -32768) & (row + d <= 32767))
+        lo = torch.where(has, blocks(start), n).min(dim=1).values
+        hi = torch.where(has, blocks(end), -1).max(dim=1).values
+        total += torch.where(has.any(dim=1), hi - lo, 0)
+    staged = int((total <= K3_STAGE).sum())
+    return staged, nbk - staged
 
 
 def window_pass_reference(pos, skey, alive, p0, p1, scalars, phase: int):

@@ -29,7 +29,7 @@ import torch
 from . import math2d as m
 from .broadphase import compute_shape_aabbs, find_pairs_incremental
 from .coloring import dense_remap, repair_colors
-from .contact_solver import NA, NF, contact_solve
+from .contact_solver import NA, NF, contact_solve, tail_window
 from .continuous import continuous_pass
 from .joints import (layout_joint_rows, prepare_joints, solvable_joint_types,
                      unpack_joint_acc)
@@ -80,6 +80,8 @@ class Step:
         self.joint_types = joint_types
         self.particle_cfg = particle_cfg
         self.stats = StepStats()
+        # the width of the overflow tail's Jacobi windows, from the capacity
+        self.tail_w = tail_window(capacity, joint_types)
 
     def __call__(self, state: WorldState, dt,
                  light_events: bool = False) -> WorldState:
@@ -308,7 +310,8 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     kernel_args = (scalars, idxL.T.contiguous(),
                    rowsL[:, :NF].T.contiguous(),
                    rowsL[:, NF:NF + NA].T.contiguous(), bodyp, paramsp,
-                   substeps, chunk, l0, cap.max_colors, jrows)
+                   substeps, chunk, l0, cap.max_colors,
+                   tail_window(cap, joint_types), jrows)
     if until == "layout":
         return kernel_args
     out = contact_solve(*kernel_args)

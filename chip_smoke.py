@@ -12,15 +12,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3. kernel vs twin: the solver kernel against its plain PyTorch twin on the
    same CUDA tensors, at the solver inputs the port's own step packs for
    pyramid-20 and pyramid-140 after 30 steps from spawn (timed), for
-   pyramid-140 0 and 2 steps from spawn (live overflow tail), and with
-   joints: joint_farm(1000) after 30 steps (timed), an all-types scene
-   (weld, wheel, motor, mouse, distance spring with limits and motor) and
-   a hub whose joint colors overflow; each case prints the kernel's live
+   pyramid-140 0 and 2 steps from spawn (a live overflow tail; at 0 steps
+   two 2,560-lane Jacobi windows) and pyramid-20 with three color buckets
+   moved into its tail (three 128-lane windows), and with joints:
+   joint_farm(1000) after 30 steps (timed), an all-types scene (weld,
+   wheel, motor, mouse, distance spring with limits and motor) and a hub
+   whose joint colors overflow; each case prints the kernel's live
    windows per stage, its launch shape (one thread-block cluster) and
    what ptxas reported for the kernel instance it ran;
    then the particle kernels at the inputs the port's dam_break(100000)
    step gives them after 30 steps: the window pass K3 in its three phases
-   and the rank repair K4 (also against torch.argsort(stable=True)), timed;
+   and the rank repair K4 (also against torch.argsort(stable=True)),
+   timed; K3 also on tables that send blocks down its global-memory path,
+   K4 also on a run of equal keys and on tables whose every lane moved,
+   at both window sizes;
 4. main path: pyramid-140 and pyramid-20 from spawn through
    World.compile() and World.run(120) on cuda:0, then joint_farm(1000)
    and dam_break(100000) the same way, each timed after one warm run; then
@@ -40,6 +45,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from port_fixtures import (all_types_scene, hub_scene, k3_table,
+                           library_rank, median_ms, move_buckets_to_tail,
+                           rank_table, record_particle_calls)
 
 MAIN_STEPS = 120        # joint_farm(1000)
 PYRAMID_STEPS = 120     # the earlier paths
@@ -69,6 +78,9 @@ PARTICLE_STEPS = 120
 # 420 every pass fits in one CTA (the call runs on CTA 0), with 600 the
 # bodies do not (it runs on the whole cluster)
 HUB_SPOKES = (420, 600)
+# the color buckets of pyramid-20's layout moved into its overflow tail for
+# the tail case: 272 lanes after 30 steps, three 128-lane Jacobi windows
+TAIL_BUCKETS = 3
 # float operations of K3 (csrc/particles.cu window_kernel) per candidate in
 # a neighbour range (the distance test) and per neighbour within one
 # diameter, by phase (weight, pressure, damping)
@@ -113,17 +125,7 @@ def phase_build():
 
 
 def _time_ms(fn):
-    fn()
-    times = []
-    for _ in range(TIMED_CALLS):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+    return median_ms(fn, TIMED_CALLS)
 
 
 def _bound_ms(args):
@@ -133,7 +135,7 @@ def _bound_ms(args):
     float operations over the float32 rate. Returns (ms, "bytes" or
     "operations")."""
     scalars, idx, data, acc, body, params, nsub = args[:7]
-    joints = args[10] if len(args) > 10 else None
+    joints = args[11]
     live = int((idx[0] >= 0).sum())
     nb = body.shape[1]
     stages = 3 * nsub + 1
@@ -186,8 +188,8 @@ def _window_stats(args):
     one CTA (csrc/contact_solver.cu)."""
     from box2d_tpu_torch import contact_solver as cs
 
-    joints = args[10] if len(args) > 10 else None
-    table = cs.window_table(args[1], args[7], args[8], args[9], joints)
+    joints = args[11]
+    table = cs.window_table(args[1], *args[7:12])
     stages = 3 * args[6] + 1
     out = dict(windows=0, barriers=0)
     for k in range(stages):
@@ -200,9 +202,11 @@ def _window_stats(args):
         out["windows"] += colored + jacobi
         out["barriers"] += colored + 2 * jacobi + (p in (0, 2))
     # the kernel's rule: a color's live contact lanes plus its whole joint
-    # segment, the tail, the bodies
-    width = {c: hi - lo for kind, c, lo, hi in table
-             if kind in ("contact", "tail")}
+    # segment, a tail window, the bodies
+    width = {}
+    for kind, c, lo, hi in table:
+        if kind in ("contact", "tail"):
+            width[c] = max(width.get(c, 0), hi - lo)
     if joints is not None:
         off = joints.offsets.tolist()
         for c in range(args[9]):
@@ -216,7 +220,7 @@ def _kernel_note(args, lib):
     the call runs, and what ptxas said of the kernel instance."""
     from box2d_tpu_torch import contact_solver as cs
 
-    joints = len(args) > 10 and args[10] is not None
+    joints = args[11] is not None
     st = _window_stats(args)
     shape = cs.launch_shape(joints)
     assert shape["cluster"] >= 2, f"launch shape {shape}"
@@ -236,26 +240,45 @@ def _kernel_note(args, lib):
             f"solve_kernel<{str(joints).lower()}>: {ptx}"), st
 
 
+def _tail_windows(args):
+    from box2d_tpu_torch import contact_solver as cs
+
+    return [hi - lo for kind, _, lo, hi in
+            cs.window_table(args[1], *args[7:12]) if kind == "tail"]
+
+
 def phase_kernel_vs_twin():
     """Kernel vs twin at the inputs the port's step packs. Timed cases are
-    the main-path shapes after WARM_STEPS; the cases 0 and 2 steps from
-    spawn hold a live overflow tail (a Jacobi window whose lanes share
-    bodies), 0 steps its full two chunks."""
+    the main-path shapes after WARM_STEPS. The overflow tail's lanes share
+    bodies and are swept as Jacobi windows of tail_w lanes in sequence: at
+    pyramid-140 0 and 2 steps from spawn (0 steps: two full 2,560-lane
+    windows), and in pyramid-20's layout after WARM_STEPS steps with its
+    first TAIL_BUCKETS color buckets moved into the tail (several 128-lane
+    windows). Where a Jacobi window's lanes share a body the atomics add
+    in no fixed order, so those cases are held to ATOL / RTOL; the rest
+    must agree bit for bit."""
     from box2d_tpu_torch import contact_solver as cs
     from box2d_tpu_torch import scenes, world
 
     results = {}
     for rows, steps, timed in ((20, WARM_STEPS, True),
                                (140, WARM_STEPS, True),
-                               (140, 2, False), (140, 0, False)):
-        tag = f"pyramid-{rows} after {steps} steps"
+                               (140, 2, False), (140, 0, False),
+                               (20, "tail", False)):
+        tag = (f"pyramid-{rows} after {steps} steps" if steps != "tail" else
+               f"pyramid-{rows} after {WARM_STEPS} steps, {TAIL_BUCKETS} "
+               f"buckets moved into the tail")
         w = scenes.pyramid(rows=rows, device="cuda")
         w.compile()
-        w.run(steps)
+        w.run(WARM_STEPS if steps == "tail" else steps)
         step = w._step
         args = world._step_work(w.state, 1 / 60, w.capacity, step.classes,
                                 step.substeps, step.continuous,
                                 world.StepStats(), until="layout")
+        assert args[10] == step.tail_w
+        if steps == "tail":
+            args = move_buckets_to_tail(args, range(TAIL_BUCKETS),
+                                        TAIL_BUCKETS * args[7])
         idx, data, acc, body, l0, chunk = (args[1], args[2], args[3],
                                            args[4], args[8], args[7])
         kb, ka = cs.contact_solve(*args)
@@ -265,11 +288,14 @@ def phase_kernel_vs_twin():
         err_a = float((ka - ta).abs().max())
         live = int((idx[0] >= 0).sum())
         tail = int((idx[0, l0:] >= 0).sum())
+        tail_windows = _tail_windows(args)
         warm = int((acc[0:2] != 0).any(0).sum())
         note, wst = _kernel_note(args, cs.build())
         print(f"[kernel] {tag}: Nb={body.shape[1]} L={data.shape[1]}"
               f" chunk={chunk} live lanes={live} warm lanes={warm} live tail"
-              f" lanes={tail} max_abs_err body={err_b:.3e} acc={err_a:.3e}")
+              f" lanes={tail} in {len(tail_windows)} windows of at most "
+              f"{args[10]} lanes {tail_windows} max_abs_err body={err_b:.3e}"
+              f" acc={err_a:.3e}")
         print(f"[kernel] {tag}: {note}")
         torch.testing.assert_close(kb, tb, atol=ATOL, rtol=RTOL)
         torch.testing.assert_close(ka, ta, atol=ATOL, rtol=RTOL)
@@ -277,8 +303,11 @@ def phase_kernel_vs_twin():
             # no window shares a body: each body gets its lanes' deltas in
             # the twin's order, so the two agree bit for bit
             assert err_b == 0.0 and err_a == 0.0, f"{tag}: not bit-exact"
-        if steps >= 2:
+        if steps != 0:
             assert warm > 0, f"{tag}: warm impulses expected"
+        if steps == 0 or steps == "tail":
+            assert len(tail_windows) >= {0: 2, "tail": 3}[steps], (
+                f"{tag}: the tail spans {len(tail_windows)} windows")
         if not timed:
             assert tail > 0, f"{tag}: a live overflow tail expected"
             results[(rows, steps)] = dict(err=max(err_b, err_a))
@@ -295,98 +324,6 @@ def phase_kernel_vs_twin():
                                       plain_ms=plain_ms, bound_ms=bound_ms,
                                       bound_by=bound_by)
     return results
-
-
-def all_types_scene(World, t, g, **kw):
-    """Weld, wheel, motor, mouse and a distance spring with limits and
-    motor over a ground box (the scene of tests/test_pallas_solver.py:195-253),
-    built through the World, types and geometry modules it is given, so the
-    CPU tests can build it in both packages. It is stepped without
-    continuous collision, as that test steps it: the mouse joint makes its
-    ball fast enough to open the CCD gate."""
-    w = World(t.WorldDef(gravity=(0.0, -10.0), enable_continuous=False),
-              **kw)
-    ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.5)))
-    w.create_polygon_shape(ground, t.ShapeDef(), g.box(50.0, 0.5))
-    a = w.create_body(t.BodyDef(type=2, position=(0.0, 5.0),
-                                angular_velocity=2.0))
-    w.create_polygon_shape(a, t.ShapeDef(), g.box(0.4, 0.4))
-    b = w.create_body(t.BodyDef(type=2, position=(1.0, 5.0)))
-    w.create_polygon_shape(b, t.ShapeDef(), g.box(0.4, 0.4))
-    w.create_joint(t.WeldJointDef(body_a=a, body_b=b,
-                                  local_anchor_a=(0.5, 0.0),
-                                  local_anchor_b=(-0.5, 0.0)))
-    chassis = w.create_body(t.BodyDef(type=2, position=(5.0, 2.0)))
-    w.create_polygon_shape(chassis, t.ShapeDef(), g.box(1.0, 0.25))
-    wheel = w.create_body(t.BodyDef(type=2, position=(5.0, 1.0)))
-    w.create_circle_shape(wheel, t.ShapeDef(), (0.0, 0.0), 0.4)
-    w.create_joint(t.WheelJointDef(body_a=chassis, body_b=wheel,
-                                   local_anchor_a=(0.0, -1.0),
-                                   enable_motor=True, motor_speed=3.0,
-                                   max_motor_torque=20.0,
-                                   hertz=4.0, damping_ratio=0.7))
-    puck = w.create_body(t.BodyDef(type=2, position=(-5.0, 3.0),
-                                   gravity_scale=0.0))
-    w.create_circle_shape(puck, t.ShapeDef(), (0.0, 0.0), 0.3)
-    w.create_joint(t.MotorJointDef(body_a=ground, body_b=puck,
-                                   linear_velocity=(1.0, 0.0),
-                                   max_velocity_force=10.0,
-                                   angular_velocity=1.0,
-                                   max_velocity_torque=5.0))
-    ball = w.create_body(t.BodyDef(type=2, position=(-8.0, 3.0)))
-    w.create_circle_shape(ball, t.ShapeDef(), (0.0, 0.0), 0.3)
-    w.create_joint(t.MouseJointDef(body_a=ground, body_b=ball,
-                                   target=(-7.0, 4.0), hertz=4.0,
-                                   damping_ratio=0.7, max_force=50.0))
-    p1 = w.create_body(t.BodyDef(type=2, position=(8.0, 4.0)))
-    w.create_circle_shape(p1, t.ShapeDef(), (0.0, 0.0), 0.2)
-    anchor2 = w.create_body(t.BodyDef(type=0, position=(8.0, 6.0)))
-    w.create_joint(t.DistanceJointDef(body_a=anchor2, body_b=p1,
-                                      length=1.5, enable_spring=True,
-                                      hertz=3.0, damping_ratio=0.5,
-                                      enable_limit=True, min_length=1.0,
-                                      max_length=2.5, enable_motor=True,
-                                      max_motor_force=5.0, motor_speed=0.2))
-    return w
-
-
-def hub_scene(World, t, g, spokes=24, **kw):
-    """One dynamic hub, a disc, joined to `spokes` dynamic balls on a ring
-    1 m outside its rim, by revolute, distance and weld joints in turn;
-    built through the modules it is given (as all_types_scene). The
-    coloring gives a lane between two dynamic bodies one of 16 colors, so
-    all but 16 of the hub's joints overflow into the last color: its joint
-    segment mixes three types whose lanes share the hub. The balls stand
-    1 m apart and the whole falls freely, so no contact is ever found; the
-    hub's inertia grows with its radius, which keeps the overflow color's
-    Jacobi windows, whose lanes all push the hub at once, stable. Stepped
-    without continuous collision."""
-    w = World(t.WorldDef(gravity=(0.0, -10.0), enable_continuous=False),
-              **kw)
-    ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.5)))
-    w.create_polygon_shape(ground, t.ShapeDef(), g.box(50.0, 0.5))
-    radius = max(2.0, spokes / (2.0 * math.pi))
-    y0 = radius + 10.0
-    hub = w.create_body(t.BodyDef(type=2, position=(0.0, y0),
-                                  angular_velocity=0.5))
-    w.create_circle_shape(hub, t.ShapeDef(), (0.0, 0.0), radius - 1.0)
-    for i in range(spokes):
-        a = 2.0 * math.pi * i / spokes
-        x, y = radius * math.cos(a), radius * math.sin(a)
-        ball = w.create_body(t.BodyDef(type=2, position=(x, y0 + y)))
-        w.create_circle_shape(ball, t.ShapeDef(), (0.0, 0.0), 0.15)
-        if i % 3 == 0:
-            w.create_joint(t.RevoluteJointDef(body_a=hub, body_b=ball,
-                                              local_anchor_a=(x, y)))
-        elif i % 3 == 1:
-            rim = (radius - 1.0) / radius
-            w.create_joint(t.DistanceJointDef(
-                body_a=hub, body_b=ball, local_anchor_a=(rim * x, rim * y),
-                length=1.0))
-        else:
-            w.create_joint(t.WeldJointDef(body_a=hub, body_b=ball,
-                                          local_anchor_a=(x, y)))
-    return w
 
 
 def phase_joint_kernel_vs_twin():
@@ -419,7 +356,7 @@ def phase_joint_kernel_vs_twin():
                                 step.substeps, step.continuous,
                                 world.StepStats(), until="layout",
                                 joint_types=step.joint_types)
-        idx, acc, body, jr = args[1], args[3], args[4], args[10]
+        idx, acc, body, jr = args[1], args[3], args[4], args[11]
         assert jr is not None, f"{tag}: no joint region was packed"
         kb, ka, kj = cs.contact_solve(*args)
         tb, ta, tj = cs.contact_solve_reference(*args)
@@ -451,7 +388,7 @@ def phase_joint_kernel_vs_twin():
             assert jtypes == [0, 1, 4, 5, 7], (
                 f"{tag}: joint types {jtypes}")
         if name.startswith("hub"):
-            table = cs.window_table(idx, args[7], args[8], args[9], jr)
+            table = cs.window_table(idx, *args[7:12])
             widths = [hi - lo for kind, _, lo, hi in table
                       if kind == "joint_jacobi"]
             assert jr.overflow and len(widths) > 3, f"{tag}: {widths}"
@@ -509,43 +446,28 @@ def _k3_bound_ms(args, phase):
 
 def phase_particle_kernels():
     """K3 and K4 against their twins at the inputs the port's
-    dam_break(PARTICLES) step gives them: the three window passes of the
-    first sub-iteration after WARM_STEPS steps, and the rank repair of the
-    latest step up to then that took it (in this scene its jump
-    precondition fails in every sub-iteration in which a particle falling
-    past the tank crosses y = 0, where the cell key's row wraps: ROADMAP.md
-    section 3). Launches made here do not count toward the main path."""
+    dam_break(PARTICLES) step gives them (port_fixtures.record_particle_calls:
+    the three window passes of the first sub-iteration after WARM_STEPS
+    steps, and the rank repair of the latest step up to then that took it;
+    in this scene its jump precondition fails in every sub-iteration in
+    which a particle falling past the tank crosses y = 0, where the cell
+    key's row wraps: ROADMAP.md section 3), timed. Then on inputs made to
+    stress them: K3 on tables that send blocks down its global-memory path
+    (k3_table), K4 on tables with a run of equal keys two blocks long and
+    with every lane moved (rank_table, at its two window sizes), each
+    against its twin and K4 also against the stable argsort, bit for bit.
+    K3 counts the blocks that took each of its paths. Launches made here do
+    not count toward the main path."""
     from box2d_tpu_torch import particles_kernels as pk
-    from box2d_tpu_torch import scenes, world
-    from box2d_tpu_torch.particles import particle_step
 
-    w = scenes.dam_break(PARTICLES, device="cuda")
-    w.compile()
-    ranks, rank_step = [], None
-    window_pass, rank_pass = pk.window_pass, pk.rank_pass
-    for i in range(WARM_STEPS + 1):
-        windows, found = [], []
-        # particle_step looks both wrappers up at call time: wrap them to
-        # capture their inputs at this state
-        pk.window_pass = lambda *a: windows.append(a) or window_pass(*a)
-        pk.rank_pass = lambda *a: found.append(a) or rank_pass(*a)
-        try:
-            particle_step(w.state.particles, w.state, 1 / 60,
-                          w._step.particle_cfg, world.StepStats())
-        finally:
-            pk.window_pass, pk.rank_pass = window_pass, rank_pass
-        if found:
-            ranks, rank_step = found, i
-        if i < WARM_STEPS:
-            w.step(1 / 60)
-    windows = windows[:3]
-    assert [a[6] for a in windows] == [0, 1, 2], "K3 phases not recorded"
-    assert ranks, f"the rank repair never engaged in {WARM_STEPS} steps"
+    windows, (newkey, offs, rb), rank_step = record_particle_calls(
+        PARTICLES, WARM_STEPS)
     tag = f"dam_break-{PARTICLES} after {WARM_STEPS} steps"
     k3 = dict(err=0.0, ms=[], plain_ms=[], bound_ms=[], bound_by=set())
     for args, pname in zip(windows, ("weight", "pressure", "damping")):
         phase = args[6]
-        kern = pk.window_pass(*args)
+        paths = torch.zeros(2, dtype=torch.int32, device="cuda")
+        kern = pk.window_pass(*args, paths=paths)
         twin = pk.window_pass_reference(*args)
         torch.cuda.synchronize()
         err = float((kern - twin).abs().max())
@@ -555,42 +477,63 @@ def phase_particle_kernels():
         plain_ms = _time_ms(lambda: pk.window_pass_reference(*args))
         print(f"[kernel] K3 {pname}, {tag}: n={args[1].shape[0]} live "
               f"lanes={live} candidates={cand} neighbours={neigh} widest "
-              f"range={widest} max_abs_err={err:.3e}; median of "
+              f"range={widest} blocks staged / global={paths.tolist()} "
+              f"max_abs_err={err:.3e}; median of "
               f"{TIMED_CALLS} calls: kernel {ms:.4f} ms, twin "
               f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
         # the twin sums each range in lane order like the kernel, and the
         # kernel is built with -fmad=false; the bound covers any order
         torch.testing.assert_close(kern, twin, atol=ATOL, rtol=RTOL)
         assert float(kern.abs().max()) > 0, f"K3 {pname}: all zero"
+        assert paths.tolist() == list(pk.k3_block_paths(args[1], args[2]))
         k3["err"] = max(k3["err"], err)
         k3["ms"].append(ms)
         k3["plain_ms"].append(plain_ms)
         k3["bound_ms"].append(bound_ms)
         k3["bound_by"].add(bound_by)
+    for kind in ("row boundary", "dense cell"):
+        base = tuple(x.cuda() for x in k3_table(kind))
+        want = pk.k3_block_paths(base[1], base[2])
+        assert want[1] > 0, f"K3 {kind}: no block takes the global path"
+        for phase, pname in enumerate(("weight", "pressure", "damping")):
+            paths = torch.zeros(2, dtype=torch.int32, device="cuda")
+            kern = pk.window_pass(*base, phase, paths=paths)
+            twin = pk.window_pass_reference(*base, phase)
+            torch.cuda.synchronize()
+            err = float((kern - twin).abs().max())
+            print(f"[kernel] K3 {pname}, {kind} table: n="
+                  f"{base[1].shape[0]} blocks staged / global="
+                  f"{paths.tolist()} max_abs_err={err:.3e}")
+            torch.testing.assert_close(kern, twin, atol=ATOL, rtol=RTOL)
+            assert float(kern.abs().max()) > 0, f"K3 {kind}: all zero"
+            assert paths.tolist() == list(want), f"K3 {kind}: paths"
+            k3["err"] = max(k3["err"], err)
 
-    # the recorded repair that moves the most lanes
-    ident = torch.arange(ranks[0][0].shape[0], dtype=torch.int32,
-                         device=ranks[0][0].device)
-    newkey, offs, rb = max(
-        ranks, key=lambda a: int((pk.rank_pass_reference(*a) != ident).sum()))
-    kern = pk.rank_pass(newkey, offs, rb)
-    twin = pk.rank_pass_reference(newkey, offs, rb)
-
-    def library():
-        order = torch.argsort(newkey, stable=True)
-        out = torch.empty_like(newkey)
-        out[order] = torch.arange(newkey.shape[0], dtype=torch.int32,
-                                  device=newkey.device)
-        return out
-
-    want = library()
-    torch.cuda.synchronize()
-    assert torch.equal(kern, twin), "K4 differs from its twin"
-    assert torch.equal(kern, want), "K4 differs from the stable argsort"
-    moved = int((want != ident).sum())
+    ident = torch.arange(newkey.shape[0], dtype=torch.int32, device="cuda")
+    moved = int((pk.rank_pass_reference(newkey, offs, rb) != ident).sum())
+    cases = [(f"dam_break-{PARTICLES} after {rank_step} steps (the latest "
+              f"that took the repair)", newkey, offs, rb)]
+    for n, seed, equal in ((5000, 1, True), (5000, 2, False),
+                           (99856, 3, False)):
+        what = ("lanes [256, 768) holding one key, the rest moved" if equal
+                else "every lane moved one row and one column")
+        cases.append((f"n={n}, {what}",
+                      *(x.cuda() if torch.is_tensor(x) else x
+                        for x in rank_table(n, seed, equal))))
+    err = 0
+    for name, nk, of, w in cases:
+        kern = pk.rank_pass(nk, of, w)
+        twin = pk.rank_pass_reference(nk, of, w)
+        want = library_rank(nk)
+        torch.cuda.synchronize()
+        e = max(int((kern.long() - x.long()).abs().max()) for x in (twin, want))
+        print(f"[kernel] K4, {name}: n={nk.shape[0]} window={w} "
+              f"max_abs_err={e} against its twin and the stable argsort")
+        assert torch.equal(kern, twin), f"K4 {name}: differs from its twin"
+        assert torch.equal(kern, want), f"K4 {name}: differs from argsort"
+        err = max(err, e)
     n = newkey.shape[0]
-    nbk = offs.shape[0]
-    # the least the function needs, not the windowed count's work: keys and
+    # the least the function needs, not the kernel's work: keys and
     # offsets read once, ranks written once; one compare per lane to see it
     # is in order, and a binary search of the window per lane that moves
     nbytes = 4 * (2 * n + offs.numel())
@@ -599,21 +542,18 @@ def phase_particle_kernels():
     ops = n + moved * math.ceil(math.log2(rb))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
-    err = max(int((kern.long() - x.long()).abs().max()) for x in (twin, want))
     k4 = dict(err=err, ms=_time_ms(lambda: pk.rank_pass(newkey, offs, rb)),
               plain_ms=_time_ms(
                   lambda: pk.rank_pass_reference(newkey, offs, rb)),
-              library_ms=_time_ms(library))
+              library_ms=_time_ms(lambda: library_rank(newkey)))
     k4["bound_ms"], k4["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
                                       else (t_ops, "operations"))
-    print(f"[kernel] K4, dam_break-{PARTICLES} after {rank_step} steps "
-          f"(the latest that took the repair): n={n} blocks={nbk} "
-          f"window={rb} lanes that "
-          f"move={moved}; max_abs_err={err} against its twin and "
-          f"torch.argsort(stable=True); median of {TIMED_CALLS} calls: kernel "
-          f"{k4['ms']:.4f} ms, twin {k4['plain_ms']:.4f} ms, argsort + "
-          f"inverse scatter {k4['library_ms']:.4f} ms, bound "
+    print(f"[kernel] K4, {cases[0][0]}: n={n} blocks={offs.shape[0]} "
+          f"window={rb} lanes that move={moved}; median of {TIMED_CALLS} "
+          f"calls: kernel {k4['ms']:.4f} ms, twin {k4['plain_ms']:.4f} ms, "
+          f"argsort + inverse scatter {k4['library_ms']:.4f} ms, bound "
           f"{k4['bound_ms']:.6f} ms ({k4['bound_by']})")
+    assert k4["ms"] <= k4["library_ms"], "K4 is slower than the library sort"
     return k3, k4
 
 

@@ -1,0 +1,287 @@
+"""Inputs and timing helpers shared by the port's tests
+(tests/test_torch_*.py), chip_smoke.py, time_solver.py and probe_k3.py.
+
+- Scenes built in either package through the modules they are given:
+  `all_types_scene` (every joint type the solver sweeps) and `hub_scene`
+  (joint colors that overflow).
+- Inputs made to reach a kernel's edge cases: `move_buckets_to_tail` (an
+  overflow tail of several Jacobi windows), `k3_table` (K3 blocks on their
+  global-memory path) and `rank_table` (K4 stress tables).
+- Timing on the card: `median_ms` (device time of one call),
+  `library_rank` (the library call beside K4) and
+  `record_particle_calls` (what dam_break's step hands K3 and K4).
+It imports torch and numpy, and box2d_tpu_torch only inside the helpers
+that need it.
+"""
+
+import math
+import statistics
+
+import numpy as np
+import torch
+
+WARM_STEPS = 30
+TIMED_CALLS = 20
+PARTICLES = 100000
+# a device-side wait ahead of each timed call: ~2 ms at the card's clock,
+# longer than the host takes to launch one kernel call
+QUEUE_CYCLES = 4_000_000
+
+
+def all_types_scene(World, t, g, **kw):
+    """Weld, wheel, motor, mouse and a distance spring with limits and
+    motor over a ground box (the scene of tests/test_pallas_solver.py:195-253),
+    built through the World, types and geometry modules it is given, so the
+    CPU tests can build it in both packages. It is stepped without
+    continuous collision, as that test steps it: the mouse joint makes its
+    ball fast enough to open the CCD gate."""
+    w = World(t.WorldDef(gravity=(0.0, -10.0), enable_continuous=False),
+              **kw)
+    ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.5)))
+    w.create_polygon_shape(ground, t.ShapeDef(), g.box(50.0, 0.5))
+    a = w.create_body(t.BodyDef(type=2, position=(0.0, 5.0),
+                                angular_velocity=2.0))
+    w.create_polygon_shape(a, t.ShapeDef(), g.box(0.4, 0.4))
+    b = w.create_body(t.BodyDef(type=2, position=(1.0, 5.0)))
+    w.create_polygon_shape(b, t.ShapeDef(), g.box(0.4, 0.4))
+    w.create_joint(t.WeldJointDef(body_a=a, body_b=b,
+                                  local_anchor_a=(0.5, 0.0),
+                                  local_anchor_b=(-0.5, 0.0)))
+    chassis = w.create_body(t.BodyDef(type=2, position=(5.0, 2.0)))
+    w.create_polygon_shape(chassis, t.ShapeDef(), g.box(1.0, 0.25))
+    wheel = w.create_body(t.BodyDef(type=2, position=(5.0, 1.0)))
+    w.create_circle_shape(wheel, t.ShapeDef(), (0.0, 0.0), 0.4)
+    w.create_joint(t.WheelJointDef(body_a=chassis, body_b=wheel,
+                                   local_anchor_a=(0.0, -1.0),
+                                   enable_motor=True, motor_speed=3.0,
+                                   max_motor_torque=20.0,
+                                   hertz=4.0, damping_ratio=0.7))
+    puck = w.create_body(t.BodyDef(type=2, position=(-5.0, 3.0),
+                                   gravity_scale=0.0))
+    w.create_circle_shape(puck, t.ShapeDef(), (0.0, 0.0), 0.3)
+    w.create_joint(t.MotorJointDef(body_a=ground, body_b=puck,
+                                   linear_velocity=(1.0, 0.0),
+                                   max_velocity_force=10.0,
+                                   angular_velocity=1.0,
+                                   max_velocity_torque=5.0))
+    ball = w.create_body(t.BodyDef(type=2, position=(-8.0, 3.0)))
+    w.create_circle_shape(ball, t.ShapeDef(), (0.0, 0.0), 0.3)
+    w.create_joint(t.MouseJointDef(body_a=ground, body_b=ball,
+                                   target=(-7.0, 4.0), hertz=4.0,
+                                   damping_ratio=0.7, max_force=50.0))
+    p1 = w.create_body(t.BodyDef(type=2, position=(8.0, 4.0)))
+    w.create_circle_shape(p1, t.ShapeDef(), (0.0, 0.0), 0.2)
+    anchor2 = w.create_body(t.BodyDef(type=0, position=(8.0, 6.0)))
+    w.create_joint(t.DistanceJointDef(body_a=anchor2, body_b=p1,
+                                      length=1.5, enable_spring=True,
+                                      hertz=3.0, damping_ratio=0.5,
+                                      enable_limit=True, min_length=1.0,
+                                      max_length=2.5, enable_motor=True,
+                                      max_motor_force=5.0, motor_speed=0.2))
+    return w
+
+
+def hub_scene(World, t, g, spokes=24, **kw):
+    """One dynamic hub, a disc, joined to `spokes` dynamic balls on a ring
+    1 m outside its rim, by revolute, distance and weld joints in turn;
+    built through the modules it is given (as all_types_scene). The
+    coloring gives a lane between two dynamic bodies one of 16 colors, so
+    all but 16 of the hub's joints overflow into the last color: its joint
+    segment mixes three types whose lanes share the hub. The balls stand
+    1 m apart and the whole falls freely, so no contact is ever found; the
+    hub's inertia grows with its radius, which keeps the overflow color's
+    Jacobi windows, whose lanes all push the hub at once, stable. Stepped
+    without continuous collision."""
+    w = World(t.WorldDef(gravity=(0.0, -10.0), enable_continuous=False),
+              **kw)
+    ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.5)))
+    w.create_polygon_shape(ground, t.ShapeDef(), g.box(50.0, 0.5))
+    radius = max(2.0, spokes / (2.0 * math.pi))
+    y0 = radius + 10.0
+    hub = w.create_body(t.BodyDef(type=2, position=(0.0, y0),
+                                  angular_velocity=0.5))
+    w.create_circle_shape(hub, t.ShapeDef(), (0.0, 0.0), radius - 1.0)
+    for i in range(spokes):
+        a = 2.0 * math.pi * i / spokes
+        x, y = radius * math.cos(a), radius * math.sin(a)
+        ball = w.create_body(t.BodyDef(type=2, position=(x, y0 + y)))
+        w.create_circle_shape(ball, t.ShapeDef(), (0.0, 0.0), 0.15)
+        if i % 3 == 0:
+            w.create_joint(t.RevoluteJointDef(body_a=hub, body_b=ball,
+                                              local_anchor_a=(x, y)))
+        elif i % 3 == 1:
+            rim = (radius - 1.0) / radius
+            w.create_joint(t.DistanceJointDef(
+                body_a=hub, body_b=ball, local_anchor_a=(rim * x, rim * y),
+                length=1.0))
+        else:
+            w.create_joint(t.WeldJointDef(body_a=hub, body_b=ball,
+                                          local_anchor_a=(x, y)))
+    return w
+
+
+def move_buckets_to_tail(args, buckets, grow):
+    """Solver arguments (world._step_work(..., until="layout")) with the
+    overflow tail grown by `grow` dead lanes and the live lanes of the
+    given color buckets moved, in lane order, behind its live lanes: a
+    tail whose lanes share bodies, spanning as many of its Jacobi windows
+    as they fill. The CPU tests build their tail cases with it too."""
+    scalars, idx, data, acc, body, params, nsub, chunk, l0, ncol, tail_w, jr = \
+        args
+
+    def pad(t, fill):
+        more = torch.full((t.shape[0], grow), fill, dtype=t.dtype,
+                          device=t.device)
+        return torch.cat([t, more], dim=1)
+
+    idx, data, acc = pad(idx, -1), pad(data, 0.0), pad(acc, 0.0)
+    lanes = torch.tensor([k for c in buckets
+                          for k in range(c * chunk, (c + 1) * chunk)],
+                         dtype=torch.long, device=idx.device)
+    src = lanes[idx[0, lanes] >= 0]
+    live_tail = torch.nonzero(idx[0, l0:] >= 0)
+    start = l0 + (int(live_tail[-1]) + 1 if live_tail.numel() else 0)
+    dst = start + torch.arange(src.numel(), device=idx.device)
+    assert start + src.numel() <= idx.shape[1], "no room in the tail"
+    for t, fill in ((idx, -1), (data, 0.0), (acc, 0.0)):
+        t[:, dst] = t[:, src]
+        t[:, src] = fill
+    return (scalars, idx, data, acc, body, params, nsub, chunk, l0, ncol,
+            tail_w, jr)
+
+
+def k3_table(kind, seed=0):
+    """Inputs of one K3 call (pos, skey, alive, p0, p1, scalars) that send
+    blocks down the kernel's global-memory path; returns the argument
+    tuple without the phase. "row boundary": a sparse row of 20 particles
+    spread over 200 cells under two rows of 2,500 particles over the same
+    cells, so the block that holds the sparse row and the start of the
+    next spans 200 cells and its row-above union holds that whole dense
+    row; "dense cell": 2,500 particles in one cell amid a sparse field. The
+    table is cell-sorted (stable) with the port's key; p0 / p1 are
+    velocity-like noise. The CPU tests build the same tables."""
+    from box2d_tpu_torch.particles import _cell_key
+
+    d = 0.1
+    rng = np.random.default_rng(seed)
+    if kind == "row boundary":
+        pos = np.concatenate([
+            np.stack([(np.arange(20) * 10 + 0.5) * d, np.full(20, 0.5 * d)],
+                     axis=1),
+            np.stack([rng.uniform(0, 200 * d, 2500),
+                      rng.uniform(d, 2 * d, 2500)], axis=1),
+            np.stack([rng.uniform(0, 200 * d, 2500),
+                      rng.uniform(2 * d, 3 * d, 2500)], axis=1)])
+    else:
+        grid = np.stack(np.meshgrid(np.arange(-20, 20), np.arange(-20, 20)),
+                        axis=-1).reshape(-1, 2) * 2.5 * d
+        pos = np.concatenate([rng.uniform(0.0, d, (2500, 2)), grid])
+    pos = torch.tensor(pos, dtype=torch.float32)
+    n = pos.shape[0]
+    alive = torch.ones(n, dtype=torch.bool)
+    key = _cell_key(pos, alive, 1.0 / d)
+    order = torch.argsort(key, stable=True)
+    p01 = torch.tensor(rng.normal(size=(2, n)), dtype=torch.float32)
+    scalars = torch.tensor([1.0 / d, d * d, 1.0, 0.7, 0.5, 0.0, 0.0, 0.0],
+                           dtype=torch.float32)
+    return (pos[order].contiguous(), key[order].contiguous(), alive,
+            p01[0, order].contiguous(), p01[1, order].contiguous(), scalars)
+
+
+def rank_table(n, seed, equal_blocks=False):
+    """Inputs of one K4 call (newkey, offs, rb) on a cell-sorted key table
+    of n particles, ~1.8 a cell on a square field: every lane moved by one
+    row and one column; or, with equal_blocks, lanes [256, 768) (two whole
+    blocks) holding one key that does not move while every other lane
+    moves. Asserts that the rank repair's preconditions hold, so the
+    ranks must equal the stable argsort's."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    rng = np.random.default_rng(seed)
+    side = int(math.sqrt(n / 1.8))
+    rows = rng.integers(0, side, n) + 0x7F00
+    cols = rng.integers(0, side, n) + 0x8000
+    key0 = np.sort(((rows << 16) | cols).astype(np.int32))
+    newkey = (key0 + rng.choice([-1, 1], n) * (1 << 16)
+              + rng.choice([-1, 1], n)).astype(np.int32)
+    if equal_blocks:
+        key0[256:768] = key0[256]
+        newkey[256:768] = key0[256]
+    rb = pk.rank_window(n)
+    offs, ok = pk.rank_offsets(torch.from_numpy(key0), -(-n // 256), rb)
+    assert bool(ok.all()), "the window does not cover the moved lanes"
+    return torch.from_numpy(newkey), offs, rb
+
+
+def median_ms(fn, calls=TIMED_CALLS):
+    """The median time of one call of fn on the card, in ms, from CUDA
+    events around each of `calls` calls after one warm call. Each call is
+    queued behind a device-side wait of QUEUE_CYCLES clock cycles, so its
+    launches are in the stream before the first event runs and the events
+    time the device, not the host's Python and launch overhead (for a call
+    whose host part outlasts the wait, such as a twin's thousands of small
+    launches, they time the host as well)."""
+    fn()
+    times = []
+    for _ in range(calls):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_CYCLES)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def library_rank(newkey):
+    """The rank of every lane by one library sort: the inverse permutation
+    of torch.argsort(newkey, stable=True)."""
+    order = torch.argsort(newkey, stable=True)
+    out = torch.empty_like(newkey)
+    out[order] = torch.arange(newkey.shape[0], dtype=torch.int32,
+                              device=newkey.device)
+    return out
+
+
+def record_particle_calls(n=PARTICLES, steps=WARM_STEPS):
+    """Steps dam_break(n) on the card and records what the particle step
+    hands its kernels: the three K3 calls (weight, pressure, damping) of
+    the first sub-iteration after `steps` steps, and, of the K4 calls of
+    the latest step up to then that took the rank repair, the one that
+    moves the most lanes. Returns (K3 argument tuples, K4 argument tuple,
+    that step). Raises if no step took the repair. Kernel launches made
+    here count like any other: reset the counts after it."""
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.particles import particle_step
+
+    w = scenes.dam_break(n, device="cuda")
+    w.compile()
+    ranks, rank_step = [], None
+    window_pass, rank_pass = pk.window_pass, pk.rank_pass
+    for i in range(steps + 1):
+        windows, found = [], []
+        # particle_step looks both wrappers up at call time: wrap them to
+        # capture their inputs at this state
+        pk.window_pass = lambda *a: windows.append(a) or window_pass(*a)
+        pk.rank_pass = lambda *a: found.append(a) or rank_pass(*a)
+        try:
+            particle_step(w.state.particles, w.state, 1 / 60,
+                          w._step.particle_cfg, world.StepStats())
+        finally:
+            pk.window_pass, pk.rank_pass = window_pass, rank_pass
+        if found:
+            ranks, rank_step = found, i
+        if i < steps:
+            w.step(1 / 60)
+    assert [a[6] for a in windows[:3]] == [0, 1, 2], "K3 phases not recorded"
+    assert ranks, f"the rank repair never engaged in {steps} steps"
+
+    def moved(args):
+        ident = torch.arange(args[0].shape[0], dtype=torch.int32,
+                             device=args[0].device)
+        return int((pk.rank_pass_reference(*args) != ident).sum())
+
+    return windows[:3], max(ranks, key=moved), rank_step

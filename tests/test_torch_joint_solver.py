@@ -12,16 +12,27 @@ contact accumulators and joint accumulators. No loosening was needed: the
 Pallas `_atan2` is a polynomial within 1e-7 rad of `torch.atan2`, and the
 angles only enter through softness-scaled biases.
 
-The hub scene (chip_smoke.hub_scene: 24 joints of three types on one
+The hub scene (port_fixtures.hub_scene: 24 joints of three types on one
 dynamic hub) overflows its joint colors: the overflow color's segment is
 swept as kind-pure Jacobi windows, as the tiled kernel sweeps it. It is
 warmed by the port alone, 2 steps (no JAX trajectory), and held to the
 same bounds.
 
+All three scenes are built at one capacity (CAP, the largest of their
+own) and the JAX functions are traced with the union of their shape
+classes and joint types, so that the JAX step compiles once for both
+trajectories and the layout-and-kernel function once for the three
+kernel cases. A class or joint type that a scene does not hold adds no
+lane: both packages see the same state, and the port steps with its own
+classes and types.
+
 Whole slice: both scenes stepped 6 times from spawn through the port on the
 CPU and through the JAX step on its XLA path (`use_pallas=0`); bounds are
 those of tests/test_pallas_solver.py:178-185: centres 1e-4, velocities
-2e-3, joint impulses 5e-3.
+2e-3, joint impulses 5e-3. The JAX step is traced without its continuous
+pass, which is the identity while the CCD gate stays shut; the port steps
+with its own (the farm's on) and the test asserts that its gate never
+opened, on the same states.
 """
 
 import jax
@@ -34,6 +45,7 @@ from jax.experimental.pallas import tpu as pltpu
 from box2d_tpu import geometry as jgeo
 from box2d_tpu import types as jtypes_mod
 from box2d_tpu.api import World as JWorld
+from box2d_tpu.state import Capacity
 from box2d_tpu.world import _step as jax_step
 from box2d_tpu.world import _step_work as jax_step_work
 from box2d_tpu_torch import geometry as tgeo
@@ -45,7 +57,7 @@ from box2d_tpu_torch.joints import NFJ, JointRows
 from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
 from box2d_tpu_torch.world import StepStats
 from box2d_tpu_torch.world import _step_work as torch_step_work
-from chip_smoke import hub_scene
+from port_fixtures import hub_scene
 from test_torch_joints import SCENES, build_scene, scene_statics
 from test_torch_phases import to_jax_state
 
@@ -55,6 +67,32 @@ DT = 1 / 60
 NSUB = 4
 ATOL, RTOL = 1e-5, 1e-4
 STEPS = 6
+# the largest of the three scenes' own capacities (the hub's, with the
+# others' max_verts)
+CAP = Capacity(max_bodies=26, max_shapes=26, max_joints=24,
+               max_contact_pairs=104, max_verts=4, big_shape_cap=16,
+               fast_cap=26, has_filters=False)
+# the union of the scenes' shape classes and joint types
+CLASSES = frozenset({"circles", "capsules", "capsule_circle", "poly_circle",
+                     "polys"})
+JTYPES = frozenset({0, 1, 2, 3, 4, 5, 7})
+
+_jax_step = jax.jit(lambda s: jax_step(
+    s, jnp.float32(DT), CAP, CLASSES, NSUB, JTYPES, (), False, None, 0))
+# the JAX tiled kernel's layout and its outputs, from one compile
+_jax_layout_and_kernel = jax.jit(lambda s: tuple(jax_step_work(
+    s, jnp.float32(DT), CAP, CLASSES, NSUB, JTYPES, (), True, None, 2,
+    until=u) for u in ("layout", "kernel")))
+
+
+def _build(jw, tw):
+    """The JAX state and capacity of `jw` at CAP, and `tw` compiled at it."""
+    jstate, jcap = jw.builder.build(CAP)
+    assert jcap == CAP
+    tw.compile(jcap)
+    classes, jt = scene_statics(jw)
+    assert classes <= CLASSES and jt <= JTYPES
+    return jstate, jcap
 
 
 @pytest.fixture(scope="module")
@@ -64,20 +102,16 @@ def scenes():
     out = {}
     for name in SCENES:
         jw, tw = build_scene(name)
-        jstate, jcap = jw.builder.build()
-        classes, jt = scene_statics(jw)
-        tw.compile()
-        step = jax.jit(lambda s, c=jcap, k=classes, j=jt: jax_step(
-            s, jnp.float32(DT), c, k, NSUB, j, (), True, None, 0))
+        jstate, jcap = _build(jw, tw)
         jtraj, ttraj = [], []
         s = jstate
         for _ in range(STEPS):
-            s = step(s)
+            s = _jax_step(s)
             tw.step(DT)
             jtraj.append(state_to_numpy(s))
             ttraj.append(state_to_numpy(tw.state))
         out[name] = dict(jw=jw, tw=tw, jstate=jstate, jcap=jcap,
-                         classes=classes, jt=jt, jtraj=jtraj, ttraj=ttraj)
+                         jtraj=jtraj, ttraj=ttraj)
     return out
 
 
@@ -88,13 +122,11 @@ def hub():
     only the last state)."""
     jw = hub_scene(JWorld, jtypes_mod, jgeo)
     tw = hub_scene(TWorld, ttypes_mod, tgeo, device="cpu")
-    jstate, jcap = jw.builder.build()
-    classes, jt = scene_statics(jw)
-    tw.compile()
+    jstate, jcap = _build(jw, tw)
     for _ in range(2):
         tw.step(DT)
-    return dict(jw=jw, tw=tw, jstate=jstate, jcap=jcap, classes=classes,
-                jt=jt, ttraj=[state_to_numpy(tw.state)])
+    return dict(jw=jw, tw=tw, jstate=jstate, jcap=jcap,
+                ttraj=[state_to_numpy(tw.state)])
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -134,8 +166,8 @@ def _port_layout_from_jax(sc, leaves, data, acc, idx):
     targs = torch_step_work(state_from_numpy(leaves, "cpu"), DT, tw.capacity,
                             st.classes, NSUB, True, StepStats(),
                             until="layout", joint_types=st.joint_types)
-    scalars, tidx, tdata, tacc, body, params, nsub, chunk, l0, ncol, tjr = \
-        targs
+    (scalars, tidx, tdata, tacc, body, params, nsub, chunk, l0, ncol, tail_w,
+     tjr) = targs
     L = tidx.shape[1]
     # the contact part of the two layouts is the same array
     np.testing.assert_array_equal(idx[:, :L], tidx.numpy())
@@ -169,7 +201,7 @@ def _port_layout_from_jax(sc, leaves, data, acc, idx):
     np.testing.assert_allclose(jr.data.numpy(),
                                tjr.data.numpy()[:, :len(lanes)], atol=1e-6)
     args = (scalars, t(idx[:, :L]), t(data[:NF, :L]), t(acc[:NA, :L]), body,
-            params, nsub, chunk, l0, ncol, jr)
+            params, nsub, chunk, l0, ncol, tail_w, jr)
     return args, lanes
 
 
@@ -179,27 +211,22 @@ def test_joint_twin_matches_pallas_tiled_kernel(request, name):
           else request.getfixturevalue("scenes")[name])
     leaves = sc["ttraj"][-1]            # warm: 6 steps from spawn
     jstate = to_jax_state(sc["jstate"], leaves)
-    # the layout and the kernel's outputs from one compile
-    fn = jax.jit(lambda s: tuple(jax_step_work(
-        s, jnp.float32(DT), sc["jcap"], sc["classes"], NSUB, sc["jt"], (),
-        True, None, 2, until=u) for u in ("layout", "kernel")))
     with pltpu.force_tpu_interpret_mode():
-        lay, ker = fn(jstate)
+        lay, ker = _jax_layout_and_kernel(jstate)
     data, acc, idx = (np.asarray(x) for x in lay)
     ref_body, ref_acc = (np.asarray(x) for x in ker)
     ref_body = ref_body.copy()
     ref_body[5] += 1.0       # the tiled layout stores dq.c shifted by -1
 
     args, lanes = _port_layout_from_jax(sc, leaves, data, acc, idx)
-    jr = args[10]
+    jr = args[11]
     n_types = len(set(jr.type.tolist()))
     assert len(lanes) == len(sc["jw"].builder._joints)
     assert n_types == {"farm": 3, "all_types": 5, "hub": 3}[name]
     if name == "hub":
         # the overflow color's segment: kind-pure windows sharing the hub
         assert jr.overflow
-        kinds = [k for k, _, _, _ in window_table(args[1], args[7], args[8],
-                                                  args[9], jr)]
+        kinds = [k for k, _, _, _ in window_table(args[1], *args[7:12])]
         assert kinds.count("joint_jacobi") >= 2
     assert np.abs(jr.acc.numpy()).max() > 1e-4     # warm joint impulses
     body, cacc, jacc = (x.numpy() for x in contact_solve(*args))

@@ -40,7 +40,7 @@ from box2d_tpu_torch.api import World as TWorld
 from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
 from box2d_tpu_torch.world import StepStats
 from box2d_tpu_torch.world import _step_work as torch_step_work
-from chip_smoke import all_types_scene
+from port_fixtures import all_types_scene
 from test_torch_phases import check as phase_check
 from test_torch_phases import to_jax_state
 
@@ -159,7 +159,7 @@ def test_layout_joint_rows_segments(worlds):
     w = worlds["all_types"]
     tw = w["tw"]
     args = _torch_until(w, w["warm"], "layout")
-    jr = args[10]
+    jr = args[11]
     colors = _torch_until(w, w["warm"], "colors")[1].numpy()
     off = jr.offsets.numpy()
     live = jr.idx[0].numpy() >= 0
@@ -325,7 +325,9 @@ def farm_step(worlds):
     """joint_farm(2), warm, with the force threshold of joints 0, 2 and 5
     and the torque threshold of joint 6 at zero, so exactly those raise a
     joint event; and the island labels marked dirty so that the label pass
-    runs over the joint edges."""
+    runs over the joint edges. The JAX functions are traced without the
+    continuous pass, the identity while the CCD gate stays shut (the
+    port's own pass raises if it opens)."""
     w = worlds["farm"]
     leaves = {k: v.copy() for k, v in w["warm"].items()}
     leaves["joints.force_threshold"][[0, 2, 5]] = 0.0
@@ -337,7 +339,7 @@ def farm_step(worlds):
     jstate = to_jax_state(w["jstate"], leaves)
     fns = {u: jax.jit(lambda st, u=u: jax_step_work(
         st, jnp.float32(DT), w["jcap"], w["classes"], NSUB, w["jt"], (),
-        True, None, 0, until=u)) for u in ("colors", "sleep")}
+        False, None, 0, until=u)) for u in ("colors", "sleep")}
     return w, leaves, jstate, fns
 
 

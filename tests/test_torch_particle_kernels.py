@@ -4,10 +4,18 @@ against the JAX package's Pallas kernels, run in interpret mode.
 K3 (`window_pass`): the twin against `particles_pallas.window_pass` on the
 band layout (`build_tab`, `block_offsets`) and against the brute force of
 tests/test_particles_pallas.py, for the three phases, at atol 2e-5 (the
-JAX test's own bound; the sums run in another order). K4 (`rank_pass`):
-the twin against `particles_pallas.rank_pass` and the stable argsort, bit
-for bit, and `rank_offsets` against the JAX function exactly. Inputs are
-made with numpy from a seed and fed to both packages.
+JAX test's own bound; the sums run in another order); both tables hold
+767 lanes, one below a multiple of the 256-lane block, so each phase of
+the JAX kernel compiles once. K4 (`rank_pass`): the twin against
+`particles_pallas.rank_pass` and the stable argsort, bit for bit, and
+`rank_offsets` against the JAX function exactly. Inputs are made with
+numpy from a seed and fed to both packages. The CUDA kernels themselves
+run only on the card (chip_smoke.py); here, the rule by which K3's blocks
+stage their candidates or walk them in global memory (`k3_block_paths`)
+is held to a plain loop over the blocks on the tables made to force the
+global path (port_fixtures.k3_table), and the K4 stress tables
+(port_fixtures.rank_table) are checked to meet the rank repair's
+preconditions, so that the twin equals the stable argsort on them.
 """
 
 import numpy as np
@@ -17,6 +25,7 @@ import jax.numpy as jnp
 
 from box2d_tpu import particles_pallas as jpp
 from box2d_tpu_torch import particles_kernels as tpk
+from port_fixtures import k3_table, rank_table
 from test_particles_pallas import _brute
 
 torch.set_num_threads(1)
@@ -47,7 +56,7 @@ def _sorted_table(seed, n, span, d=0.1):
     return key[o], spos.astype(np.float32), alive[o], vel, acc, d
 
 
-@pytest.fixture(scope="module", params=[(0, 700, 3.0), (2, 511, 8.0)],
+@pytest.fixture(scope="module", params=[(0, 767, 3.0), (2, 767, 8.0)],
                 ids=["dense", "sparse"])
 def window_case(request):
     seed, n, span = request.param
@@ -169,3 +178,48 @@ def test_wrappers_check_inputs_and_count_only_kernel_launches():
         tpk.window_pass(t(spos), t(skey), t(alive), t(acc), t(acc), scal, 3)
     with pytest.raises(ValueError):
         tpk.rank_pass(t(skey), offs[:-1], tpk.rank_window(n))
+
+
+@pytest.mark.parametrize("kind", ["row boundary", "dense cell"])
+def test_k3_block_paths_match_a_plain_count(kind):
+    """k3_block_paths against a loop over the blocks: for each row offset
+    the union of the neighbour ranges of the block's lanes that search
+    that row, staged when the three hold at most K3_STAGE lanes; the
+    CPU wrapper adds the same counts to `paths`. port_fixtures' tables make
+    some blocks take the global path."""
+    pos, skey, alive, p0, p1, scal = k3_table(kind)
+    n = skey.shape[0]
+    ranges = tpk.neighbour_ranges(skey, alive)
+    rows = (skey >> 16).numpy().astype(np.int64)
+    want = [0, 0]
+    for b in range(-(-n // tpk.B_BLK)):
+        lanes = np.arange(b * tpk.B_BLK, min(n, (b + 1) * tpk.B_BLK))
+        total = 0
+        for (start, end), d in zip(ranges, (0, 1, -1)):
+            search = [i for i in lanes if alive[i]
+                      and -32768 <= rows[i] + d <= 32767]
+            if search:
+                total += (max(int(end[i]) for i in search)
+                          - min(int(start[i]) for i in search))
+        want[0 if total <= tpk.K3_STAGE else 1] += 1
+    assert want[1] > 0, "no block takes the global path"
+    assert list(tpk.k3_block_paths(skey, alive)) == want
+    paths = torch.zeros(2, dtype=torch.int32)
+    out = tpk.window_pass(pos, skey, alive, p0, p1, scal, tpk.PH_DAMPING,
+                          paths=paths)
+    assert paths.tolist() == want and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("seed,equal", [(1, True), (2, False)],
+                         ids=["equal_keys", "all_moved"])
+def test_rank_twin_matches_stable_argsort_on_stress_tables(seed, equal):
+    """port_fixtures' K4 stress tables (lanes [256, 768) holding one key, or
+    every lane moved one row and one column) meet the rank repair's
+    preconditions (rank_table asserts the window covers them), so the
+    windowed count equals the stable argsort's ranks."""
+    newkey, offs, rb = rank_table(5000, seed, equal)
+    assert rb == 1536
+    want = np.zeros(5000, np.int32)
+    want[np.argsort(newkey.numpy(), kind="stable")] = np.arange(5000)
+    np.testing.assert_array_equal(
+        tpk.rank_pass(newkey, offs, rb).numpy(), want)

@@ -1,11 +1,15 @@
 """Each phase of the port's step against the same phase of the JAX step.
 
 The same JAX state goes through both packages phase by phase: pyramid-8 at
-spawn, after 15 JAX steps (warm contacts), after 15 steps with one box
+spawn, after 15 steps (warm contacts; stepped by the port, which is
+quicker here than compiling the JAX step), after 15 steps with one box
 pushed out of its fat AABB (the broadphase's incremental repair tier), and
 after 15 steps with the broadphase marked dirty (a full rebuild that
 re-aligns a live contact cache), and a warm state with contact and hit
-events switched on, the top box lifted off and another thrown down.
+events switched on, the top box lifted off and another thrown down. The
+JAX step tail is traced without its continuous pass, the identity while
+the CCD gate stays shut; the port's tail runs its own, which raises if
+the gate opens.
 Discrete outputs (pair lanes, hash slots, colors, layout indices, awake
 flags, island labels, counts) must match exactly; floats to 1e-5.
 """
@@ -26,7 +30,6 @@ from box2d_tpu import solver as jsolver
 from box2d_tpu.joints import prepare_joints
 from box2d_tpu.world import _step_tail as jax_step_tail
 from box2d_tpu.world import _step_work as jax_step_work
-from box2d_tpu.world import make_step as jax_make_step
 from box2d_tpu_torch import broadphase as tbp
 from box2d_tpu_torch import scenes as tscenes
 from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
@@ -89,11 +92,8 @@ def world():
         s["geom"].type for s in jw.builder._shapes)
     tw = tscenes.pyramid(rows=8, device="cpu")
     tw.compile()
-    step = jax_make_step(cap, classes, NSUB, frozenset(), (), True, None, 0)
-    s = jstate0
-    for _ in range(15):
-        s = step(s, jnp.float32(DT))
-    warm = state_to_numpy(s)
+    tw.run(15)
+    warm = state_to_numpy(tw.state)
     pushed = {k: v.copy() for k, v in warm.items()}
     pushed["bodies.center"][-1, 0] += 0.3     # escapes its fat AABB
     dirty = dict(warm)
@@ -119,7 +119,7 @@ def world():
         lambda st, a: jbp.find_pairs(st, cap, a))
     fns["tail"] = jax.jit(lambda *a: jax_step_tail(
         a[0], a[1], a[2], a[3], dt, 1.0 / dt, 1.0 / h, cap, a[4], a[5],
-        a[6], a[7], (), True, a[8], a[9], a[10], a[11], a[12], a[13], None,
+        a[6], a[7], (), False, a[8], a[9], a[10], a[11], a[12], a[13], None,
         None, a[14]))
     return dict(template=jstate0, cap=cap, classes=classes, tw=tw,
                 states=states, fns=fns)

@@ -1,45 +1,70 @@
 #!/usr/bin/env python3
-"""Times the solver kernel of one or more checkouts of the port on one GPU.
+"""Times the kernels of one or more checkouts of the port on one GPU.
 
     python3 time_solver.py [ROOT ...]
 
 Each ROOT (default: this checkout) is a directory that holds a
 box2d_tpu_torch package. For each ROOT, in the order given, a process of
-its own imports that checkout's package, builds its kernel, and times
-`contact_solve` with CUDA events (the median of TIMED_CALLS calls after one
-warm call) at the solver inputs that checkout's own step packs after
-WARM_STEPS steps from spawn, for pyramid-20 (K1), pyramid-140 (K2) and
-joint_farm(1000) (K2j): the timed cases of chip_smoke.py. To compare two
-versions on one card, give them in turns, e.g. parent, change, change,
-parent, with the parent unpacked by `git archive` into a directory that
-.gitignore lists. The first line is the card's name and power limit; the
-last, one JSON object with every time. It needs a CUDA device.
+its own imports that checkout's package, builds its kernels, and times each
+with CUDA events (the median of TIMED_CALLS calls after one warm call) at
+the inputs that checkout's own step gives it:
+- the solver kernel, `contact_solve`, at the solver inputs packed after
+  WARM_STEPS steps from spawn for pyramid-20 (K1), pyramid-140 (K2) and
+  joint_farm(1000) (K2j): the timed cases of chip_smoke.py;
+- the particle kernels at dam_break(100000) (record_particle_calls): K3,
+  `window_pass`, in its three phases, and K4, `rank_pass`, with beside it
+  the library call that computes the same function,
+  torch.argsort(stable=True) and the inverse scatter (library_rank).
+To compare two versions on one card, give them in turns, e.g. parent,
+change, change, parent, with the parent unpacked by `git archive` into a
+directory that .gitignore lists. The first line is the card's name and
+power limit; the last, one JSON object with every time. It needs a CUDA
+device.
+
+    python3 time_solver.py --one-process ROOT [ROOT ...]
+
+times the solver kernel of every ROOT in one process, on the same inputs
+(this checkout's pyramid-20, pyramid-140 and joint_farm(1000) after
+WARM_STEPS steps, whose overflow tails are empty, so that every version
+does the same work), in turns over ROUNDS rounds (in the order given,
+then backward); each ROOT's package is loaded under a name of its own and
+called through its own `contact_solve`. It also counts the SASS
+instructions of each build's contact-only kernel (cuobjdump). It tells a
+difference in a kernel's code from one in its inputs or its process.
 """
 
+import concurrent.futures
+import importlib.util
+import inspect
 import json
 import os
-import statistics
 import subprocess
 import sys
 
-WARM_STEPS = 30
-TIMED_CALLS = 20
-CASES = ("pyramid-20", "pyramid-140", "joint_farm-1000")
+from port_fixtures import (TIMED_CALLS, WARM_STEPS, library_rank, median_ms,
+                           record_particle_calls)
+
+ROUNDS = 4
+CASES = ("pyramid-20", "pyramid-140", "joint_farm-1000",
+         "K3 weight", "K3 pressure", "K3 damping", "K4",
+         "K4 library (argsort + scatter)")
 
 
 def worker(root):
-    """Time one checkout's kernel; prints one JSON object of ms by case."""
+    """Time one checkout's kernels; prints one JSON object of ms by case."""
     sys.path.insert(0, root)
     import torch
 
     from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import particles_kernels as pk
     from box2d_tpu_torch import scenes, world
 
     assert os.path.dirname(os.path.abspath(cs.__file__)) == os.path.join(
         root, "box2d_tpu_torch"), cs.__file__
     cs.build()
+    pk.build()
     out = {}
-    for case in CASES:
+    for case in CASES[:3]:
         kind, size = case.split("-")
         w = (scenes.pyramid(rows=int(size), device="cuda") if kind == "pyramid"
              else scenes.joint_farm(int(size), device="cuda"))
@@ -49,23 +74,111 @@ def worker(root):
         args = world._step_work(w.state, 1 / 60, w.capacity, st.classes,
                                 st.substeps, st.continuous, world.StepStats(),
                                 until="layout", joint_types=st.joint_types)
-        cs.contact_solve(*args)
-        times = []
-        for _ in range(TIMED_CALLS):
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-            cs.contact_solve(*args)
-            t1.record()
-            t1.synchronize()
-            times.append(t0.elapsed_time(t1))
-        out[case] = statistics.median(times)
+        out[case] = median_ms(lambda: cs.contact_solve(*args))
+    k3, (newkey, offs, rb), _ = record_particle_calls()
+    for case, args in zip(CASES[3:6], k3):
+        out[case] = median_ms(lambda: pk.window_pass(*args))
+    out["K4"] = median_ms(lambda: pk.rank_pass(newkey, offs, rb))
+    out[CASES[7]] = median_ms(lambda: library_rank(newkey))
     print(json.dumps(out))
+
+
+def _load_package(root, alias):
+    """ROOT's box2d_tpu_torch package, imported as `alias`."""
+    path = os.path.join(root, "box2d_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(path, "__init__.py"),
+        submodule_search_locations=[path])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module(alias + ".contact_solver")
+
+
+def _sass_count(lib_path):
+    """SASS instructions of the contact-only solve_kernel in a build."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    for part in text.split("Function : ")[1:]:
+        if "solve_kernelILb0E" in part.splitlines()[0]:
+            return sum(1 for line in part.splitlines()
+                       if line.strip().startswith("/*") and "*/" in line
+                       and line.strip()[2:6].isalnum()
+                       and len(line.split("*/", 1)[1].strip()) > 2)
+    return None
+
+
+def one_process(roots):
+    """Every ROOT's solver kernel on the same inputs, in one process."""
+    import torch
+
+    from box2d_tpu_torch import scenes, world
+
+    solvers = [_load_package(r, f"b2t_version_{k}")
+               for k, r in enumerate(roots)]
+    with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
+        libs = list(pool.map(lambda cs: cs.build(), solvers))
+    names = [os.path.relpath(r) for r in roots]
+    for name, cs, lib in zip(names, solvers, libs):
+        regs = [line.strip() for line in lib.ptxas_log.splitlines()
+                if "registers" in line][:1]
+        print(f"[one_process] {name}: {cs.SOURCE}; SASS instructions of "
+              f"solve_kernel<false>: {_sass_count(lib._name)}; {regs}",
+              flush=True)
+    out = {}
+    for case in CASES[:3]:
+        kind, size = case.split("-")
+        w = (scenes.pyramid(rows=int(size), device="cuda") if kind == "pyramid"
+             else scenes.joint_farm(int(size), device="cuda"))
+        w.compile()
+        w.run(WARM_STEPS)
+        st = w._step
+        args = world._step_work(w.state, 1 / 60, w.capacity, st.classes,
+                                st.substeps, st.continuous,
+                                world.StepStats(), until="layout",
+                                joint_types=st.joint_types)
+        idx, l0 = args[1], args[8]
+        tail = int((idx[0, l0:] >= 0).sum())
+        assert tail == 0, f"{case}: {tail} live tail lanes"
+        calls, results = [], []
+        for cs in solvers:
+            a = list(args[:10])
+            if "tail_w" in inspect.signature(cs.contact_solve).parameters:
+                a.append(args[10])
+            a.append(args[11])
+            calls.append(lambda cs=cs, a=a: cs.contact_solve(*a))
+            results.append(calls[-1]())
+        for r in results[1:]:
+            # equal up to the order of the atomics of Jacobi windows
+            assert all(torch.allclose(x, y, rtol=0, atol=1e-5)
+                       for x, y in zip(r, results[0]))
+        times = {name: [] for name in names}
+        for k in range(ROUNDS):
+            # forward, then backward: a drift of the card's clock over
+            # the run falls on every version alike
+            order = list(zip(names, calls))
+            for name, call in order if k % 2 == 0 else order[::-1]:
+                times[name].append(median_ms(call))
+        out[case] = times
+        for name in names:
+            print(f"[one_process] {case} {name}: " + " ".join(
+                f"{t:.4f}" for t in times[name]) + " ms", flush=True)
+    print(json.dumps({"timed_calls": TIMED_CALLS, "rounds": ROUNDS,
+                      "ms": out}))
 
 
 def main():
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         worker(os.path.abspath(sys.argv[2]))
+        return
+    if len(sys.argv) > 2 and sys.argv[1] == "--one-process":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip(), flush=True)
+        one_process([os.path.abspath(r) for r in sys.argv[2:]])
         return
     roots = [os.path.abspath(r) for r in sys.argv[1:]] or [
         os.path.dirname(os.path.abspath(__file__))]
