@@ -2,11 +2,11 @@
 
 Port of the part of box2d_tpu/api.py's World that the main paths use:
 `create_body`, `create_polygon_shape`, `create_circle_shape`,
-`create_capsule_shape`, `create_joint`, `create_particle_system`,
-`compile`, `step`, `run`, `body_position`, `body_linear_velocity` and
-`state`. The device is chosen once, at construction: the card (`"cuda"`)
-unless the caller names another, as the CPU tests do with
-`World(device="cpu")`.
+`create_capsule_shape`, `create_segment_shape`, `create_chain`,
+`create_joint`, `create_particle_system`, `compile`, `step`, `run`,
+`body_position`, `body_linear_velocity` and `state`. The device is chosen
+once, at construction: the card (`"cuda"`) unless the caller names
+another, as the CPU tests do with `World(device="cpu")`.
 Without a CUDA device the default raises when the world is compiled; there
 is no quiet move to the CPU. Every tensor of the world lives on that
 device. `run` is a plain Python loop over steps.
@@ -29,6 +29,7 @@ from .particles import (G_RIGID, G_SOLID, P_BARRIER, P_COLOR_MIXING,
                         P_ELASTIC, P_POWDER, P_REPULSIVE, P_SPRING,
                         P_STATIC_PRESSURE, P_TENSILE, P_VISCOUS, P_WALL,
                         ParticleConfig, unported)
+from .sensors import sensor_shape_ids
 from .state import Capacity, WorldState
 from .world import Step, StepStats, make_step
 
@@ -61,6 +62,13 @@ class World:
         return self.create_polygon_shape(body, def_,
                                          g.capsule(p1, p2, radius))
 
+    def create_segment_shape(self, body, def_, p1, p2) -> int:
+        return self.create_polygon_shape(body, def_, g.segment(p1, p2))
+
+    def create_chain(self, body: int, def_: t.ChainDef) -> list[int]:
+        self._building()
+        return self.builder.create_chain(body, def_)
+
     def create_joint(self, def_) -> int:
         self._building()
         return self.builder.create_joint(def_)
@@ -76,8 +84,6 @@ class World:
                 "(host API)")
 
     def compile(self, capacity: Capacity | None = None):
-        if any(s["is_sensor"] for s in self.builder._shapes):
-            raise NotImplementedError("sensors: ROADMAP.md queue 10")
         pcfg = self._particle_config()
         if pcfg is not None:
             n_shapes = (capacity or self.builder.default_capacity()).max_shapes
@@ -90,7 +96,9 @@ class World:
         jtypes = joint_types_present(j["_type"] for j in self.builder._joints)
         self._step = make_step(self.capacity, classes, self.substeps,
                                continuous=self.builder.def_.enable_continuous,
-                               joint_types=jtypes, particle_cfg=pcfg)
+                               joint_types=jtypes, particle_cfg=pcfg,
+                               sensor_ids=sensor_shape_ids(
+                                   self.builder._shapes))
         return self
 
     def _particle_config(self) -> ParticleConfig | None:
@@ -169,8 +177,9 @@ class World:
 
     @property
     def stats(self) -> StepStats:
-        """Counters of the compiled step: steps, idle steps, CCD gate
-        openings and device reads (host/device round trips)."""
+        """Counters of the compiled step (world.StepStats): steps, idle
+        steps, CCD gate openings and TOI pairs, device reads (host/device
+        round trips)."""
         return self._step.stats
 
     def reset_stats(self) -> None:

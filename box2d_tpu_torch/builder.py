@@ -6,8 +6,7 @@ capacity sizing (box2d_tpu/builder.py:156-179), then uploaded once as a
 torch WorldState on the requested device ("cuda" unless the caller names
 another), so both builders produce the same state leaves bit for bit.
 A particle system (particles.ParticleSystemBuilder) is frozen with the
-world. Chains belong to a later slice and raise NotImplementedError naming
-their ROADMAP.md item.
+world.
 """
 
 from __future__ import annotations
@@ -94,9 +93,35 @@ class WorldBuilder:
             self._accumulate_mass(body, geom, d.density)
         return len(self._shapes) - 1
 
-    def create_chain(self, body: int, def_) -> list[int]:
-        raise NotImplementedError(
-            "chain shapes: ROADMAP.md queue 10 (CCD, sensors and queries)")
+    def create_chain(self, body: int, def_: t.ChainDef) -> list[int]:
+        """One ChainSegment shape per edge, with its ghost vertices
+        (box2d_tpu/builder.py:103-132, ref: api/Chain.cs:12-134): a loop
+        makes n segments, an open chain n - 3 (its first and last edges
+        are ghosts only)."""
+        pts = [np.asarray(p, np.float32) for p in def_.points]
+        n = len(pts)
+        if n < 4:
+            raise ValueError("a chain needs at least 4 points")
+        mats = list(def_.materials)
+        ids = []
+
+        def add(ghost1, p1, p2, ghost2, i):
+            sd = t.ShapeDef(
+                material=mats[i % len(mats)], density=1.0,
+                filter=def_.filter,
+                enable_sensor_events=def_.enable_sensor_events,
+                update_body_mass=False)
+            ids.append(self.create_shape(
+                body, sd, g.chain_segment(p1, p2, ghost1, ghost2)))
+
+        if def_.is_loop:
+            for i in range(n):
+                add(pts[(i - 1) % n], pts[i], pts[(i + 1) % n],
+                    pts[(i + 2) % n], i)
+        else:
+            for i in range(n - 3):
+                add(pts[i], pts[i + 1], pts[i + 2], pts[i + 3], i)
+        return ids
 
     def create_joint(self, def_) -> int:
         self._joints.append(dataclasses.asdict(def_) | {"_type": def_._type})

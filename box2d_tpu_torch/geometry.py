@@ -2,7 +2,8 @@
 
 NumPy-only copy of the parts of box2d_tpu/geometry.py the ported slices
 use (the reference package cannot be imported without jax): the circle,
-capsule, box and polygon factories, the hull and mass properties. The hull is the
+capsule, segment, chain segment, box and polygon factories, the hull and
+mass properties. The hull is the
 pure-Python quickhull; the JAX package's optional native fast path is not
 carried over.
 
@@ -97,6 +98,21 @@ def capsule(p1, p2, radius: float) -> ShapeGeom:
     verts = _pad(np.stack([p1, p2]), 2)
     normals = _pad(np.stack([n, -n]), 2)
     return ShapeGeom(CAPSULE, verts, normals, 2, float(radius), 0.5 * (p1 + p2))
+
+
+def segment(p1, p2) -> ShapeGeom:
+    g = capsule(p1, p2, 0.0)
+    return dataclasses.replace(g, type=SEGMENT)
+
+
+def chain_segment(p1, p2, ghost1, ghost2) -> ShapeGeom:
+    g = capsule(p1, p2, 0.0)
+    return dataclasses.replace(
+        g,
+        type=CHAIN_SEGMENT,
+        ghost1=np.asarray(ghost1, np.float32),
+        ghost2=np.asarray(ghost2, np.float32),
+    )
 
 
 def _polygon_centroid(vertices: np.ndarray) -> np.ndarray:

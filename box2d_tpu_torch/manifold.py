@@ -1,13 +1,14 @@
-"""Contact manifolds for circles, capsules, segments and polygons.
+"""Contact manifolds for circles, capsules, segments, polygons and chain
+segments.
 
 Torch port of box2d_tpu/manifold.py: the `Manifold` record,
-`collide_polygons_batched` (:419, ref: src/Manifold.cs:410-562) and the
-four classes a scene of circles and capsules adds: `collide_circles`,
+`collide_polygons_batched` (:419, ref: src/Manifold.cs:410-562), the four
+classes a scene of circles and capsules adds: `collide_circles`,
 `collide_capsule_circle`, `collide_polygon_circle` and `collide_capsules`
-(:100-275). The JAX functions take one pair and are vmapped; here every
-function takes the pair axis first and is plain tensor code in the same
-order of operations. The two chain classes come with the slice that needs
-them (ROADMAP.md queue 10).
+(:100-275), and the one-sided chain segment against a circle and against
+a polygon or capsule (:703-941, ref: src/Manifold.cs:570-915). The JAX
+functions take one pair and are vmapped; here every function takes the
+pair axis first and is plain tensor code in the same order of operations.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from . import math2d as m
 from .constants import FLT_EPSILON, LINEAR_SLOP, SPECULATIVE_DISTANCE
+from .distance import segment_distance, shape_distance
 
 
 class Manifold(NamedTuple):
@@ -35,6 +37,11 @@ class Manifold(NamedTuple):
 
 def _w(c, a, b):
     return torch.where(c, a, b)
+
+
+def _make_id(a, b):
+    """Feature id packing (ref: src/Manifold.cs:22 B2_MAKE_ID)."""
+    return (a << 8) | (b & 0xFF)
 
 
 def _safe_div(num, den):
@@ -155,42 +162,6 @@ def collide_polygon_circle(verts, normals, count, radius_a, p_a, q_a,
                       sep_out <= radius + SPECULATIVE_DISTANCE)
 
 
-def segment_distance(p1, q1, p2, q2):
-    """Closest points between two segments (box2d_tpu/distance.py:36, ref:
-    src/Distance.cs:20-72); returns (fraction1, fraction2, closest1,
-    closest2, distance_squared)."""
-    d1 = q1 - p1
-    d2 = q2 - p2
-    r = p1 - p2
-    dd1 = m.dot(d1, d1)
-    dd2 = m.dot(d2, d2)
-    rd1 = m.dot(r, d1)
-    rd2 = m.dot(r, d2)
-    eps_sqr = float(torch.tensor(FLT_EPSILON * FLT_EPSILON,
-                                 dtype=torch.float32))
-    d12 = m.dot(d1, d2)
-    denom = dd1 * dd2 - d12 * d12
-    sdd1 = _w(dd1 != 0.0, dd1, 1.0)
-    sdd2 = _w(dd2 != 0.0, dd2, 1.0)
-    f1g = _w(denom != 0.0,
-             torch.clamp((d12 * rd2 - rd1 * dd2) / _w(denom != 0.0, denom, 1.0),
-                         0.0, 1.0), 0.0)
-    f2g = (d12 * f1g + rd2) / sdd2
-    f1g = _w(f2g < 0.0, torch.clamp(-rd1 / sdd1, 0.0, 1.0),
-             _w(f2g > 1.0, torch.clamp((d12 - rd1) / sdd1, 0.0, 1.0), f1g))
-    f2g = torch.clamp(f2g, 0.0, 1.0)
-    f1_d1 = torch.clamp(-rd1 / sdd1, 0.0, 1.0)
-    f2_d2 = torch.clamp(rd2 / sdd2, 0.0, 1.0)
-    deg1 = dd1 < eps_sqr
-    deg2 = dd2 < eps_sqr
-    f1 = _w(deg1 | deg2, _w(~deg1, f1_d1, 0.0), f1g)
-    f2 = _w(deg1 | deg2, _w(deg1 & ~deg2, f2_d2, 0.0), f2g)
-    c1 = m.mul_add(p1, f1, d1)
-    c2 = m.mul_add(p2, f2, d2)
-    e = c2 - c1
-    return f1, f2, c1, c2, m.dot(e, e)
-
-
 def collide_capsules(a1, a2, radius_a, p_a, q_a, b1, b2, radius_b, p_b,
                      q_b) -> Manifold:
     """Capsule vs capsule, both 2-vertex (ref: src/Manifold.cs:167-315)."""
@@ -259,16 +230,13 @@ def collide_capsules(a1, a2, radius_a, p_a, q_a, b1, b2, radius_b, p_b,
 
     two_pt = parallel_overlap & _w(use_a, ok_a, ok_b)
 
-    def mk(a, b):
-        return (a << 8) | (b & 0xFF)
-
     # two-point manifold
     n2 = _wv(use_a, normal_a, -normal_b)
     a2_0 = _wv(use_a, pt0_a, pt0_b)
     a2_1 = _wv(use_a, pt1_a, pt1_b)
     s2_0 = _w(use_a, spa, spb) - radius
     s2_1 = _w(use_a, sqa, sqb) - radius
-    id2_1 = _w(use_a, mk(0, 1), mk(1, 0))
+    id2_1 = _w(use_a, _make_id(0, 1), _make_id(1, 0))
 
     # single-point fallback (ref: :284-298)
     nrm = closest2 - closest1
@@ -280,7 +248,7 @@ def collide_capsules(a1, a2, radius_a, p_a, q_a, b1, b2, radius_b, p_b,
     i2 = _w(f2 == 0.0, 0, 1)
     a1_0 = 0.5 * (c1 + c2)
     s1_0 = dist - radius
-    id1_0 = mk(i1, i2)
+    id1_0 = _make_id(i1, i2)
 
     zero2 = torch.zeros_like(a1_0)
     normal = _wv(two_pt, n2, nrm)
@@ -419,11 +387,8 @@ def collide_polygons_batched(va, na, ca, ra, p_a, q_a,
     v_up_x = v_up_x + adj_up * nrx
     v_up_y = v_up_y + adj_up * nry
 
-    def mk(a, b):
-        return (a << 8) | (b & 0xFF)
-
-    id0 = _w(flip, mk(i21, i12), mk(i11, i22))
-    id1 = _w(flip, mk(i22, i11), mk(i12, i21))
+    id0 = _w(flip, _make_id(i21, i12), _make_id(i11, i22))
+    id1 = _w(flip, _make_id(i22, i11), _make_id(i12, i21))
     pt0x = _w(flip, v_up_x, v_lo_x)
     pt0y = _w(flip, v_up_y, v_lo_y)
     pt1x = _w(flip, v_lo_x, v_up_x)
@@ -509,7 +474,7 @@ def collide_polygons_batched(va, na, ca, ra, p_a, q_a,
     a1y = _w(use_vv, 0.0, pt1y)
     s0 = _w(use_vv, separation, sp0)
     s1 = _w(use_vv, 0.0, sp1)
-    id0 = _w(use_vv, mk(ia, ib), id0)
+    id0 = _w(use_vv, _make_id(ia, ib), id0)
     id1 = _w(use_vv, 0, id1)
 
     a0x = a0x + ox
@@ -555,3 +520,254 @@ def collide_polygons_batched(va, na, ca, ra, p_a, q_a,
         separation=torch.stack([s0, s1], dim=-1),
         ids=torch.stack([id0, id1], dim=-1).to(torch.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# chain segment family (one-sided), ref: src/Manifold.cs:570-915
+# ---------------------------------------------------------------------------
+
+
+def collide_chain_segment_circle(p1, p2, ghost1, ghost2, p_a, q_a,
+                                 center_b, radius_b, p_b, q_b) -> Manifold:
+    """ref: src/Manifold.cs:570-618."""
+    xp, xq = m.inv_mul_transforms(p_a, q_a, p_b, q_b)
+    pb = m.transform_point(xp, xq, center_b)
+    e = p2 - p1
+    front = m.dot(m.right_perp(e), pb - p1) >= 0.0
+    u = m.dot(e, p2 - pb)
+    v = m.dot(e, pb - p1)
+    # region gating with the ghost vertices
+    u_prev = m.dot(p1 - ghost1, pb - p1)
+    v_next = m.dot(ghost2 - p2, pb - p2)
+    reject = (~front | ((v <= 0.0) & (u_prev <= 0.0))
+              | ((v > 0.0) & (u <= 0.0) & (v_next > 0.0)))
+    ee = m.dot(e, e)
+    pa_mid = _wv(ee > 0.0, (u[:, None] * p1 + v[:, None] * p2)
+                 / _w(ee > 0.0, ee, 1.0)[:, None], p1)
+    pa = _wv(v <= 0.0, p1, _wv(u <= 0.0, p2, pa_mid))
+    normal, dist = m.get_length_and_normalize(pb - pa)
+    separation = dist - radius_b
+    c_b = m.mul_add(pb, -radius_b, normal)
+    return _one_point(normal, 0.5 * (pa + c_b), separation, 0, p_a, q_a, p_b,
+                      ~reject & (separation <= SPECULATIVE_DISTANCE))
+
+
+class _Local(NamedTuple):
+    """A manifold in A's local frame, before _manifold finalizes it."""
+
+    normal: torch.Tensor   # (P, 2)
+    count: torch.Tensor    # (P,)
+    anchor: torch.Tensor   # (P, 2, 2)
+    sep: torch.Tensor      # (P, 2)
+    ids: torch.Tensor      # (P, 2)
+
+
+def _lsel(c, a: _Local, b: _Local) -> _Local:
+    return _Local(*[torch.where(c.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)
+                    for x, y in zip(a, b)])
+
+
+def _lempty(like) -> _Local:
+    P, dev = like.shape[0], like.device
+    z = torch.zeros((P, 2), dtype=torch.float32, device=dev)
+    zi = torch.zeros(P, dtype=torch.int64, device=dev)
+    return _Local(z, zi, torch.zeros((P, 2, 2), device=dev), z,
+                  torch.zeros((P, 2), dtype=torch.int64, device=dev))
+
+
+def _clip_segments(a1, a2, b1, b2, normal, ra, rb, id1, id2) -> _Local:
+    """ref: src/Manifold.cs:625-658; in A's local frame."""
+    tangent = m.left_perp(normal)
+    upper1 = m.dot(a2 - a1, tangent)
+    upper2 = m.dot(b1 - a1, tangent)
+    lower2 = m.dot(b2 - a1, tangent)
+    nonoverlap = (upper2 < 0.0) | (upper1 < lower2)
+    big = upper2 - lower2 > FLT_EPSILON
+    v_lower = _wv((lower2 < 0.0) & big, m.lerp(
+        b2, b1, _safe_div(0.0 - lower2, upper2 - lower2)), b2)
+    v_upper = _wv((upper2 > upper1) & big, m.lerp(
+        b2, b1, _safe_div(upper1 - lower2, upper2 - lower2)), b1)
+    sep_lower = m.dot(v_lower - a1, normal)
+    sep_upper = m.dot(v_upper - a1, normal)
+    v_lower = m.mul_add(v_lower, 0.5 * (ra - rb - sep_lower), normal)
+    v_upper = m.mul_add(v_upper, 0.5 * (ra - rb - sep_upper), normal)
+    radius = ra + rb
+    return _Local(normal, _w(nonoverlap, 0, 2),
+                  torch.stack([v_lower, v_upper], dim=1),
+                  torch.stack([sep_lower - radius, sep_upper - radius],
+                              dim=1),
+                  torch.stack([id1, id2], dim=1))
+
+
+def collide_chain_segment_polygon(p1, p2, ghost1, ghost2, p_a, q_a,
+                                  vb, nb, cb, rb, p_b, q_b, active=None,
+                                  stats=None) -> Manifold:
+    """One-sided chain segment against a rounded polygon or capsule
+    (ref: src/Manifold.cs:681-915); vb / nb (P, V, 2). `active` and
+    `stats` go to its GJK call (distance.shape_distance)."""
+    P, V = vb.shape[0], vb.shape[1]
+    dev = vb.device
+    lane = torch.arange(V, device=dev)
+    cb = cb.long()
+    valid_v = lane[None, :] < cb[:, None]
+    xp, xq = m.inv_mul_transforms(p_a, q_a, p_b, q_b)
+    lvb = m.rot_vec(xq[:, None, :], vb) + xp[:, None, :]
+    lnb = m.rot_vec(xq[:, None, :], nb)
+    centroid_b = (torch.where(valid_v[..., None], lvb, 0.0).sum(dim=1)
+                  / torch.clamp(cb, min=1).float()[:, None])
+
+    edge1 = m.normalize(p2 - p1)
+    convex_tol = 0.01
+    edge0 = m.normalize(p1 - ghost1)
+    edge2 = m.normalize(ghost2 - p2)
+    normal0 = m.right_perp(edge0)
+    normal2 = m.right_perp(edge2)
+    convex1 = m.cross(edge0, edge1) >= convex_tol
+    convex2 = m.cross(edge1, edge2) >= convex_tol
+    normal1 = m.right_perp(edge1)
+
+    behind1 = m.dot(normal1, centroid_b - p1) < 0.0
+    behind0 = _w(convex1, m.dot(normal0, centroid_b - p1) < 0.0, True)
+    behind2 = _w(convex2, m.dot(normal2, centroid_b - p2) < 0.0, True)
+    fully_behind = behind1 & behind0 & behind2
+
+    # GJK from the segment's proxy to the polygon (ref: :713-721)
+    seg_proxy = p1[:, None, :].repeat(1, 8, 1)
+    seg_proxy[:, 1] = p2
+    zero = torch.zeros_like(p1)
+    ident = torch.zeros_like(p1)
+    ident[:, 0] = 1.0
+    d = shape_distance(seg_proxy, torch.full_like(cb, 2), 0.0, lvb, cb, 0.0,
+                       zero, ident, zero, ident, active=active, stats=stats)
+    out_of_range = d.distance > rb + SPECULATIVE_DISTANCE
+    cia = d.cache_index_a.long()
+    cib = d.cache_index_b.long()
+
+    n0 = _wv(convex1, normal0, normal1)
+    n2 = _wv(convex2, normal2, normal1)
+
+    def classify(nrm):
+        """0 skip, 1 admit, 2 snap (ref: :673-679); nrm (P, 2) or
+        (P, V, 2)."""
+        x = (lambda t: t[:, None]) if nrm.dim() == 3 else (lambda t: t)
+        sin_tol = 0.01
+        lower = m.dot(nrm, x(edge1)) <= 0.0
+        t_lower = _w(x(convex1), _w(m.cross(nrm, x(normal0)) > sin_tol, 0, 1),
+                     2)
+        t_upper = _w(x(convex2), _w(m.cross(x(normal2), nrm) > sin_tol, 0, 1),
+                     2)
+        return _w(lower, t_lower, t_upper)
+
+    def at(x, idx):
+        return x[torch.arange(P, device=dev), idx]
+
+    def one_point(normal, anchor, sep, pid) -> _Local:
+        zf = torch.zeros_like(sep)
+        return _Local(normal, torch.ones_like(pid), torch.stack(
+            [anchor, torch.zeros_like(anchor)], dim=1),
+            torch.stack([sep, zf], dim=1),
+            torch.stack([pid, torch.zeros_like(pid)], dim=1))
+
+    def with_normal(mf, normal):
+        return mf._replace(normal=normal)
+
+    empty = _lempty(p1)
+
+    # the separated path, from the GJK cache
+    sep_path = ~behind1 & (d.distance > 0.1 * LINEAR_SLOP)
+    nrm_vv = m.normalize(d.point_b - d.point_a)
+    type_vv = classify(nrm_vv)
+    mf_admit_vv = one_point(nrm_vv, d.point_a, d.distance - rb,
+                            _make_id(cia[:, 0], cib[:, 0]))
+
+    ia1, ia2 = cia[:, 0], cia[:, 1]
+    ib1, ib2 = cib[:, 0], cib[:, 1]
+    same_a = ia1 == ia2
+
+    # polygon face reference (A's vertices equal: B has the face)
+    nrm_ba = d.point_a - d.point_b
+    ibf = _w(m.dot(nrm_ba, at(lnb, ib1)) > m.dot(nrm_ba, at(lnb, ib2)),
+             ib1, ib2)
+    nrm_bf = at(lnb, ibf)
+    type_bf = classify(-nrm_bf)
+    ibf2 = _w(ibf < cb - 1, ibf + 1, 0)
+    bf1 = at(lvb, ibf)
+    bf2 = at(lvb, ibf2)
+    smooth_reject_b = _w(
+        m.dot(nrm_bf, p1 - bf1) < m.dot(nrm_bf, p2 - bf1),
+        m.dot(n0, nrm_bf) < m.dot(normal1, nrm_bf),
+        m.dot(n2, nrm_bf) < m.dot(normal1, nrm_bf))
+    mf_face_b = with_normal(_clip_segments(
+        bf1, bf2, p1, p2, nrm_bf, rb, 0.0, _make_id(ibf, 1),
+        _make_id(ibf2, 0)), -nrm_bf)
+
+    # the incident vertex when the segment's face is the reference
+    inc_idx_2 = _w(m.dot(normal1, at(lvb, ib1) - p1)
+                   < m.dot(normal1, at(lvb, ib2) - p2), ib1, ib2)
+
+    # the behind / deep path
+    svals = torch.where(valid_v, m.dot(normal1[:, None], lvb - p1[:, None]),
+                        float("inf"))
+    edge_sep = svals.min(dim=1).values
+    inc_idx_deep = torch.argmin(svals, dim=1)
+    s0 = torch.where(valid_v, m.dot(normal0[:, None], lvb - p1[:, None]),
+                     float("inf")).min(dim=1).values
+    use0 = convex1 & (s0 > edge_sep)
+    edge_sep2 = _w(use0, s0, edge_sep)
+    s2 = torch.where(valid_v, m.dot(normal2[:, None], lvb - p2[:, None]),
+                     float("inf")).min(dim=1).values
+    use2 = convex2 & (s2 > edge_sep2)
+    edge_sep_f = _w(use2, s2, edge_sep2)
+    ghost_best = use0 | use2
+
+    # the polygon's reference faces that smoothness admits (ref: :828-838)
+    admit = (classify(-lnb) == 1) & valid_v
+    poly_seps = torch.minimum(m.dot(lnb, p2[:, None] - lvb),
+                              m.dot(lnb, p1[:, None] - lvb))
+    poly_seps = torch.where(admit, poly_seps, float("-inf"))
+    poly_sep = poly_seps.max(dim=1).values
+    ref_idx = torch.argmax(poly_seps, dim=1)
+    use_poly_face = poly_sep > edge_sep_f
+
+    raf1 = at(lvb, ref_idx)
+    ra2_idx = _w(ref_idx < cb - 1, ref_idx + 1, 0)
+    raf2 = at(lvb, ra2_idx)
+    nrf = at(lnb, ref_idx)
+    smooth_reject_deep = _w(
+        m.dot(nrf, p1 - raf1) < m.dot(nrf, p2 - raf1),
+        m.dot(n0, nrf) < m.dot(normal1, nrf),
+        m.dot(n2, nrf) < m.dot(normal1, nrf))
+    mf_face_deep = with_normal(_clip_segments(
+        raf1, raf2, p1, p2, nrf, rb, 0.0, _make_id(ref_idx, 1),
+        _make_id(ra2_idx, 0)), -nrf)
+
+    def seg_ref_clip(inc_index, inc_normal=None):
+        """The segment as the reference face, clipped against B's incident
+        edge around inc_index (or the edge inc_normal names)."""
+        if inc_normal is None:
+            prev = _w(inc_index > 0, inc_index - 1, cb - 1)
+            ib1c = _w(m.dot(normal1, at(lnb, prev))
+                      < m.dot(normal1, at(lnb, inc_index)), prev, inc_index)
+        else:
+            ib1c = inc_normal
+        ib2c = _w(ib1c < cb - 1, ib1c + 1, 0)
+        # +normal1: upstream Box2D v3 semantics, as the reference keeps
+        return _clip_segments(p1, p2, at(lvb, ib1c), at(lvb, ib2c), normal1,
+                              0.0, rb, _make_id(0, ib2c), _make_id(1, ib1c))
+
+    # the separated path's selections, by the GJK cache's count
+    mf_c1 = _lsel(type_vv == 1, mf_admit_vv,
+                  _lsel(type_vv == 0, empty, seg_ref_clip(cib[:, 0])))
+    mf_c2a = _lsel((type_bf == 1) & ~smooth_reject_b, mf_face_b,
+                   _lsel((type_bf == 0) | ((type_bf == 1) & smooth_reject_b),
+                         empty, seg_ref_clip(None, ibf)))
+    mf_c2b = seg_ref_clip(inc_idx_2)
+    mf_sep = _lsel(d.cache_count == 1, mf_c1, _lsel(same_a, mf_c2a, mf_c2b))
+
+    # the deep path's selections
+    mf_deep = _lsel(use_poly_face,
+                    _lsel(smooth_reject_deep, empty, mf_face_deep),
+                    _lsel(ghost_best, empty, seg_ref_clip(inc_idx_deep)))
+    mf = _lsel(sep_path, mf_sep, mf_deep)
+    return _manifold(mf.normal, mf.count, mf.anchor, mf.sep, mf.ids, p_a,
+                     q_a, p_b, ~fully_behind & ~out_of_range)

@@ -26,6 +26,11 @@ def cross_sv(s, v):
     return torch.stack([-s * v[..., 1], s * v[..., 0]], dim=-1)
 
 
+def cross_vs(v, s):
+    """v x s = (s*v.y, -s*v.x)."""
+    return torch.stack([s * v[..., 1], -s * v[..., 0]], dim=-1)
+
+
 def left_perp(v):
     return torch.stack([-v[..., 1], v[..., 0]], dim=-1)
 
@@ -36,6 +41,10 @@ def right_perp(v):
 
 def length(v):
     return torch.sqrt(dot(v, v))
+
+
+def distance(a, b):
+    return length(b - a)
 
 
 def normalize(v):
@@ -124,6 +133,17 @@ def transform_point(p, q, v):
 def inv_mul_transforms(pa, qa, pb, qb):
     """inv(A)*B: frame-B-local points into frame-A-local points."""
     return inv_rot_vec(qa, pb - pa), rot_inv_mul(qa, qb)
+
+
+def aabb_union(a, b):
+    """AABBs (..., 4) = (lo_x, lo_y, hi_x, hi_y)."""
+    return torch.cat([torch.minimum(a[..., :2], b[..., :2]),
+                      torch.maximum(a[..., 2:], b[..., 2:])], dim=-1)
+
+
+def aabb_overlaps(a, b):
+    return ((a[..., 0] <= b[..., 2]) & (b[..., 0] <= a[..., 2])
+            & (a[..., 1] <= b[..., 3]) & (b[..., 1] <= a[..., 3]))
 
 
 def softness(hertz, zeta, h):

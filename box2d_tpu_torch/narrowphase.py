@@ -1,12 +1,13 @@
 """Narrow phase: manifolds for candidate pairs + warm-start matching.
 
-Torch port of box2d_tpu/narrowphase.py for circles, capsules, segments
-and polygons: pairs are oriented canonically (circle always B), each pair
-class present in the scene is evaluated over the whole pair buffer and
-lanes take their class's result. The two chain classes raise (ROADMAP.md
-queue 10). The contact store keeps the reference's hash: the murmur mix that the JAX
-code runs in uint32 (narrowphase.py:334-341) runs here in int64 with
-`& 0xFFFFFFFF` after every step, which gives the same bits.
+Torch port of box2d_tpu/narrowphase.py for circles, capsules, segments,
+polygons and chain segments: pairs are oriented canonically (a chain
+segment always A, a circle always B), each pair class present in the
+scene is evaluated over the whole pair buffer and lanes take their
+class's result. The contact store keeps the reference's hash: the murmur
+mix that the JAX code runs in uint32 (narrowphase.py:334-341) runs here
+in int64 with `& 0xFFFFFFFF` after every step, which gives the same
+bits.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ CLS_CAPSULES = "capsules"
 CLS_POLYS = "polys"
 CLS_CHAIN_CIRCLE = "chain_circle"
 CLS_CHAIN_POLY = "chain_poly"
-_PORTED = frozenset({CLS_CIRCLES, CLS_CAPSULE_CIRCLE, CLS_POLY_CIRCLE,
-                     CLS_CAPSULES, CLS_POLYS})
 
 
 def classes_for_shape_types(types) -> frozenset:
@@ -134,12 +133,10 @@ def _static_cols(V: int):
 
 
 def narrow_phase(state: WorldState, pairs: PairBuffer,
-                 classes_present: frozenset,
-                 max_verts: int = 8) -> ContactData:
-    if classes_present - _PORTED:
-        raise NotImplementedError(
-            f"pair classes {sorted(classes_present - _PORTED)}: "
-            "ROADMAP.md queue 10")
+                 classes_present: frozenset, max_verts: int = 8,
+                 stats=None) -> ContactData:
+    """stats (world.StepStats) counts the device reads of the chain
+    polygon class's GJK loop."""
     sh = state.shapes
     V = max(2, min(max_verts, sh.verts.shape[1]))
     tbl = build_shape_table(state, V)
@@ -172,6 +169,8 @@ def narrow_phase(state: WorldState, pairs: PairBuffer,
     vb = rB[:, :2 * V].reshape(P, V, 2)
     nb = rB[:, 2 * V:4 * V].reshape(P, V, 2)
     cb, rb = rB[:, C["count"]].to(torch.int32), rB[:, C["radius"]]
+    ghost1_a = rA[:, C["g1x"]:C["g1x"] + 2]
+    ghost2_a = rA[:, C["g2x"]:C["g2x"] + 2]
 
     out = _zero_manifold(P, sa.device)
 
@@ -192,6 +191,11 @@ def narrow_phase(state: WorldState, pairs: PairBuffer,
         man = mfm.collide_polygon_circle(va, na, ca, ra, pa, qa, vb[:, 0],
                                          rb, pb, qb)
         out = merge((ta == g.POLYGON) & (tb == g.CIRCLE), man)
+    if CLS_CHAIN_CIRCLE in classes_present:
+        man = mfm.collide_chain_segment_circle(
+            va[:, 0], va[:, 1], ghost1_a, ghost2_a, pa, qa, vb[:, 0], rb,
+            pb, qb)
+        out = merge((ta == g.CHAIN_SEGMENT) & (tb == g.CIRCLE), man)
     if CLS_CAPSULES in classes_present:
         man = mfm.collide_capsules(va[:, 0], va[:, 1], ra, pa, qa,
                                    vb[:, 0], vb[:, 1], rb, pb, qb)
@@ -202,6 +206,12 @@ def narrow_phase(state: WorldState, pairs: PairBuffer,
         apoly = (ta == g.POLYGON) | (tb == g.POLYGON)
         not_special = (ta != g.CHAIN_SEGMENT) & (tb != g.CIRCLE)
         out = merge(apoly & not_special, man)
+    if CLS_CHAIN_POLY in classes_present:
+        lanes = (ta == g.CHAIN_SEGMENT) & (tb != g.CIRCLE)
+        man = mfm.collide_chain_segment_polygon(
+            va[:, 0], va[:, 1], ghost1_a, ghost2_a, pa, qa, vb, nb, cb, rb,
+            pb, qb, active=lanes, stats=stats)
+        out = merge(lanes, man)
     out = out._replace(point_count=torch.where(pairs.valid, out.point_count,
                                                0))
 

@@ -190,7 +190,7 @@ def unported(cfg: ParticleConfig, n_shapes: int) -> str | None:
         return f"per-block body-shape culling: {_REMAINDER}"
     if cfg.geom_types is None or not cfg.geom_types <= {POLYGON}:
         return ("the anti-tunnel ray against non-polygon shapes: ROADMAP.md "
-                "queue 10 (CCD, sensors and queries)")
+                "queue 10b (queries)")
     return None
 
 

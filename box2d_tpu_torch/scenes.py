@@ -1,7 +1,9 @@
-"""Benchmark scenes: the pyramid, the joint farm and the dam break.
+"""Benchmark scenes: the pyramid, the tumbler, the joint farm, the bullet
+barrage and the dam break.
 
-Port of box2d_tpu/scenes.py `pyramid` (:19-36), `joint_farm` (:65-106) and
-`dam_break` (:128-145).
+Port of box2d_tpu/scenes.py `pyramid` (:19-36), `tumbler` (:39-63),
+`joint_farm` (:65-106), `bullet_barrage` (:109-126) and `dam_break`
+(:128-145).
 The other scenes come with the slices that step them (ROADMAP.md queue).
 Like every entry point of the port, a scene is built on the card unless the
 caller names another device.
@@ -34,6 +36,31 @@ def pyramid(rows: int = 20, substeps: int = 4, box_half: float = 0.5,
             b = w.create_body(t.BodyDef(type=t.DYNAMIC,
                                         position=(x0 + 2.0 * shift * j, y)))
             w.create_polygon_shape(b, sd, g.box(h, h))
+    return w
+
+
+def tumbler(count: int = 800, substeps: int = 4, device="cuda") -> World:
+    """Rotating kinematic container churning dynamic boxes (dense contact
+    graph)."""
+    w = World(substeps=substeps, device=device)
+    drum = w.create_body(t.BodyDef(type=t.KINEMATIC, position=(0.0, 10.0),
+                                   angular_velocity=0.25 * math.pi))
+    sd = t.ShapeDef(density=50.0)
+    w.create_polygon_shape(drum, sd, g.box(0.5, 10.0, center=(10.0, 0.0)))
+    w.create_polygon_shape(drum, sd, g.box(0.5, 10.0, center=(-10.0, 0.0)))
+    w.create_polygon_shape(drum, sd, g.box(10.0, 0.5, center=(0.0, 10.0)))
+    w.create_polygon_shape(drum, sd, g.box(10.0, 0.5, center=(0.0, -10.0)))
+    bd = t.ShapeDef(density=1.0)
+    side = int(math.ceil(math.sqrt(count)))
+    n = 0
+    for i in range(side):
+        for j in range(side):
+            if n >= count:
+                break
+            b = w.create_body(t.BodyDef(type=t.DYNAMIC, position=(
+                -4.0 + 0.4 * j, 10.0 - 4.0 + 0.4 * i)))
+            w.create_polygon_shape(b, bd, g.box(0.125, 0.125))
+            n += 1
     return w
 
 
@@ -83,6 +110,27 @@ def joint_farm(ragdolls: int = 100, substeps: int = 4,
             body_a=torso, body_b=ball,
             local_anchor_a=(0.0, 0.0), local_anchor_b=(0.0, 0.0),
             length=1.2, enable_spring=True, hertz=3.0, damping_ratio=0.5))
+    return w
+
+
+def bullet_barrage(bullets: int = 50, substeps: int = 4,
+                   device="cuda") -> World:
+    """High-speed small circles fired at thin static walls (continuous
+    collision)."""
+    w = World(substeps=substeps, device=device)
+    ground = w.create_body(t.BodyDef(type=t.STATIC, position=(0.0, -0.5)))
+    w.create_polygon_shape(ground, t.ShapeDef(), g.box(100.0, 0.5))
+    for i in range(4):
+        wall = w.create_body(t.BodyDef(type=t.STATIC,
+                                       position=(20.0 + 10.0 * i, 5.0)))
+        w.create_polygon_shape(wall, t.ShapeDef(), g.box(0.05, 5.0))
+    sd = t.ShapeDef(density=5.0)
+    for i in range(bullets):
+        b = w.create_body(t.BodyDef(
+            type=t.DYNAMIC, position=(-10.0, 1.0 + 0.3 * i),
+            linear_velocity=(150.0 + i, 0.0), is_bullet=True,
+            gravity_scale=0.0))
+        w.create_circle_shape(b, sd, (0.0, 0.0), 0.1)
     return w
 
 

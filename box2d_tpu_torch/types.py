@@ -1,15 +1,17 @@
-"""Host-side definition structs: world, bodies, shapes and joints.
+"""Host-side definition structs: world, bodies, shapes, chains and joints.
 
-Copies of the box2d_tpu/types.py dataclasses that bodies, shapes and joints
-need (ref: include/Types.cs — WorldDef :77-144, BodyDef :170-223, Filter
-:226-258, SurfaceMaterial :300-318, ShapeDef :307-344, joint defs
-:460-646). Defaults match the reference so scenes port 1:1. Chain and
-explosion defs come with the slices that use them (ROADMAP.md queue).
+Copies of the box2d_tpu/types.py dataclasses that bodies, shapes, chains
+and joints need (ref: include/Types.cs — WorldDef :77-144, BodyDef
+:170-223, Filter :226-258, SurfaceMaterial :300-318, ShapeDef :307-344,
+ChainDef :359-376, joint defs :460-646). Defaults match the reference so
+scenes port 1:1. The explosion def comes with the slice that uses it
+(ROADMAP.md queue).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 from . import constants as k
 from .state import (DYNAMIC, JOINT_DISTANCE, JOINT_FILTER, JOINT_MOTOR,
@@ -18,7 +20,7 @@ from .state import (DYNAMIC, JOINT_DISTANCE, JOINT_FILTER, JOINT_MOTOR,
 
 __all__ = [
     "WorldDef", "BodyDef", "Filter", "SurfaceMaterial", "ShapeDef",
-    "DistanceJointDef", "MotorJointDef", "PrismaticJointDef",
+    "ChainDef", "DistanceJointDef", "MotorJointDef", "PrismaticJointDef",
     "RevoluteJointDef", "WeldJointDef", "WheelJointDef", "FilterJointDef",
     "MouseJointDef",
     "STATIC", "KINEMATIC", "DYNAMIC",
@@ -100,6 +102,17 @@ class ShapeDef:
     enable_contact_events: bool = False
     enable_hit_events: bool = False
     update_body_mass: bool = True
+
+
+@dataclasses.dataclass
+class ChainDef:
+    """ref: include/Types.cs:359-376."""
+
+    points: Sequence = ()
+    materials: Sequence = (SurfaceMaterial(),)
+    filter: Filter = dataclasses.field(default_factory=Filter)
+    is_loop: bool = False
+    enable_sensor_events: bool = False
 
 
 # ---------------------------------------------------------------------------

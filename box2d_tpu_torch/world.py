@@ -10,8 +10,10 @@ has work (the particle gate, box2d_tpu/world.py:101-135). A world
 with solvable joints prepares them after the contacts, sorts their packed
 rows into the joint region of the layout (joints.layout_joint_rows) and
 hands it to the same kernel launch; a world without them packs and
-launches exactly the contact-only pipeline. The sensor pass is a no-op:
-World.compile refuses sensor shapes.
+launches exactly the contact-only pipeline. The continuous pass sweeps
+the fast shapes' TOI behind its gate, and a world with sensor shapes runs
+the sensor pass after the body-move events (a world without them never
+does).
 
 PyTorch runs eagerly, so every `lax.cond` / `while_loop` of the JAX step
 is a host branch or loop here, and each costs one device read.
@@ -35,6 +37,7 @@ from .joints import (layout_joint_rows, prepare_joints, solvable_joint_types,
                      unpack_joint_acc)
 from .narrowphase import narrow_phase, update_cache
 from .particles import ParticleConfig, particle_step
+from .sensors import sensor_pass
 from .sleep import wake_and_sleep
 from .solver import (BodySolverState, finalize_bodies, pack_bodies,
                      pack_constraints_pairs, prepare_contacts, unpack_bodies)
@@ -46,17 +49,27 @@ from .state import (DYNAMIC, JOINT_DISTANCE, JOINT_FILTER, JOINT_PRISMATIC,
 class StepStats:
     """Counters of a step function: steps taken, idle steps (the idle gate,
     or in a particle world the particle gate, skipped the rigid work),
-    openings of the CCD gate, device reads, and the particle sub-iterations
-    that took the rank repair (K4) or the full sort. Each read blocks the
-    host until the device has caught up; `syncs` counts them."""
+    openings of the CCD gate, the TOI pairs swept behind it, those that
+    took the fraction-0 retry and those that hit, device reads, and the
+    particle sub-iterations that took the rank repair (K4) or the full
+    sort. Each read blocks the host until the device has caught up;
+    `syncs` counts them. `rounds` counts the rounds of the masked loops
+    of box2d_tpu_torch.distance (GJK, cast, TOI outer, push-back, root
+    finder) and their device reads."""
+
+    LOOPS = ("gjk", "cast", "toi", "push", "root")
 
     def __init__(self):
         self.steps = 0
         self.idle_steps = 0
         self.ccd_gate_openings = 0
+        self.toi_pairs = 0
+        self.toi_retries = 0
+        self.toi_hits = 0
         self.syncs = 0
         self.rank_repairs = 0
         self.full_sorts = 0
+        self.rounds = dict.fromkeys(self.LOOPS + ("reads",), 0)
 
     def read(self, *tensors):
         """Read scalar tensors to Python ints in one transfer."""
@@ -72,13 +85,15 @@ class Step:
     def __init__(self, capacity: Capacity, classes_present: frozenset,
                  substeps: int = 4, continuous: bool = True,
                  joint_types: frozenset = frozenset(),
-                 particle_cfg: ParticleConfig | None = None):
+                 particle_cfg: ParticleConfig | None = None,
+                 sensor_ids: tuple = ()):
         self.capacity = capacity
         self.classes = classes_present
         self.substeps = substeps
         self.continuous = continuous
         self.joint_types = joint_types
         self.particle_cfg = particle_cfg
+        self.sensor_ids = tuple(sensor_ids)
         self.stats = StepStats()
         # the width of the overflow tail's Jacobi windows, from the capacity
         self.tail_w = tail_window(capacity, joint_types)
@@ -87,27 +102,29 @@ class Step:
                  light_events: bool = False) -> WorldState:
         return _step(state, dt, self.capacity, self.classes, self.substeps,
                      self.continuous, self.stats, light_events,
-                     self.joint_types, self.particle_cfg)
+                     self.joint_types, self.particle_cfg, self.sensor_ids)
 
 
 def make_step(capacity: Capacity, classes_present: frozenset,
               substeps: int = 4, continuous: bool = True,
               joint_types: frozenset = frozenset(),
-              particle_cfg: ParticleConfig | None = None) -> Step:
+              particle_cfg: ParticleConfig | None = None,
+              sensor_ids: tuple = ()) -> Step:
     return Step(capacity, classes_present, substeps, continuous, joint_types,
-                particle_cfg)
+                particle_cfg, sensor_ids)
 
 
 def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
           substeps: int, continuous: bool, syncs: StepStats,
           light_events: bool = False,
           joint_types: frozenset = frozenset(),
-          particle_cfg: ParticleConfig | None = None) -> WorldState:
+          particle_cfg: ParticleConfig | None = None,
+          sensor_ids: tuple = ()) -> WorldState:
     if (particle_cfg is not None and state.particles is not None
             and state.broadphase is not None):
         return _particle_gate(state, dt, cap, classes_present, substeps,
                               continuous, syncs, light_events, joint_types,
-                              particle_cfg)
+                              particle_cfg, sensor_ids)
     # whole-world idle fast path (box2d_tpu/world.py:137-159)
     b0 = state.bodies
     idle = (~state.broadphase.dirty
@@ -115,6 +132,7 @@ def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
     (idle_h,) = syncs.read(idle)
     syncs.steps += 1
     if idle_h:
+        # zeroed events; the sensor overlap store is kept
         syncs.idle_steps += 1
         dev = b0.center.device
         return dataclasses.replace(
@@ -122,11 +140,12 @@ def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
             step_count=state.step_count + 1)
     return _step_work(state, dt, cap, classes_present, substeps, continuous,
                       syncs, light_events=light_events,
-                      joint_types=joint_types)
+                      joint_types=joint_types, sensor_ids=sensor_ids)
 
 
 def _particle_gate(state, dt, cap, classes_present, substeps, continuous,
-                   syncs, light_events, joint_types, particle_cfg):
+                   syncs, light_events, joint_types, particle_cfg,
+                   sensor_ids=()):
     """Particles step first; the rigid pipeline runs only when a body is
     awake or the broadphase is dirty (box2d_tpu/world.py:101-135). The
     rigid phases read only poses, which particles never touch, so the order
@@ -149,7 +168,8 @@ def _particle_gate(state, dt, cap, classes_present, substeps, continuous,
     if live_h:
         return _step_work(state, dt, cap, classes_present, substeps,
                           continuous, syncs, light_events=light_events,
-                          joint_types=joint_types, particle_overflow=pov)
+                          joint_types=joint_types, particle_overflow=pov,
+                          sensor_ids=sensor_ids)
     syncs.idle_steps += 1
     dev = b0.center.device
     return dataclasses.replace(
@@ -183,12 +203,15 @@ def _step_work(state: WorldState, dt, cap: Capacity,
                classes_present: frozenset, substeps: int, continuous: bool,
                syncs: StepStats, until: str = "",
                light_events: bool = False,
-               joint_types: frozenset = frozenset(), particle_overflow=None):
+               joint_types: frozenset = frozenset(), particle_overflow=None,
+               sensor_ids: tuple = ()):
     dt, inv_dt, h, inv_h = _f32_scalars(dt, substeps)
     b = state.bodies
     nb = b.center.shape[0]
     tn = state.tuning
     dev = b.center.device
+    # the pre-step poses, for the sensors' swept test
+    prev_pose = (b.origin, b.rot) if sensor_ids else None
 
     old_key_a = state.contacts.key_a
     old_key_b = state.contacts.key_b
@@ -200,7 +223,8 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     state = dataclasses.replace(state, broadphase=new_bp, contacts=cache)
     if until == "pairs":
         return pairs, state.contacts
-    data = narrow_phase(state, pairs, classes_present, cap.max_verts)
+    data = narrow_phase(state, pairs, classes_present, cap.max_verts,
+                        syncs)
     touching = data.manifold.point_count > 0
     if until == "narrow":
         return data
@@ -336,19 +360,22 @@ def _step_work(state: WorldState, dt, cap: Capacity,
         return tail_args
     return _step_tail(*tail_args, syncs, until=until,
                       light_events=light_events, jc=jc, inv_h=inv_h,
-                      particle_overflow=particle_overflow)
+                      particle_overflow=particle_overflow,
+                      sensor_ids=sensor_ids, prev_pose=prev_pose)
 
 
 def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
                overflow_colors, touching, continuous, contact_color_store,
                ni, ti, roll, tni, relv, orphan_info, syncs, until: str = "",
                light_events: bool = False, jc=None, inv_h: float = 0.0,
-               particle_overflow=None):
-    """Post-solve: store impulses, events, continuous gate, finalize,
-    sleep, profile (box2d_tpu/world.py:706-805). jc: the solved
+               particle_overflow=None, sensor_ids: tuple = (),
+               prev_pose=None):
+    """Post-solve: store impulses, events, continuous pass, finalize,
+    sleep, sensors, profile (box2d_tpu/world.py:706-805). jc: the solved
     JointConstraints (None leaves the joints' stored impulses as they are
     and emits no joint event). particle_overflow: the particle step's
-    overflow count, stored in the profile."""
+    overflow count, stored in the profile. sensor_ids / prev_pose: the
+    sensor shapes and the bodies' pre-step (origin, rot)."""
     dev = touching.device
     data = data._replace(normal_impulse=ni, tangent_impulse=ti,
                          rolling_impulse=roll)
@@ -385,7 +412,8 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
 
     advance, overflow_ccd = None, i0
     if continuous:
-        advance, overflow_ccd = continuous_pass(state, bs, dt, syncs)
+        advance, overflow_ccd = continuous_pass(
+            state, bs, dt, syncs, cap.fast_cap or 32, cap.cand_cap)
     if until == "continuous":
         return advance, overflow_ccd, events
 
@@ -409,7 +437,11 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
         events, body_moved=moved, body_fell_asleep=fell,
         body_move_count=moved.sum().to(torch.int32),
         body_fell_asleep_count=fell.sum().to(torch.int32))
-    # sensor_pass is a no-op: World.compile refuses sensor shapes
+    # the sensors, after the solve (ref: api/World.cs:99 OverlapSensors)
+    state = sensor_pass(dataclasses.replace(state, events=events), cap,
+                        sensor_ids, *(prev_pose or (None, None)),
+                        stats=syncs)
+    events = state.events
     profile = Profile(
         pair_count=pairs.count,
         contact_point_count=data.manifold.point_count.sum().to(torch.int32),

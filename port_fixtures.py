@@ -2,8 +2,10 @@
 (tests/test_torch_*.py), chip_smoke.py, time_solver.py and probe_k3.py.
 
 - Scenes built in either package through the modules they are given:
-  `all_types_scene` (every joint type the solver sweeps) and `hub_scene`
-  (joint colors that overflow).
+  `all_types_scene` (every joint type the solver sweeps), `hub_scene`
+  (joint colors that overflow), `ccd_scene` (fast bodies against thin
+  targets) and `chain_sensor_scene` (a chain-loop ground, a sensor box,
+  and circles, capsules and boxes falling through it).
 - Inputs made to reach a kernel's edge cases: `move_buckets_to_tail` (an
   overflow tail of several Jacobi windows), `k3_table` (K3 blocks on their
   global-memory path) and `rank_table` (K4 stress tables).
@@ -117,6 +119,96 @@ def hub_scene(World, t, g, spokes=24, **kw):
         else:
             w.create_joint(t.WeldJointDef(body_a=hub, body_b=ball,
                                           local_anchor_a=(x, y)))
+    return w
+
+
+def ccd_scene(kind, World, t, g, **kw):
+    """A world whose continuous pass has work: "wall", a bullet at a thin
+    static wall (tests/test_continuous.py:30); "ground", a fast box at a
+    thin ground (:43); "plate", a bullet at a thin dynamic plate (:56);
+    "slide", a bullet sliding fast along a ground it starts within
+    touching distance of (its TOI hits at fraction 0, which takes the
+    core-proxy retry); "crowd", ten bullets at a row of six thin walls close enough that one
+    step's sweep crosses them all (more fast shapes than a small
+    Capacity.fast_cap, more candidates than a small cand_cap)."""
+    w = World(**kw)
+    bullet = t.ShapeDef(density=5.0)
+    if kind == "wall":
+        wall = w.create_body(t.BodyDef(type=0, position=(10.0, 0.0)))
+        w.create_polygon_shape(wall, t.ShapeDef(), g.box(0.05, 5.0))
+        b = w.create_body(t.BodyDef(type=2, position=(0.0, 0.0),
+                                    linear_velocity=(200.0, 0.0),
+                                    is_bullet=True, gravity_scale=0.0))
+        w.create_circle_shape(b, bullet, (0.0, 0.0), 0.1)
+    elif kind == "ground":
+        ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.05)))
+        w.create_polygon_shape(ground, t.ShapeDef(), g.box(50.0, 0.05))
+        b = w.create_body(t.BodyDef(type=2, position=(0.0, 10.0),
+                                    linear_velocity=(0.0, -100.0)))
+        w.create_polygon_shape(b, t.ShapeDef(), g.box(0.2, 0.2))
+    elif kind == "plate":
+        plate = w.create_body(t.BodyDef(type=2, position=(10.0, 0.0),
+                                        gravity_scale=0.0))
+        w.create_polygon_shape(plate, t.ShapeDef(density=1.0),
+                               g.box(0.05, 2.0))
+        b = w.create_body(t.BodyDef(type=2, position=(0.0, 0.0),
+                                    linear_velocity=(150.0, 0.0),
+                                    is_bullet=True, gravity_scale=0.0))
+        w.create_circle_shape(b, bullet, (0.0, 0.0), 0.1)
+    elif kind == "slide":
+        ground = w.create_body(t.BodyDef(type=0, position=(0.0, -0.5)))
+        w.create_polygon_shape(ground, t.ShapeDef(), g.box(100.0, 0.5))
+        b = w.create_body(t.BodyDef(type=2, position=(0.0, 0.0955),
+                                    linear_velocity=(200.0, 0.0),
+                                    is_bullet=True))
+        w.create_circle_shape(b, bullet, (0.0, 0.0), 0.1)
+    elif kind == "crowd":
+        for i in range(6):
+            wall = w.create_body(t.BodyDef(type=0,
+                                           position=(3.0 + 0.5 * i, 1.0)))
+            w.create_polygon_shape(wall, t.ShapeDef(), g.box(0.05, 2.0))
+        for i in range(10):
+            b = w.create_body(t.BodyDef(
+                type=2, position=(0.0, 0.2 * i),
+                linear_velocity=(400.0 + 10.0 * i, 0.0), is_bullet=True,
+                gravity_scale=0.0))
+            w.create_circle_shape(b, bullet, (0.0, 0.0), 0.05)
+    else:
+        raise ValueError(kind)
+    return w
+
+
+def chain_sensor_scene(World, t, g, **kw):
+    """A chain loop (a box-shaped ground with a convex bump in its floor,
+    wound so that it collides from inside), a static sensor box, and
+    circles, capsules and boxes that fall through the sensor onto the
+    floor. The falling shapes report sensor events; one circle, left of
+    the others, does not. The first of them is thrown down so fast that
+    it crosses the sensor within one step (the sensor's swept test sees
+    it) and reaches the floor with the CCD gate open."""
+    w = World(t.WorldDef(enable_sleep=False), **kw)
+    ground = w.create_body(t.BodyDef(type=0))
+    w.create_chain(ground, t.ChainDef(
+        points=[(6.0, 0.0), (1.0, 0.0), (0.0, 0.5), (-1.0, 0.0),
+                (-6.0, 0.0), (-6.0, 8.0), (6.0, 8.0)], is_loop=True))
+    sensor = w.create_body(t.BodyDef(type=0, position=(0.0, 3.0)))
+    w.create_polygon_shape(sensor, t.ShapeDef(
+        is_sensor=True, enable_sensor_events=True), g.box(3.0, 0.5))
+    seen = t.ShapeDef(density=1.0, enable_sensor_events=True)
+    b = w.create_body(t.BodyDef(type=2, position=(-2.0, 6.3),
+                                linear_velocity=(0.0, -150.0)))
+    w.create_circle_shape(b, seen, (0.0, 0.0), 0.2)
+    for i, x in enumerate((-1.0, -0.3, 0.4, 1.1, 1.8, 2.5)):
+        b = w.create_body(t.BodyDef(type=2, position=(x, 5.0 + 0.4 * i),
+                                    angle=0.3 * i))
+        if i % 3 == 0:
+            w.create_circle_shape(b, seen, (0.0, 0.0), 0.25)
+        elif i % 3 == 1:
+            w.create_capsule_shape(b, seen, (-0.25, 0.0), (0.25, 0.0), 0.15)
+        else:
+            w.create_polygon_shape(b, seen, g.box(0.25, 0.2))
+    b = w.create_body(t.BodyDef(type=2, position=(-4.0, 6.0)))
+    w.create_circle_shape(b, t.ShapeDef(density=1.0), (0.0, 0.0), 0.25)
     return w
 
 

@@ -327,7 +327,7 @@ def farm_step(worlds):
     joint event; and the island labels marked dirty so that the label pass
     runs over the joint edges. The JAX functions are traced without the
     continuous pass, the identity while the CCD gate stays shut (the
-    port's own pass raises if it opens)."""
+    port runs its own pass, whose gate these states leave shut)."""
     w = worlds["farm"]
     leaves = {k: v.copy() for k, v in w["warm"].items()}
     leaves["joints.force_threshold"][[0, 2, 5]] = 0.0

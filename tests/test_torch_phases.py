@@ -8,8 +8,8 @@ after 15 steps with the broadphase marked dirty (a full rebuild that
 re-aligns a live contact cache), and a warm state with contact and hit
 events switched on, the top box lifted off and another thrown down. The
 JAX step tail is traced without its continuous pass, the identity while
-the CCD gate stays shut; the port's tail runs its own, which raises if
-the gate opens.
+the CCD gate stays shut; the port's tail runs its own, whose gate these
+states leave shut (an opened gate would move the bodies it rolls back).
 Discrete outputs (pair lanes, hash slots, colors, layout indices, awake
 flags, island labels, counts) must match exactly; floats to 1e-5.
 """
