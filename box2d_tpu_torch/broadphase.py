@@ -121,9 +121,10 @@ def _kth_true(ok, ids_row, kslots):
 
 
 def _repair_pairs(state: WorldState, cap: Capacity, bp, cache, fat_t,
-                  esc, wide):
+                  esc, wide, custom_filter=None):
     """Lane-stable in-place repair of the pair buffer after a few shapes
-    escaped their fat AABBs (box2d_tpu/broadphase.py:157-306)."""
+    escaped their fat AABBs (box2d_tpu/broadphase.py:157-306). The user's
+    custom_filter judges the new pairs, as in the JAX package (:284)."""
     sh = state.shapes
     b = state.bodies
     S = fat_t.shape[0]
@@ -200,6 +201,9 @@ def _repair_pairs(state: WorldState, cap: Capacity, bp, cache, fat_t,
         new_ok = new_ok & _group_pass(sh, lo.long(), hi.long())
     if cap.has_joint_exclusions:
         new_ok = new_ok & ~_joint_excluded(state, lo, hi)
+    if custom_filter is not None:
+        new_ok = new_ok & torch.as_tensor(custom_filter(state, lo, hi),
+                                          dtype=torch.bool)
 
     free_lanes, free_ok = _compact_ids(~valid2, NEW)
     slot_ok = new_ok & free_ok
@@ -258,9 +262,12 @@ def _group_pass(sh, ia, ib):
                        ((cat[ia] & msk[ib]) != 0) & ((cat[ib] & msk[ia]) != 0))
 
 
-def find_pairs_incremental(state: WorldState, cap: Capacity, aabbs, syncs):
+def find_pairs_incremental(state: WorldState, cap: Capacity, aabbs, syncs,
+                           custom_filter=None):
     """Persistent-pair keep / repair / full tiers
-    (box2d_tpu/broadphase.py:309-406). Returns (PairBuffer, new
+    (box2d_tpu/broadphase.py:309-406); custom_filter (state, shape_a,
+    shape_b) -> keep mask judges pairs where they are built, the new pairs
+    of a repair and the whole set of a full rebuild. Returns (PairBuffer, new
     BroadphaseStore, cache, orphan_mask, drops, kind) with kind 0/1/2."""
     from .narrowphase import remap_cache
 
@@ -280,7 +287,7 @@ def find_pairs_incremental(state: WorldState, cap: Capacity, aabbs, syncs):
                        aabbs[:, 2:] + AABB_MARGIN], -1)
 
     def do_full():
-        pb = find_pairs(state, cap, aabbs)
+        pb = find_pairs(state, cap, aabbs, custom_filter)
         new_ka = torch.where(pb.valid, pb.shape_a, -1)
         new_kb = torch.where(pb.valid, pb.shape_b, -1)
         new_cache, orphan, drops = remap_cache(
@@ -314,8 +321,8 @@ def find_pairs_incremental(state: WorldState, cap: Capacity, aabbs, syncs):
         if full:
             out, kind = do_full(), 2
         elif n_esc_h > 0:
-            out = _repair_pairs(state, cap, bp, cache, fat_t, esc, wide) \
-                + (bp.cell,)
+            out = _repair_pairs(state, cap, bp, cache, fat_t, esc, wide,
+                                custom_filter) + (bp.cell,)
             kind = 1
         else:
             out, kind = keep(), 0
@@ -331,9 +338,11 @@ def find_pairs_incremental(state: WorldState, cap: Capacity, aabbs, syncs):
             drops, kind_t)
 
 
-def find_pairs(state: WorldState, cap: Capacity, aabbs) -> PairBuffer:
+def find_pairs(state: WorldState, cap: Capacity, aabbs,
+               custom_filter=None) -> PairBuffer:
     """Full rebuild: big-shape pass + grid-cell block-tile pass
-    (box2d_tpu/broadphase.py:409-667)."""
+    (box2d_tpu/broadphase.py:409-667), then the user's custom_filter on
+    the candidate set (:660)."""
     S = aabbs.shape[0]
     dev = aabbs.device
     W = min(cap.sap_window, max(S - 1, 1))
@@ -484,6 +493,9 @@ def find_pairs(state: WorldState, cap: Capacity, aabbs) -> PairBuffer:
         pair_valid = pair_valid & _group_pass(sh, shape_a, shape_b)
     if cap.has_joint_exclusions:
         pair_valid = pair_valid & ~_joint_excluded(state, shape_a, shape_b)
+    if custom_filter is not None:
+        pair_valid = pair_valid & torch.as_tensor(
+            custom_filter(state, shape_a, shape_b), dtype=torch.bool)
 
     overflow = (overflow_shapes + overflow_big
                 + torch.clamp(count - P, min=0)).to(torch.int32)

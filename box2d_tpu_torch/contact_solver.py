@@ -262,19 +262,10 @@ def _fits_tiled_streamed(nb: int, w: int) -> bool:
     return words * 4 < 12 * 1024 * 1024
 
 
-@functools.lru_cache(maxsize=None)
-def tail_window(cap: Capacity, joint_types=frozenset()) -> int:
-    """The width of the overflow tail's Jacobi windows for a world of this
-    capacity and these joint types: the width the JAX package's Pallas path
-    sweeps it at. Mode 1 (a joint-free world whose layout fits the
-    resident kernel) sweeps chunk-wide windows; the tiled kernel sweeps
-    w_k-wide ones, where w_k is window_width(chunk) widened by `halves` for
-    a contact-only resident layout, and window_width(chunk) for a jointed
-    or streamed one; a world that fits no kernel takes the XLA path, which
-    sweeps the whole tail as one window. Computed once per (capacity,
-    joint types), when the world's step is made (world.Step)."""
+def _layout(cap: Capacity, joint_types):
+    """(chunk, l0, ovf, w_win, solvable joint types, joint region length)
+    of the JAX package's solver layout for this capacity."""
     chunk = cap.color_chunk or auto_chunk(cap.max_contact_pairs)
-    nb = cap.max_bodies
     l0 = cap.max_colors * chunk
     ovf = ((min(cap.max_contact_pairs, 2 * chunk) + chunk - 1)
            // chunk) * chunk
@@ -285,20 +276,55 @@ def tail_window(cap: Capacity, joint_types=frozenset()) -> int:
         n_groups = cap.max_colors * len(solvable)
         mj = cap.max_joints
         jl = (-(-mj // w_win)) * w_win + min(n_groups, mj) * w_win
+    return chunk, l0, ovf, w_win, solvable, jl
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_mode(cap: Capacity, joint_types=frozenset()) -> int:
+    """The JAX package's choice of solver path for a world compiled with
+    these joint types (box2d_tpu/api.py:250-279): 1 the resident kernel
+    (joint-free layouts that fit it), 2 the tiled kernel, 3 the tiled
+    kernel streaming its accumulators, 0 the XLA path. Fixed at compile:
+    box2d_tpu.api.World keeps it when a runtime joint remakes the step."""
+    chunk, l0, ovf, w_win, solvable, jl = _layout(cap, joint_types)
+    nb = cap.max_bodies
     if not solvable and _fits_kernel(nb, l0 + ovf, chunk):
-        return chunk
+        return 1
     if _fits_tiled(nb, l0 + ovf + jl, w_win):
-        if solvable:
-            return w_win
+        return 2
+    if _fits_tiled_streamed(nb, w_win):
+        return 3
+    return 0
+
+
+@functools.lru_cache(maxsize=None)
+def tail_window(cap: Capacity, joint_types=frozenset(),
+                mode: int | None = None) -> int:
+    """The width of the overflow tail's Jacobi windows for a world of this
+    capacity and these joint types: the width the JAX package sweeps it
+    at. `mode` is the solver path fixed when the world was compiled
+    (kernel_mode of the compile-time joint types; by default that of
+    `joint_types`). Mode 1 sweeps chunk-wide windows; a jointed world in
+    mode 1 takes the XLA path (box2d_tpu/world.py:383), as does mode 0,
+    and the XLA path sweeps the whole tail as one window; the tiled
+    kernel sweeps w_k-wide ones, where w_k is window_width(chunk) widened
+    by `halves` for a contact-only resident layout, and window_width(chunk)
+    for a jointed or streamed one. Computed once per (capacity, joint
+    types, mode), when the world's step is made (world.Step)."""
+    chunk, l0, ovf, w_win, solvable, _ = _layout(cap, joint_types)
+    if mode is None:
+        mode = kernel_mode(cap, joint_types)
+    if mode == 0 or (mode == 1 and solvable):
+        return ovf
+    if mode == 1:
+        return chunk
+    if mode == 2 and not solvable:
         for cand in (chunk // w_win, 20, 10, 5, 4, 2):
             if (cand > 1 and chunk % (cand * w_win) == 0
-                    and _fits_tiled(nb, l0 + ovf, cand * w_win,
+                    and _fits_tiled(cap.max_bodies, l0 + ovf, cand * w_win,
                                     halves=cand)):
                 return cand * w_win
-        return w_win
-    if _fits_tiled_streamed(nb, w_win):
-        return w_win
-    return ovf
+    return w_win
 
 
 # ---------------------------------------------------------------------------

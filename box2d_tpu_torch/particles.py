@@ -10,16 +10,17 @@ in cell-sorted order: the cell sort (the nearly-sorted rank repair K4, or
 the stable argsort), the single packed permutation, the neighbour passes
 weight, pressure and damping through the window kernel K3
 (particles_kernels.py), dense body coupling, force, gravity, limit
-velocity, the anti-tunnel ray against polygons, lifetimes, integration,
+velocity, the anti-tunnel ray (the slab ray where every shape is a
+polygon, else queries.ray_shape_analytic), lifetimes, integration,
 the single un-sort and stuck detection.
 
 The port always takes K3 for the neighbour passes; the JAX package does so
 only on an accelerator with at least 2048 particles and otherwise runs
 the windowed `_find_contacts_sorted` pipeline, which agrees with K3
 wherever the windows do not truncate. The flag-gated passes, pairs and
-triads, solid and rigid groups, per-block shape culling, the windowed
-pipeline and the anti-tunnel ray against non-polygon shapes are not
-ported: they raise NotImplementedError naming their ROADMAP.md item.
+triads, solid and rigid groups, per-block shape culling and the windowed
+pipeline are not ported: they raise NotImplementedError naming their
+ROADMAP.md item.
 
 PyTorch runs eagerly: the `lax.scan` over sub-iterations is a Python loop,
 and the rank repair's `lax.cond` is a host branch on one device read per
@@ -41,6 +42,7 @@ from . import math2d as m
 from . import particles_kernels as pk
 from .broadphase import _top_k, compute_shape_aabbs
 from .geometry import POLYGON
+from .queries import ray_shape_analytic
 from .state import DYNAMIC, WorldState
 
 # particle flags (ref: particle/Particle.cs ParticleFlag)
@@ -188,9 +190,6 @@ def unported(cfg: ParticleConfig, n_shapes: int) -> str | None:
         return f"the windowed _find_contacts_sorted pipeline: {_REMAINDER}"
     if min(cfg.max_body_shapes, n_shapes) > cfg.block_shape_slots:
         return f"per-block body-shape culling: {_REMAINDER}"
-    if cfg.geom_types is None or not cfg.geom_types <= {POLYGON}:
-        return ("the anti-tunnel ray against non-polygon shapes: ROADMAP.md "
-                "queue 10b (queries)")
     return None
 
 
@@ -457,6 +456,57 @@ def _ray_polygon_batched(pos, delta, s_origin, s_rot, verts, normals,
     return hit.T, frac.T, wnx.T, wny.T
 
 
+def _tunnel_polygons(pos, vel, dt, inv_dt, alive, bs_valid, s_origin,
+                     s_rot, s_verts, s_normals, s_count):
+    """The anti-tunnel ray of a world whose shapes are all polygons: the
+    slab ray against the nearby shapes (box2d_tpu/particles.py:1657-1695),
+    the velocity clamped at the first nearest hit."""
+    step_v = dt * vel
+    hit, frac, wnx, wny = _ray_polygon_batched(
+        pos, step_v, s_origin, s_rot, s_verts, s_normals, s_count)
+    hit = hit & bs_valid[None, :] & alive[:, None]
+    frac = torch.where(hit, frac, math.inf)
+    fbest, hidx = frac.min(dim=1)      # the first nearest hit
+    any_hit = torch.isfinite(fbest)
+    hidx = hidx[:, None]
+    wn = torch.cat([torch.gather(wnx, 1, hidx),
+                    torch.gather(wny, 1, hidx)], dim=1)
+    fbh = torch.where(any_hit, fbest, 0.0)
+    target = pos + fbh[:, None] * step_v + PARTICLE_LINEAR_SLOP * wn
+    return torch.where(any_hit[:, None], inv_dt * (target - pos), vel)
+
+
+def _tunnel_analytic(pos, vel, dt, inv_dt, alive, bs_valid, s_origin, s_rot,
+                     s_type, s_verts, s_normals, s_count, s_radius,
+                     geom_types):
+    """The anti-tunnel ray of a world with other shapes than polygons
+    (box2d_tpu/particles.py:1697-1715): the closed-form ray of every
+    (particle, nearby shape) lane through queries.ray_shape_analytic,
+    polygons included, a hit needing a fraction above 0; the velocity is
+    clamped at the first nearest hit."""
+    n, sb = pos.shape[0], s_verts.shape[0]
+    step_v = dt * vel
+    lo = m.inv_rot_vec(s_rot[None], pos[:, None] - s_origin[None])
+    ld = m.inv_rot_vec(s_rot[None], step_v[:, None])
+    rep = lambda x: x.expand((n,) + tuple(x.shape)).reshape(  # noqa: E731
+        (n * sb,) + tuple(x.shape[1:]))
+    hit, frac, _, lnrm = ray_shape_analytic(
+        lo.reshape(-1, 2), ld.reshape(-1, 2), 1.0, rep(s_type),
+        rep(s_verts), rep(s_normals), rep(s_count), rep(s_radius),
+        geom_types)
+    hit = (hit.reshape(n, sb) & bs_valid[None, :] & alive[:, None])
+    frac = frac.reshape(n, sb)
+    hit = hit & torch.isfinite(frac) & (frac > 0.0)
+    frac = torch.where(hit, frac, math.inf)
+    wn = m.rot_vec(s_rot[None], lnrm.reshape(n, sb, 2))
+    fbest, best = frac.min(dim=1)      # the first nearest hit
+    rows = torch.arange(n, device=pos.device)
+    any_hit = hit[rows, best]
+    target = (pos + fbest[:, None] * step_v
+              + PARTICLE_LINEAR_SLOP * wn[rows, best])
+    return torch.where(any_hit[:, None], inv_dt * (target - pos), vel)
+
+
 # ---------------------------------------------------------------------------
 # the particle step
 # ---------------------------------------------------------------------------
@@ -552,6 +602,8 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
 
     body_dv = torch.zeros((nb, 2), dtype=torch.float32, device=dev)
     body_dw = torch.zeros(nb, dtype=torch.float32, device=dev)
+    polygons_only = (cfg.geom_types is not None
+                     and cfg.geom_types <= {POLYGON})
 
     def apply_body_impulse(dv, dw, impulse, active):
         """Sum the (n, Sb, 2) per-contact impulses per shape, then add them
@@ -676,21 +728,16 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                           vel * torch.sqrt(_safe_div(crit_v2, v2))[:, None],
                           vel)
 
-        # ---- collision anti-tunnelling against polygons (ref
-        # SolveCollision; particles.py:1657-1695) ----
-        step_v = dt * vel
-        hit, frac, wnx, wny = _ray_polygon_batched(
-            pos, step_v, s_origin, s_rot, s_verts, s_normals, s_count)
-        hit = hit & bs_valid[None, :] & alive[:, None]
-        frac = torch.where(hit, frac, math.inf)
-        fbest, hidx = frac.min(dim=1)      # the first nearest hit
-        any_hit = torch.isfinite(fbest)
-        hidx = hidx[:, None]
-        wn = torch.cat([torch.gather(wnx, 1, hidx),
-                        torch.gather(wny, 1, hidx)], dim=1)
-        fbh = torch.where(any_hit, fbest, 0.0)
-        target = pos + fbh[:, None] * step_v + PARTICLE_LINEAR_SLOP * wn
-        vel = torch.where(any_hit[:, None], inv_dt * (target - pos), vel)
+        # ---- collision anti-tunnelling (ref SolveCollision) ----
+        if polygons_only:
+            vel = _tunnel_polygons(pos, vel, dt, inv_dt, alive, bs_valid,
+                                   s_origin, s_rot, s_verts, s_normals,
+                                   s_count)
+        else:
+            vel = _tunnel_analytic(pos, vel, dt, inv_dt, alive, bs_valid,
+                                   s_origin, s_rot, sh.type[bs_idx],
+                                   s_verts, s_normals, s_count, s_radius,
+                                   cfg.geom_types)
 
         # ---- lifetimes (ref SolveLifetimes :1516) ----
         expiring = expiration > 0.0

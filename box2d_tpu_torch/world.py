@@ -24,6 +24,7 @@ later work.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -31,7 +32,8 @@ import torch
 from . import math2d as m
 from .broadphase import compute_shape_aabbs, find_pairs_incremental
 from .coloring import dense_remap, repair_colors
-from .contact_solver import NA, NF, contact_solve, tail_window
+from .contact_solver import (NA, NF, contact_solve, kernel_mode,
+                             tail_window)
 from .continuous import continuous_pass
 from .joints import (layout_joint_rows, prepare_joints, solvable_joint_types,
                      unpack_joint_acc)
@@ -78,15 +80,38 @@ class StepStats:
         return vals.tolist()
 
 
+class Hooks(NamedTuple):
+    """The user hooks of a step (box2d_tpu/world.py:42-67), torch
+    callables over the port's state:
+      custom_filter(state, shape_a, shape_b) -> (P,) bool keep, applied
+        where candidate pairs are built (a full rebuild, the new pairs of
+        a repair); not re-run while the pair set is unchanged.
+      pre_solve(state, shape_a, shape_b, manifold) -> (P,) bool keep,
+        applied to the fresh manifolds every step; a dropped lane's
+        point_count is zeroed, so it is not solved, not touching and emits
+        no begin event (the one-way platform).
+    tail_w: the width of the overflow tail's Jacobi windows."""
+
+    custom_filter: Callable | None = None
+    pre_solve: Callable | None = None
+    tail_w: int | None = None
+
+
 class Step:
     """The step function of one static configuration (the counterpart of
-    the jitted closure box2d_tpu.world.make_step returns)."""
+    the jitted closure box2d_tpu.world.make_step returns). `mode` is the
+    solver path of the world's compile-time joint types
+    (contact_solver.kernel_mode), kept when a runtime joint remakes the
+    step, as box2d_tpu.api.World keeps its `_use_pallas`; it sets the
+    width of the overflow tail's windows."""
 
     def __init__(self, capacity: Capacity, classes_present: frozenset,
                  substeps: int = 4, continuous: bool = True,
                  joint_types: frozenset = frozenset(),
                  particle_cfg: ParticleConfig | None = None,
-                 sensor_ids: tuple = ()):
+                 sensor_ids: tuple = (), mode: int | None = None,
+                 custom_filter: Callable | None = None,
+                 pre_solve: Callable | None = None):
         self.capacity = capacity
         self.classes = classes_present
         self.substeps = substeps
@@ -95,23 +120,31 @@ class Step:
         self.particle_cfg = particle_cfg
         self.sensor_ids = tuple(sensor_ids)
         self.stats = StepStats()
-        # the width of the overflow tail's Jacobi windows, from the capacity
-        self.tail_w = tail_window(capacity, joint_types)
+        self.mode = (kernel_mode(capacity, joint_types) if mode is None
+                     else mode)
+        # the width of the overflow tail's Jacobi windows
+        self.tail_w = tail_window(capacity, joint_types, self.mode)
+        self.hooks = Hooks(custom_filter, pre_solve, self.tail_w)
 
     def __call__(self, state: WorldState, dt,
                  light_events: bool = False) -> WorldState:
         return _step(state, dt, self.capacity, self.classes, self.substeps,
                      self.continuous, self.stats, light_events,
-                     self.joint_types, self.particle_cfg, self.sensor_ids)
+                     self.joint_types, self.particle_cfg, self.sensor_ids,
+                     self.hooks)
 
 
 def make_step(capacity: Capacity, classes_present: frozenset,
               substeps: int = 4, continuous: bool = True,
               joint_types: frozenset = frozenset(),
               particle_cfg: ParticleConfig | None = None,
-              sensor_ids: tuple = ()) -> Step:
+              sensor_ids: tuple = (), mode: int | None = None,
+              custom_filter: Callable | None = None,
+              pre_solve: Callable | None = None) -> Step:
+    """The step of one static configuration; custom_filter and pre_solve
+    are the user hooks (see Hooks)."""
     return Step(capacity, classes_present, substeps, continuous, joint_types,
-                particle_cfg, sensor_ids)
+                particle_cfg, sensor_ids, mode, custom_filter, pre_solve)
 
 
 def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
@@ -119,12 +152,12 @@ def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
           light_events: bool = False,
           joint_types: frozenset = frozenset(),
           particle_cfg: ParticleConfig | None = None,
-          sensor_ids: tuple = ()) -> WorldState:
+          sensor_ids: tuple = (), hooks: Hooks = Hooks()) -> WorldState:
     if (particle_cfg is not None and state.particles is not None
             and state.broadphase is not None):
         return _particle_gate(state, dt, cap, classes_present, substeps,
                               continuous, syncs, light_events, joint_types,
-                              particle_cfg, sensor_ids)
+                              particle_cfg, sensor_ids, hooks)
     # whole-world idle fast path (box2d_tpu/world.py:137-159)
     b0 = state.bodies
     idle = (~state.broadphase.dirty
@@ -140,12 +173,13 @@ def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
             step_count=state.step_count + 1)
     return _step_work(state, dt, cap, classes_present, substeps, continuous,
                       syncs, light_events=light_events,
-                      joint_types=joint_types, sensor_ids=sensor_ids)
+                      joint_types=joint_types, sensor_ids=sensor_ids,
+                      hooks=hooks)
 
 
 def _particle_gate(state, dt, cap, classes_present, substeps, continuous,
                    syncs, light_events, joint_types, particle_cfg,
-                   sensor_ids=()):
+                   sensor_ids=(), hooks: Hooks = Hooks()):
     """Particles step first; the rigid pipeline runs only when a body is
     awake or the broadphase is dirty (box2d_tpu/world.py:101-135). The
     rigid phases read only poses, which particles never touch, so the order
@@ -169,7 +203,7 @@ def _particle_gate(state, dt, cap, classes_present, substeps, continuous,
         return _step_work(state, dt, cap, classes_present, substeps,
                           continuous, syncs, light_events=light_events,
                           joint_types=joint_types, particle_overflow=pov,
-                          sensor_ids=sensor_ids)
+                          sensor_ids=sensor_ids, hooks=hooks)
     syncs.idle_steps += 1
     dev = b0.center.device
     return dataclasses.replace(
@@ -204,7 +238,7 @@ def _step_work(state: WorldState, dt, cap: Capacity,
                syncs: StepStats, until: str = "",
                light_events: bool = False,
                joint_types: frozenset = frozenset(), particle_overflow=None,
-               sensor_ids: tuple = ()):
+               sensor_ids: tuple = (), hooks: Hooks = Hooks()):
     dt, inv_dt, h, inv_h = _f32_scalars(dt, substeps)
     b = state.bodies
     nb = b.center.shape[0]
@@ -219,12 +253,20 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     if until == "aabbs":
         return aabbs
     pairs, new_bp, cache, orphan_mask, store_drops, rebuild_kind = \
-        find_pairs_incremental(state, cap, aabbs, syncs)
+        find_pairs_incremental(state, cap, aabbs, syncs, hooks.custom_filter)
     state = dataclasses.replace(state, broadphase=new_bp, contacts=cache)
     if until == "pairs":
         return pairs, state.contacts
     data = narrow_phase(state, pairs, classes_present, cap.max_verts,
                         syncs)
+    if hooks.pre_solve is not None:
+        # a dropped lane's manifold is zeroed: not solved, not touching, no
+        # begin event (box2d_tpu/world.py:212-219)
+        keep = torch.as_tensor(hooks.pre_solve(
+            state, data.shape_a, data.shape_b, data.manifold),
+            dtype=torch.bool)
+        data = data._replace(manifold=data.manifold._replace(
+            point_count=torch.where(keep, data.manifold.point_count, 0)))
     touching = data.manifold.point_count > 0
     if until == "narrow":
         return data
@@ -335,7 +377,8 @@ def _step_work(state: WorldState, dt, cap: Capacity,
                    rowsL[:, :NF].T.contiguous(),
                    rowsL[:, NF:NF + NA].T.contiguous(), bodyp, paramsp,
                    substeps, chunk, l0, cap.max_colors,
-                   tail_window(cap, joint_types), jrows)
+                   (tail_window(cap, joint_types) if hooks.tail_w is None
+                    else hooks.tail_w), jrows)
     if until == "layout":
         return kernel_args
     out = contact_solve(*kernel_args)

@@ -41,6 +41,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and a chain-loop ground with a sensor box and falling shapes
    (port_fixtures.chain_sensor_scene), 20 steps each, on the card against
    the CPU.
+5. queries and host API: pyramid-140 after 120 steps, with the scene
+   queries (1,024 rays closest and all-hits, 256 points, an AABB, a box
+   overlap and cast, the mover for 120 frames into the pile, an
+   explosion) each on the card and on a CPU copy of the same state,
+   printed with their device times, launches and reads; pyramid-140 with
+   2,048 spare lanes: 2,000 runtime spawns, 1,000 destroys, type flips
+   and filter changes, the solver kernel against its twin after the
+   spawns, validate() and counters(); joint_farm(1000) with every
+   revolute joint retargeted at runtime (the joint kernel against its
+   twin after the setters); a scripted API sequence on pyramid-8 (spawns,
+   a runtime chain, destroys, a type flip, filters, a custom filter, a
+   one-way pre_solve, joint setters, an explosion, run(collect_events=
+   True)) and a 4,096-particle tank with a circle and a capsule, each on
+   the card against the CPU.
 It then prints one JSON line describing the kernels (times beside their
 roofline bound), and as its last line {"ok": true, "device": {...}}. There
 is no CPU path: without a CUDA device it fails.
@@ -56,10 +70,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from port_fixtures import (all_types_scene, chain_sensor_scene, hub_scene,
-                           k3_table, library_rank, median_ms,
-                           move_buckets_to_tail, rank_table,
-                           record_particle_calls)
+from port_fixtures import (all_types_scene, api_sequence,
+                           chain_sensor_scene, hub_scene, k3_table,
+                           library_rank, median_ms, move_buckets_to_tail,
+                           obstacle_tank, rank_table, record_particle_calls)
 
 MAIN_STEPS = 120        # joint_farm(1000)
 PYRAMID_STEPS = 120     # the earlier paths
@@ -110,6 +124,7 @@ FIRST_WALL_FAR_FACE = 20.05
 DRUM_AXIS_Y = 10.0
 DRUM_INNER = 9.5
 SMALL_STEPS = 20
+PARTICLE_TANK = 4096
 
 
 def phase_device():
@@ -1006,6 +1021,471 @@ def phase_ccd_paths():
     return launches
 
 
+
+# the queries and host-API phase
+QUERY_STEPS = 120           # pyramid-140 settles this long before queries
+QUERY_RAYS = 1024
+QUERY_POINTS = 16           # a 16 x 16 grid of points
+QUERY_CALLS = 5             # median of 5 device times
+MOVER_FRAMES = 120
+MOVER_SPEED = 20.0          # m/s along +x from MOVER_X0
+MOVER_X0 = -100.0
+QUERY_ROWS = 140
+PILE = QUERY_ROWS / 2       # the pile's half width and half height
+RAY_ORIGIN = (-120.0, 150.0)
+SPARE_LANES = 2048
+SPAWNED = 2000
+LIFE_STEPS = (120, 60)
+SETTER_STEPS = (30, 120)
+
+
+def _count_launches(fn):
+    """CUDA kernels one call of fn launches, from torch.profiler's trace
+    (None where the trace holds no device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def _close(tag, a, b, exact=False, atol=1e-5, rtol=1e-4):
+    """a (card) against b (CPU): equal for masks, ids and counts; atol /
+    rtol for floats (a query's outputs 1e-5 / 1e-4). Returns the largest
+    difference."""
+    a = a.cpu()
+    if exact or a.dtype in (torch.bool, torch.int32, torch.int64):
+        assert torch.equal(a, b), f"{tag}: card and CPU differ"
+        return 0.0
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    torch.testing.assert_close(a, b, atol=atol, rtol=rtol,
+                               msg=f"{tag}: max |card - cpu| {err}")
+    return err
+
+
+def _query(tag, fn_card, fn_cpu, fields):
+    """Run one query on the card copy and the CPU copy, hold them to
+    each other, print its device time, launches and reads."""
+    from box2d_tpu_torch.world import StepStats
+
+    st = StepStats()
+    out = fn_card(st)
+    ref = fn_cpu()
+    errs = []
+    for name, exact in fields:
+        a = out if name is None else getattr(out, name)
+        b = ref if name is None else getattr(ref, name)
+        errs.append(_close(f"{tag} {name or ''}", a, b, exact))
+    ms = median_ms(lambda: fn_card(None), QUERY_CALLS)
+    launches = _count_launches(lambda: fn_card(None))
+    print(f"[queries] {tag}: median of {QUERY_CALLS} {ms:.3f} ms, kernel "
+          f"launches {launches if launches else 'not measured'}, device "
+          f"reads {st.syncs + st.rounds['reads']} (loop rounds "
+          f"{ {k: v for k, v in st.rounds.items() if v} }), max |card - "
+          f"cpu| {max(errs, default=0.0):.3e}")
+    return out
+
+
+def phase_queries_and_host_api():
+    """(a) The scene queries at pyramid-140 after QUERY_STEPS steps, each
+    on the card and on a CPU copy of the same state; the mover walks into
+    the pile; an explosion, then 60 steps. (b) Runtime spawns, destroys,
+    type flips and filters at pyramid-140 with SPARE_LANES spare lanes.
+    (c) Joint setters on every revolute joint of joint_farm(1000). (d) A
+    scripted API sequence on pyramid-8 and a particle tank with round
+    obstacles, each on the card against the CPU. Returns the solver and
+    particle kernel launches of these paths."""
+    t_phase = time.perf_counter()
+    launches = {}
+    for part in (_queries_at_pyramid, _lifecycle_at_pyramid,
+                 _joint_setters, _small_worlds_against_cpu):
+        t0 = time.perf_counter()
+        launches.update(part())
+        print(f"[life] {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    print(f"[life] queries and host API phase in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _queries_at_pyramid():
+    """Phase 5 (a): the scene queries at pyramid-140, card against CPU."""
+    from box2d_tpu_torch import geometry as g
+    from box2d_tpu_torch import queries as q
+    from box2d_tpu_torch import scenes
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    # --- (a) queries ------------------------------------------------------
+    w = scenes.pyramid(rows=QUERY_ROWS, device="cuda")
+    w.compile()
+    w.run(QUERY_STEPS)
+    st = w.state
+    cpu = state_from_numpy(state_to_numpy(st), "cpu")
+    n_shapes = int(st.shapes.enabled.sum())
+    ang = np.linspace(-1.45, -0.3, QUERY_RAYS)
+    trans = (300.0 * np.stack([np.cos(ang), np.sin(ang)], 1)).astype(
+        np.float32)
+    orig = np.tile(np.float32(RAY_ORIGIN), (QUERY_RAYS, 1))
+    ray = dict(origin=torch.from_numpy(orig), translation=torch.from_numpy(
+        trans))
+    ray_c = {k: v.cuda() for k, v in ray.items()}
+    fields = (("hit", True), ("shape", True), ("point", False),
+              ("normal", False), ("fraction", False))
+    r = _query(f"cast_ray_closest x{QUERY_RAYS}",
+               lambda s: q.cast_ray_closest(st, stats=s, **ray_c),
+               lambda: q.cast_ray_closest(cpu, **ray), fields)
+    assert int(r.hit.sum()) > QUERY_RAYS // 2, "rays missed the pile"
+    r = _query(f"cast_ray_all x{QUERY_RAYS} (max_hits 16)",
+               lambda s: q.cast_ray_all(st, max_hits=16, stats=s, **ray_c),
+               lambda: q.cast_ray_all(cpu, max_hits=16, **ray),
+               (("count", True),) + fields[1:])
+    assert int(r.count.max()) == 16, "no ray crossed 16 shapes"
+    gx, gy = np.meshgrid(np.linspace(1.0 - PILE, PILE - 1.0, QUERY_POINTS),
+                         np.linspace(0.5, 2.0 * PILE - 0.5, QUERY_POINTS))
+    pts = np.stack([gx.ravel(), gy.ravel()], 1).astype(np.float32)
+    r = _query(f"overlap_point x{len(pts)}",
+               lambda s: q.overlap_point(st, torch.from_numpy(pts).cuda(),
+                                         stats=s),
+               lambda: q.overlap_point(cpu, torch.from_numpy(pts)),
+               ((None, True),))
+    assert r.any(), "no grid point lies in a box"
+    left = (-PILE - 1.0, -1.0, -PILE / 3.0, 2.0 * PILE + 1.0)
+    r = _query("overlap_aabb (left third)",
+               lambda s: q.overlap_aabb(st, left),
+               lambda: q.overlap_aabb(cpu, left), ((None, True),))
+    assert int(r.sum()) > n_shapes // 10
+    box = g.box(0.5, 0.5)
+    proxy = (box.verts, box.count, box.radius, (0.0, PILE / 2.0),
+             (1.0, 0.0))
+    _query("overlap_shape (1 m box)",
+           lambda s: q.overlap_shape(st, *proxy, stats=s),
+           lambda: q.overlap_shape(cpu, *proxy), ((None, True),))
+    cast = (box.verts, box.count, box.radius, (0.5, 2.0 * PILE + 30.0),
+            (1.0, 0.0), (0.0, -200.0))
+    r = _query("cast_shape_closest (1 m box)",
+               lambda s: q.cast_shape_closest(st, *cast, stats=s),
+               lambda: q.cast_shape_closest(cpu, *cast), fields)
+    assert bool(r.hit), "the box cast missed the pile"
+
+    # the mover: collide_mover -> solve_planes -> cast_mover -> clip_vector
+    def walk(state, dev):
+        c = torch.tensor([MOVER_X0, 1.05], device=dev)
+        v = torch.tensor([MOVER_SPEED, 0.0], device=dev)
+        half = torch.tensor([0.0, 0.5], device=dev)
+        limits = torch.full((8,), 1e3, device=dev)
+        clip = torch.ones(8, dtype=torch.bool, device=dev)
+        for _ in range(MOVER_FRAMES):
+            n, off, valid = q.collide_mover(state, c - half, c + half, 0.5)
+            delta, push = q.solve_planes(v / 60.0, n, off, limits, valid)
+            frac = q.cast_mover(state, c - half, c + half, 0.5, delta)
+            c = c + frac * delta
+            v = q.clip_vector(v, n, push, clip, valid)
+        return c
+
+    t0 = time.perf_counter()
+    c_card = walk(st, "cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c_cpu = walk(cpu, "cpu")
+    t_cpu = time.perf_counter() - t0
+    err = _close("mover", c_card, c_cpu)
+    aabbs = q.compute_shape_aabbs(cpu)
+    dyn = (cpu.bodies.type[cpu.shapes.body.long()] == 2) & cpu.shapes.enabled
+    face = float(aabbs[dyn, 0].min())
+    gap = face - (float(c_card[0]) + 0.5)
+    print(f"[queries] mover x{MOVER_FRAMES} frames: {t_card:.3f} s on the "
+          f"card ({t_card / MOVER_FRAMES * 1e3:.2f} ms a frame; the CPU "
+          f"copy {t_cpu:.3f} s); stops at "
+          f"x = {float(c_card[0]):.4f}, {gap:.5f} m left of the pile's "
+          f"leftmost face x = {face:.4f}; max |card - cpu| {err:.3e}")
+    assert abs(gap) <= 0.01, f"the mover stopped {gap} m from the pile"
+
+    blast = ((0.0, 0.5), 10.0, 50.0)
+    exploded = _query("explode (radius 10, 50 per length)",
+                      lambda s: q.explode(st, *blast, stats=s),
+                      lambda: q.explode(cpu, *blast), ())
+    ref = q.explode(cpu, *blast)
+    for name in ("v", "w"):
+        _close(f"explode {name}", getattr(exploded.bodies, name),
+               getattr(ref.bodies, name))
+    w.state = exploded
+    w.run(60)
+    leaves, _ = _check_finite(w, "pyramid-140 exploded")
+    note = _pyramid_check(leaves, "pyramid-140 exploded")
+    print(f"[queries] pyramid-140 after the explosion and 60 steps: {note}")
+
+    return {}
+
+
+def _lifecycle_at_pyramid():
+    """Phase 5 (b): runtime spawns, destroys, type flips and filters at
+    pyramid-140 with SPARE_LANES spare lanes."""
+    import dataclasses
+
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import geometry as g
+    from box2d_tpu_torch import scenes
+    from box2d_tpu_torch import types as t
+    from box2d_tpu_torch import world
+
+    launches = {}
+    # --- (b) lifecycle at pyramid-140 scale -------------------------------
+    w = scenes.pyramid(rows=140, device="cuda")
+    cap = w.builder.default_capacity()
+    n0 = cap.max_bodies
+    cap = dataclasses.replace(
+        cap, max_bodies=n0 + SPARE_LANES, max_shapes=n0 + SPARE_LANES,
+        max_contact_pairs=4 * (n0 + SPARE_LANES))
+    w.compile(cap)
+    print(f"[life] pyramid-140 compiled with {SPARE_LANES} spare lanes: "
+          f"{w.capacity}")
+    side = int(math.ceil(math.sqrt(SPAWNED)))
+    t0 = time.perf_counter()
+    spawned = []
+    for i in range(SPAWNED):
+        x = -0.6 * side / 2 + 0.6 * (i % side)
+        y = 142.0 + 0.6 * (i // side)
+        b = w.create_body(t.BodyDef(type=2, position=(x, y)))
+        w.create_polygon_shape(b, t.ShapeDef(), g.box(0.25, 0.25))
+        spawned.append(b)
+    torch.cuda.synchronize()
+    spawn_s = time.perf_counter() - t0
+    w.run(LIFE_STEPS[0])
+    torch.cuda.synchronize()
+    step = w._step
+    args = world._step_work(w.state, 1 / 60, w.capacity, step.classes,
+                            step.substeps, step.continuous,
+                            world.StepStats(), until="layout",
+                            hooks=step.hooks)
+    _kernel_vs_twin(f"pyramid-140 + {SPAWNED} spawned boxes after "
+                    f"{LIFE_STEPS[0]} steps", args)
+    t0 = time.perf_counter()
+    gone = spawned[::2]
+    for b in gone:
+        w.destroy_body(b)
+    torch.cuda.synchronize()
+    destroy_s = time.perf_counter() - t0
+    kept = spawned[1::2]
+    for b in kept[:100]:
+        w.set_body_type(b, 1)
+        w.set_linear_velocity(b, (0.0, 0.5))
+    for b in kept[100:200]:
+        for sh in w.body_shapes(b):
+            w.set_filter(sh, t.Filter(group_index=-7))
+    w.reset_stats()
+    cs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    w.run(LIFE_STEPS[1])
+    torch.cuda.synchronize()
+    life_s = time.perf_counter() - t0
+    n_launch = cs.LAUNCHES
+    launches["pyramid-140 lifecycle"] = n_launch
+    work = w.stats.steps - w.stats.idle_steps
+    assert n_launch == work > 0, f"{n_launch} launches, {work} work steps"
+    assert w.validate() == [], "validate() found violations"
+    c = w.counters()
+    want = n0 + SPAWNED - len(gone)
+    assert c["body_count"] == want and c["shape_count"] == want, c
+    raised = False
+    try:
+        w.body_position(gone[0])
+    except ValueError:
+        raised = True
+    assert raised, "a destroyed body's handle did not raise"
+    leaves, prof = _check_finite(w, "pyramid-140 lifecycle")
+    note = _pyramid_check(leaves, "pyramid-140 lifecycle")
+    print(f"[life] {SPAWNED} spawns (body + box) in {spawn_s:.3f} s: "
+          f"{SPAWNED / spawn_s:.1f} spawns/s; {len(gone)} destroys in "
+          f"{destroy_s:.3f} s: {len(gone) / destroy_s:.1f} destroys/s; 100 "
+          f"flipped to kinematic, 100 in filter group -7; "
+          f"{LIFE_STEPS[1]} steps in {life_s:.3f} s: "
+          f"{LIFE_STEPS[1] / life_s:.2f} steps/s; solver launches "
+          f"{n_launch}; counters {c}; {note}; final profile {prof}")
+
+    return launches
+
+
+def _joint_setters():
+    """Phase 5 (c): joint setters on every revolute joint of
+    joint_farm(1000)."""
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import scenes
+    from box2d_tpu_torch import world
+    from box2d_tpu_torch.state import state_to_numpy
+
+    launches = {}
+    # --- (c) joint setters at joint_farm-1000 -----------------------------
+    w = scenes.joint_farm(1000, device="cuda")
+    w.compile()
+    w.run(SETTER_STEPS[0])
+    rev = np.nonzero(state_to_numpy(w.state)["joints.type"] == 3)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in rev.tolist():
+        w.enable_joint_motor(j, True)
+        w.set_joint_motor_speed(j, 1.0)
+        w.set_joint_max_motor_force(j, 20.0)
+        w.set_joint_limits(j, -0.4, 0.4)
+    torch.cuda.synchronize()
+    set_s = time.perf_counter() - t0
+    step = w._step
+    args = world._step_work(w.state, 1 / 60, w.capacity, step.classes,
+                            step.substeps, step.continuous,
+                            world.StepStats(), until="layout",
+                            joint_types=step.joint_types, hooks=step.hooks)
+    kb, ka, kj = cs.contact_solve(*args)
+    tb, ta, tj = cs.contact_solve_reference(*args)
+    torch.cuda.synchronize()
+    jerr = max(float((x - y).abs().max()) for x, y in
+               ((kb, tb), (ka, ta), (kj, tj)))
+    for x, y in ((kb, tb), (ka, ta), (kj, tj)):
+        torch.testing.assert_close(x, y, atol=ATOL, rtol=RTOL)
+    w.reset_stats()
+    cs.LAUNCHES = cs.JOINT_LAUNCHES = 0
+    w.run(SETTER_STEPS[1])
+    torch.cuda.synchronize()
+    launches["joint_farm-1000 setters"] = cs.JOINT_LAUNCHES
+    work = w.stats.steps - w.stats.idle_steps
+    assert cs.JOINT_LAUNCHES == cs.LAUNCHES == work > 0
+    leaves, _ = _check_state(w, "joint_farm-1000 setters")
+    note = _joint_farm_check(leaves, "joint_farm-1000 setters")
+    calls = 4 * len(rev)
+    print(f"[life] joint_farm-1000: {calls} setter calls on {len(rev)} "
+          f"revolute joints in {set_s:.3f} s: {calls / set_s:.1f} calls/s; "
+          f"joint kernel vs twin after the setters max_abs_err "
+          f"{jerr:.3e}; {SETTER_STEPS[1]} steps, joint launches "
+          f"{cs.JOINT_LAUNCHES}; {note}")
+
+    return launches
+
+
+def _lockstep(tag, wc, wp, fields):
+    """SMALL_STEPS steps of a world on the card (wc) and its twin on the
+    CPU (wp), each step from the same state: the card's state is copied to
+    the CPU before it. Every step's fields must agree within 1e-4 and its
+    event counts exactly. Then the CPU world runs the same steps from the
+    same start without the copies, and the free-running divergence is
+    printed: last-bit differences between the two devices' math (sin,
+    cos, reductions) grow chaotically in a scattered pile. The CPU world
+    is left at its last lockstep state. Returns the card world's events,
+    one per step."""
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    start = state_to_numpy(wc.state)
+    worst = {f: 0.0 for f in fields}
+    frames = []
+    for i in range(SMALL_STEPS):
+        wp.state = state_from_numpy(state_to_numpy(wc.state), "cpu")
+        _, evc = wc.run(1, collect_events=True)
+        _, evp = wp.run(1, collect_events=True)
+        for f in fields:
+            group, leaf = f.split(".")
+            worst[f] = max(worst[f], _close(
+                f"{tag} step {i} {f}", getattr(getattr(wc.state, group),
+                                               leaf),
+                getattr(getattr(wp.state, group), leaf), atol=1e-4,
+                rtol=0.0))
+        for name in ("contact_begin_count", "contact_end_count",
+                     "hit_count", "body_move_count", "joint_force_count",
+                     "sensor_begin_count"):
+            assert torch.equal(getattr(evc, name).cpu(),
+                               getattr(evp, name)), f"{tag} step {i} {name}"
+        frames.append(evc)
+    locked = wp.state
+    wp.state = state_from_numpy(start, "cpu")
+    wp.run(SMALL_STEPS)
+    group, leaf = fields[0].split(".")
+    free = float((getattr(getattr(wc.state, group), leaf).cpu()
+                  - getattr(getattr(wp.state, group), leaf)).abs().max())
+    wp.state = locked
+    print(f"[life] {tag} x{SMALL_STEPS} steps, cuda vs cpu from the same "
+          f"state each step: max |d| "
+          + ", ".join(f"{f} {v:.3e}" for f, v in worst.items())
+          + f" (bound 1e-4); running free from the same start the two "
+          f"devices part by {free:.3e} in {fields[0]}")
+    return frames
+
+
+def _small_worlds_against_cpu():
+    """Phase 5 (d): the scripted API sequence on pyramid-8 and the
+    obstacle tank, card against CPU, in lockstep (_lockstep)."""
+    import dataclasses
+
+    from box2d_tpu_torch import api
+    from box2d_tpu_torch import geometry as g
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import scenes
+    from box2d_tpu_torch import types as t
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    launches = {}
+
+    def scripted(dev):
+        w = scenes.pyramid(rows=8, device=dev)
+        cap = w.builder.default_capacity()
+        w.compile(dataclasses.replace(
+            cap, max_bodies=cap.max_bodies + 16,
+            max_shapes=cap.max_shapes + 16, max_joints=cap.max_joints + 4,
+            max_verts=8))
+        w.run(10)
+        return w, api_sequence(w, t, g)
+
+    (wc, hc), (wp, hp) = scripted("cuda"), scripted("cpu")
+    assert hc == hp, f"handles differ: {hc} {hp}"
+    err = _close("api sequence bodies.center", wc.state.bodies.center,
+                 wp.state.bodies.center, atol=1e-4, rtol=0.0)
+    frames = _lockstep("pyramid-8 API sequence", wc, wp,
+                       ("bodies.center", "bodies.v"))
+    assert wc.counters() == wp.counters(), "counters differ"
+
+    def pair_set(w):
+        cd = w.contact_data()
+        return {(int(a), int(b)) for a, b in zip(cd["shape_a"],
+                                                 cd["shape_b"])}
+
+    pairs = pair_set(wc)
+    assert pairs == pair_set(wp) and pairs, "contact_data pairs differ"
+    assert wc.validate() == []
+    # run(collect_events=True) on both from the same state: the stacked
+    # counts agree
+    start = state_to_numpy(wc.state)
+    ev = {}
+    for dev, w in (("cuda", wc), ("cpu", wp)):
+        w.state = state_from_numpy(start, dev)
+        ev[dev] = w.run(2, collect_events=True)[1]
+    for name in ("contact_begin_count", "body_move_count"):
+        assert torch.equal(getattr(ev["cuda"], name).cpu(),
+                           getattr(ev["cpu"], name)), name
+    assert ev["cuda"].body_move_count.shape == (2,)
+    assert wc._step.tail_w == wp._step.tail_w
+    print(f"[life] pyramid-8 API sequence: handles {hc}; after the "
+          f"sequence max |d bodies.center| {err:.3e}; counters "
+          f"{wc.counters()}; {len(pairs)} touching pairs; "
+          f"{sum(int(f.contact_begin_count) for f in frames)} begin events; "
+          f"tail width {wc._step.tail_w} (mode {wc._step.mode})")
+
+    ws = {}
+    for dev in ("cuda", "cpu"):
+        ws[dev] = obstacle_tank(PARTICLE_TANK, api.World, t, g, device=dev)
+        ws[dev].compile()
+    pk.K3_LAUNCHES = pk.K4_LAUNCHES = 0
+    ws["cuda"].run(SMALL_STEPS)
+    k3, k4 = pk.K3_LAUNCHES, pk.K4_LAUNCHES
+    assert k3 == 12 * SMALL_STEPS and k4 > 0, (k3, k4)
+    launches["obstacle tank K3"] = k3
+    launches["obstacle tank K4"] = k4
+    for w in ws.values():
+        w.compile()
+    _lockstep(f"obstacle tank ({PARTICLE_TANK} particles, a circle and a "
+              f"capsule)", ws["cuda"], ws["cpu"],
+              ("particles.pos", "particles.vel"))
+    print(f"[life] obstacle tank: K3 launches {k3}, K4 launches {k4} in "
+          f"{SMALL_STEPS} steps from spawn")
+    return launches
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -1017,6 +1497,9 @@ def main():
     ccd_launches = phase_ccd_paths()
     print(f"[main] solver launches on the continuous-collision paths: "
           f"{ccd_launches}")
+    api_launches = phase_queries_and_host_api()
+    print(f"[main] kernel launches on the queries and host-API paths: "
+          f"{api_launches}")
     big = kern[(140, WARM_STEPS)]
     small = kern[(20, WARM_STEPS)]
     farm = jkern["joint_farm-1000"]

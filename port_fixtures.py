@@ -377,3 +377,183 @@ def record_particle_calls(n=PARTICLES, steps=WARM_STEPS):
         return int((pk.rank_pass_reference(*args) != ident).sum())
 
     return windows[:3], max(ranks, key=moved), rank_step
+
+
+def query_scene(World, t, g, **kw):
+    """One shape of every geometry the queries dispatch on, built through
+    the World, types and geometry modules it is given (as
+    all_types_scene): a ground box, an open chain and a segment (static),
+    a circle, a capsule, a box, an 8-gon, a rounded triangle and a rounded
+    box (dynamic), a static sensor box with sensor events, and a box with
+    filter category 2. Stepped without continuous collision."""
+    w = World(t.WorldDef(gravity=(0.0, -10.0), enable_continuous=False),
+              **kw)
+    ground = w.create_body(t.BodyDef(type=0, position=(0.0, 0.0)))
+    w.create_polygon_shape(ground, t.ShapeDef(),
+                           g.box(20.0, 0.5, center=(0.0, -0.5)))
+    w.create_chain(ground, t.ChainDef(points=[
+        (9.0, 3.0), (7.0, 2.4), (5.0, 2.9), (3.0, 2.5), (1.0, 3.1)]))
+    w.create_segment_shape(ground, t.ShapeDef(), (-10.0, 4.0), (-6.0, 5.0))
+    sd = t.ShapeDef(density=1.0)
+
+    def body(x, y, angle=0.0):
+        return w.create_body(t.BodyDef(type=2, position=(x, y),
+                                       angle=angle))
+
+    w.create_circle_shape(body(-4.0, 1.0), sd, (0.0, 0.0), 0.5)
+    w.create_capsule_shape(body(-2.0, 0.8, 0.3), sd, (-0.5, 0.0),
+                           (0.5, 0.0), 0.3)
+    w.create_polygon_shape(body(0.0, 0.5), sd, g.box(0.5, 0.5))
+    octagon = [(0.6 * math.cos(2 * math.pi * k / 8 + 0.1),
+                0.6 * math.sin(2 * math.pi * k / 8 + 0.1)) for k in range(8)]
+    w.create_polygon_shape(body(2.0, 0.6, 0.2), sd, g.polygon(octagon))
+    w.create_polygon_shape(body(4.0, 0.7), sd, g.polygon(
+        [(-0.4, -0.3), (0.4, -0.3), (0.0, 0.4)], radius=0.2))
+    w.create_polygon_shape(body(6.0, 0.6, -0.4), sd, g.polygon(
+        [(-0.4, -0.4), (0.4, -0.4), (0.4, 0.4), (-0.4, 0.4)], radius=0.1))
+    sensor = w.create_body(t.BodyDef(type=0, position=(0.0, 4.0)))
+    w.create_polygon_shape(sensor, t.ShapeDef(
+        is_sensor=True, enable_sensor_events=True), g.box(1.0, 1.0))
+    w.create_polygon_shape(body(-6.0, 0.5), t.ShapeDef(
+        filter=t.Filter(category_bits=2, mask_bits=0xFFFF)), g.box(0.5, 0.5))
+    return w
+
+
+def api_scene(World, t, g, rows=8, **kw):
+    """all_types_scene plus everything the host API reaches, so that no
+    runtime call of the JAX World remakes its step: a pyramid of `rows`
+    rows of boxes at x = 25, a revolute pendulum, a prismatic slider, a
+    filter joint (every joint type), a capsule, a static segment, an open
+    chain, a sensor box with sensor events and a box with a non-default
+    filter. Built through the modules it is given (as all_types_scene),
+    stepped without continuous collision."""
+    w = all_types_scene(World, t, g, **kw)
+    ground = 0
+    sd = t.ShapeDef(density=1.0)
+    sd.material.friction = 0.6
+    for i in range(rows):
+        n = rows - i
+        for j in range(n):
+            b = w.create_body(t.BodyDef(
+                type=2, position=(25.0 - 0.5 * n + 0.5 + j, 0.5 + i)))
+            w.create_polygon_shape(b, sd, g.box(0.5, 0.5))
+    pend = w.create_body(t.BodyDef(type=2, position=(-12.0, 6.0)))
+    w.create_capsule_shape(pend, t.ShapeDef(), (0.0, -0.6), (0.0, 0.6), 0.2)
+    w.create_joint(t.RevoluteJointDef(
+        body_a=ground, body_b=pend, local_anchor_a=(-12.0, 7.5),
+        local_anchor_b=(0.0, 0.9), enable_motor=True, motor_speed=1.0,
+        max_motor_torque=50.0, enable_limit=True, lower_angle=-1.0,
+        upper_angle=1.0))
+    slider = w.create_body(t.BodyDef(type=2, position=(-16.0, 3.0)))
+    w.create_polygon_shape(slider, t.ShapeDef(), g.box(0.4, 0.2))
+    w.create_joint(t.PrismaticJointDef(
+        body_a=ground, body_b=slider, local_anchor_a=(-16.0, 3.5),
+        local_axis_a=(1.0, 0.0), enable_limit=True, lower_translation=-1.0,
+        upper_translation=1.0, enable_spring=True, hertz=2.0,
+        damping_ratio=0.5))
+    left = w.create_body(t.BodyDef(type=2, position=(-20.0, 0.6)))
+    w.create_circle_shape(left, t.ShapeDef(), (0.0, 0.0), 0.5)
+    right = w.create_body(t.BodyDef(type=2, position=(-19.2, 0.6)))
+    w.create_circle_shape(right, t.ShapeDef(), (0.0, 0.0), 0.5)
+    w.create_joint(t.FilterJointDef(body_a=left, body_b=right))
+    w.create_segment_shape(ground, t.ShapeDef(), (-30.0, 2.0), (-24.0, 0.0))
+    w.create_chain(ground, t.ChainDef(points=[
+        (45.0, 2.0), (42.0, 0.5), (39.0, 0.2), (36.0, 0.1), (33.0, 0.1)]))
+    w.create_polygon_shape(ground, t.ShapeDef(
+        is_sensor=True, enable_sensor_events=True),
+        g.box(2.0, 2.0, center=(25.0, 4.0)))
+    odd = w.create_body(t.BodyDef(type=2, position=(-23.0, 0.5)))
+    w.create_polygon_shape(odd, t.ShapeDef(filter=t.Filter(
+        category_bits=2, mask_bits=0xFFFD, group_index=-3)), g.box(0.5, 0.5))
+    return w
+
+
+def obstacle_tank(particles, World, t, g, **kw):
+    """dam_break's tank and water column (box2d_tpu_torch/scenes.py
+    dam_break) with a static circle and a static capsule in the column's
+    path: a particle world with other shapes than polygons, whose
+    anti-tunnel ray takes queries.ray_shape_analytic. Built through the
+    modules it is given (as all_types_scene)."""
+    w = World(**kw)
+    tank = w.create_body(t.BodyDef(type=0))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(4.0, 0.25, center=(0, -0.25)))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(0.25, 3.0, center=(-4.0, 2.75)))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(0.25, 3.0, center=(4.0, 2.75)))
+    w.create_circle_shape(tank, t.ShapeDef(), (0.5, 0.6), 0.4)
+    w.create_capsule_shape(tank, t.ShapeDef(), (1.5, 0.3), (2.8, 0.5), 0.2)
+    radius = 0.05
+    ps = w.create_particle_system(radius=radius)
+    stride = 0.75 * 2.0 * radius
+    side = math.sqrt(particles) * stride
+    ps.create_group_box(center=(-4.0 + side / 2 + 0.3, side / 2 + 0.05),
+                        half_w=side / 2, half_h=side / 2)
+    return w
+
+
+def api_sequence(w, t, g):
+    """A scripted run of the host API on a compiled pyramid-8 with spare
+    lanes (chip_smoke.py drives it on the card and on the CPU): spawns and
+    a runtime chain, destroys, a type flip, a filter change, a custom
+    filter and a one-way-platform pre_solve, contact and hit events on
+    five shapes, body and joint setters on runtime joints like
+    all_types_scene's, and an explosion. Returns the handles it made, in
+    order."""
+    h = []
+    box = w.create_body(t.BodyDef(type=2, position=(-6.0, 1.8), angle=0.2))
+    h += [box, w.create_polygon_shape(box, t.ShapeDef(), g.box(0.4, 0.3))]
+    ball = w.create_body(t.BodyDef(type=2, position=(6.0, 4.0)))
+    h += [ball, w.create_circle_shape(ball, t.ShapeDef(), (0.0, 0.0), 0.3)]
+    cap = w.create_body(t.BodyDef(type=2, position=(-3.0, 9.0)))
+    h += [cap, w.create_capsule_shape(cap, t.ShapeDef(), (-0.4, 0.0),
+                                      (0.4, 0.0), 0.2)]
+    ramp = w.create_body(t.BodyDef(type=0))
+    h += [ramp] + w.create_chain(ramp, t.ChainDef(points=[
+        (16.0, 3.0), (13.0, 1.0), (10.0, 0.2), (8.5, 0.05), (7.0, 0.0)]))
+    # a one-way platform: a thin static box that only stops what falls on
+    # it from above
+    plat = w.create_body(t.BodyDef(type=0, position=(-6.0, 1.2)))
+    ps = w.create_polygon_shape(plat, t.ShapeDef(), g.box(1.5, 0.1))
+    h += [plat, ps]
+    lane = ps & 0xFFFFF
+
+    def one_way(st, a, b, mf):
+        # the normal points from shape a to shape b: keep the platform's
+        # contacts whose other shape is above it
+        ny = mf.normal[:, 1]
+        return (((a != lane) & (b != lane)) | ((a == lane) & (ny > 0.5))
+                | ((b == lane) & (ny < -0.5)))
+
+    w.set_pre_solve(one_way)
+    # the custom filter keeps the capsule off the ball
+    sc, sb = h[5], h[3]
+    w.set_custom_filter(lambda st, a, b: ~(((a == sb) & (b == sc))
+                                           | ((a == sc) & (b == sb))))
+    wheel = w.create_body(t.BodyDef(type=2, position=(6.0, 2.0)))
+    h += [wheel, w.create_circle_shape(wheel, t.ShapeDef(), (0.0, 0.0), 0.4)]
+    h.append(w.create_joint(t.WheelJointDef(
+        body_a=ball, body_b=wheel, local_anchor_a=(0.0, -2.0),
+        enable_motor=True, motor_speed=3.0, max_motor_torque=20.0,
+        hertz=4.0, damping_ratio=0.7)))
+    h.append(w.create_joint(t.DistanceJointDef(
+        body_a=ramp, body_b=cap, local_anchor_a=(-3.0, 11.0), length=1.5,
+        enable_spring=True, hertz=3.0, damping_ratio=0.5)))
+    w.set_joint_motor_speed(h[-2], -2.0)
+    w.set_joint_max_motor_force(h[-2], 15.0)
+    w.set_distance_joint_length(h[-1], 2.0)
+    for shape in (0, 20, h[1], h[3], h[10]):  # contact and hit events
+        w.enable_shape_contact_events(shape, True)
+        w.enable_shape_hit_events(shape, True)
+    w.set_angular_velocity(box, 3.0)
+    w.apply_linear_impulse_to_center(ball, (0.5, 1.0))
+    w.set_gravity_scale(cap, 0.8)
+    w.destroy_shape(h[8])                   # one chain segment
+    w.destroy_body(4)                       # a pyramid box
+    w.set_body_type(5, 1)                   # kinematic
+    w.set_linear_velocity(5, (0.0, 0.5))
+    w.set_filter(10, t.Filter(group_index=-2))
+    w.set_filter(11, t.Filter(group_index=-2))
+    w.explode((0.0, 0.5), 3.0, 2.0)
+    return h

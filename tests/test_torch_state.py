@@ -99,6 +99,7 @@ def test_default_device_is_the_card():
 def test_import_loads_no_jax():
     code = ("import sys, box2d_tpu_torch, box2d_tpu_torch.api, "
             "box2d_tpu_torch.scenes, box2d_tpu_torch.particles, "
-            "box2d_tpu_torch.particles_kernels; "
+            "box2d_tpu_torch.particles_kernels, box2d_tpu_torch.queries, "
+            "box2d_tpu_torch.validate, box2d_tpu_torch.draw; "
             "assert 'jax' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
