@@ -1,0 +1,517 @@
+"""Batched worlds: W independent worlds of one capacity, stepped together.
+
+The counterpart of `jax.vmap` of the JAX package's `_step` over a batch of
+states (box2d_tpu/bench.py `measure_batch`; the mode-1 Pallas kernel, whose
+grid gains a batch axis). A batched WorldState has a leading world axis on
+every tensor (state.broadcast_state, stack_states, unstack_state).
+
+The step lays the worlds side by side on one lane axis (`_flatten`): world
+w's bodies are lanes [w * Nb, (w + 1) * Nb), its shapes [w * S, ...), its
+pair lanes [w * P, ...), and every body or shape id it holds is offset by
+as much, so lane-wise phases (the AABBs, the narrow phase, the contact
+preparation, the packers, the finalize) run unchanged on that flat state.
+What couples the lanes of one world runs on (W, N) views along the last
+axis, so that each world keeps its own order, capacity and counts: the
+broadphase (broadphase.find_pairs_incremental_batched), the contact
+store's remap, the coloring (coloring.repair_colors_batched,
+dense_remap), the color-bucket layout, the event compactions and the
+sleep pass (sleep.wake_and_sleep_batched). The solver is one launch for
+every world (contact_solver.contact_solve_batched).
+
+jax.vmap turns every `lax.cond` with a batched predicate into a select
+and runs every `while_loop` until no world loops. The host branches here
+do the same: a branch runs when any world takes it, on every world, and
+each world keeps the output of its own branch; one device read decides
+it, an any or a max over worlds. So a step makes at most the reads of the
+worst world's single-world step. The rare branches loop over the worlds
+that take them: the TOI sweep behind an open CCD gate calls the
+single-world pass on each such world (BatchStats.ccd_world_calls).
+
+Refused (NotImplementedError, each naming its ROADMAP.md item): joints,
+particles, sensor shapes and the custom filter and pre-solve hooks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import math2d as m
+from .broadphase import (_scatter_rows_batched, compute_shape_aabbs,
+                         find_pairs_incremental_batched)
+from .coloring import dense_remap, repair_colors_batched
+from .contact_solver import (NA, NF, contact_solve_batched, kernel_mode,
+                             tail_window)
+from .continuous import _continuous_impl, gate_batched
+from .narrowphase import narrow_phase, update_cache
+from .sleep import wake_and_sleep_batched
+from .solver import (BodySolverState, finalize_bodies, pack_bodies,
+                     pack_constraints_pairs, prepare_contacts, unpack_bodies)
+from .state import (DYNAMIC, JOINT_FILTER, Capacity, Profile, WorldState,
+                    auto_chunk, map_state, zero_events, zero_profile)
+from .world import (StepStats, _contact_hit_events, _f32_scalars,
+                    _zero_events_batched, color_layout, overflow_relax)
+
+# per-world fields of Bodies (0-d in a single world)
+_BODY_SCALARS = ("island_dirty", "island_split_pending")
+_BP_LANES = ("fat", "alive", "shape_a", "shape_b", "valid")
+
+
+class BatchStats(StepStats):
+    """StepStats of a batched step, plus: `worlds` in the batch,
+    `solver_launches` (kernel launches of contact_solve_batched, one a
+    work step) and `ccd_world_calls` (single-world TOI sweeps run behind
+    an open CCD gate, one for each world whose gate opened)."""
+
+    def __init__(self):
+        super().__init__()
+        self.worlds = 0
+        self.solver_launches = 0
+        self.ccd_world_calls = 0
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(
+        f"make_batched_step: {what} in a batched world ({item}); step them "
+        f"as a flat batch (scenes.replicate)")
+
+
+class BatchedStep:
+    """The step of a batch of worlds of one static configuration: call it
+    on a batched WorldState; world w of the result is what world.Step
+    returns for world w. The overflow tail's windows are those of the
+    vmapped JAX step: chunk-wide where the mode-1 kernel takes the world,
+    else one window (the XLA path)."""
+
+    def __init__(self, capacity: Capacity, classes_present: frozenset,
+                 substeps: int = 4, continuous: bool = True):
+        if capacity.bp_repair_cap > 0:
+            raise ValueError(
+                "make_batched_step: the batched broadphase runs the keep and "
+                "full tiers only; pass a Capacity with bp_repair_cap=0 (as "
+                "the JAX package's vmapped bench does)")
+        self.capacity = capacity
+        self.classes = classes_present
+        self.substeps = substeps
+        self.continuous = continuous
+        self.stats = BatchStats()
+        mode = 1 if kernel_mode(capacity) == 1 else 0
+        self.tail_w = tail_window(capacity, frozenset(), mode)
+
+    def __call__(self, batch: WorldState, dt) -> WorldState:
+        return _batched_step(batch, dt, self.capacity, self.classes,
+                             self.substeps, self.continuous, self.stats,
+                             self.tail_w)
+
+
+def make_batched_step(capacity: Capacity, classes_present: frozenset,
+                      substeps: int = 4, continuous: bool = True,
+                      joint_types: frozenset = frozenset(),
+                      particle_cfg=None, sensor_ids: tuple = (),
+                      custom_filter=None, pre_solve=None) -> BatchedStep:
+    """The batched counterpart of world.make_step (jax.vmap of the JAX
+    step). Joints, particles, sensors and hooks are refused."""
+    if joint_types:
+        _refuse("joints", "ROADMAP.md queue 12a (vmapped jointed worlds)")
+    if particle_cfg is not None:
+        _refuse("particles", "ROADMAP.md queue 12b (vmapped particle worlds)")
+    if sensor_ids:
+        _refuse("sensor shapes",
+                "ROADMAP.md queue 12c (vmapped sensor worlds)")
+    if custom_filter is not None or pre_solve is not None:
+        _refuse("the custom filter and pre-solve hooks",
+                "ROADMAP.md queue 12d (hooks under make_batched_step)")
+    return BatchedStep(capacity, classes_present, substeps, continuous)
+
+
+# ---------------------------------------------------------------------------
+# the flat layout
+# ---------------------------------------------------------------------------
+
+def _offsets(n_w, n, dev, shape):
+    """(W, n) lane offsets w * n, shaped to broadcast against `shape`."""
+    off = torch.arange(n_w, device=dev) * n
+    return off.reshape((n_w,) + (1,) * (len(shape) - 1))
+
+
+def _shift(x, step: int, sign: int = 1, keep_negative: bool = True):
+    """Add (sign) w * step to world w's ids of x (W, ...); ids below 0 stay
+    as they are when keep_negative."""
+    off = _offsets(x.shape[0], step, x.device, x.shape).to(x.dtype) * sign
+    if keep_negative:
+        return torch.where(x >= 0, x + off, x)
+    return x + off
+
+
+def _flat(x):
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def _flatten(batch: WorldState) -> WorldState:
+    """The batch as one flat state (module docstring): lane fields of
+    bodies, shapes, contacts, joints and the broadphase flattened, their
+    body and shape ids offset; per-world fields keep their world axis."""
+    b, sh, c, j, bp = (batch.bodies, batch.shapes, batch.contacts,
+                       batch.joints, batch.broadphase)
+    nb = b.center.shape[1]
+    S = sh.body.shape[1]
+    bodies = dataclasses.replace(b, **{
+        f.name: (getattr(b, f.name) if f.name in _BODY_SCALARS
+                 else _flat(getattr(b, f.name)))
+        for f in dataclasses.fields(b)})
+    bodies = dataclasses.replace(
+        bodies, island_label=_flat(_shift(b.island_label, nb)),
+        island_fresh=_flat(_shift(b.island_fresh, nb)))
+    shapes = map_state(_flat, sh)
+    shapes = dataclasses.replace(shapes, body=_flat(_shift(sh.body, nb)))
+    if sh.table is not None:
+        # the packed table's last column is the body id
+        tbl = sh.table.clone()
+        tbl[..., -1] = _shift(sh.table[..., -1], nb)
+        shapes = dataclasses.replace(shapes, table=_flat(tbl))
+    contacts = map_state(_flat, c)
+    contacts = dataclasses.replace(
+        contacts, key_a=_flat(_shift(c.key_a, S)),
+        key_b=_flat(_shift(c.key_b, S)))
+    joints = map_state(_flat, j)
+    joints = dataclasses.replace(joints, body_a=_flat(_shift(j.body_a, nb)),
+                                 body_b=_flat(_shift(j.body_b, nb)))
+    bpf = dataclasses.replace(bp, **{k: _flat(getattr(bp, k))
+                                     for k in _BP_LANES})
+    bpf = dataclasses.replace(
+        bpf, shape_a=_flat(_shift(bp.shape_a, S, keep_negative=False)),
+        shape_b=_flat(_shift(bp.shape_b, S, keep_negative=False)))
+    return dataclasses.replace(batch, bodies=bodies, shapes=shapes,
+                               contacts=contacts, joints=joints,
+                               broadphase=bpf)
+
+
+def _unflat(x, n_w):
+    return x.reshape((n_w, -1) + tuple(x.shape[1:]))
+
+
+def _unflatten(flat: WorldState, batch: WorldState) -> WorldState:
+    """The flat state's bodies, contacts and broadphase back on the world
+    axis, ids local again; shapes and joints (which the step does not
+    write) are the batch's own."""
+    n_w = batch.bodies.center.shape[0]
+    nb = batch.bodies.center.shape[1]
+    S = batch.shapes.body.shape[1]
+    b, c, bp = flat.bodies, flat.contacts, flat.broadphase
+    bodies = dataclasses.replace(b, **{
+        f.name: (getattr(b, f.name) if f.name in _BODY_SCALARS
+                 else _unflat(getattr(b, f.name), n_w))
+        for f in dataclasses.fields(b)})
+    bodies = dataclasses.replace(
+        bodies, island_label=_shift(bodies.island_label, nb, -1),
+        island_fresh=_shift(bodies.island_fresh, nb, -1))
+    contacts = map_state(lambda x: _unflat(x, n_w), c)
+    contacts = dataclasses.replace(
+        contacts, key_a=_shift(contacts.key_a, S, -1),
+        key_b=_shift(contacts.key_b, S, -1))
+    bpu = dataclasses.replace(bp, **{k: _unflat(getattr(bp, k), n_w)
+                                     for k in _BP_LANES})
+    bpu = dataclasses.replace(
+        bpu, shape_a=_shift(bpu.shape_a, S, -1, keep_negative=False),
+        shape_b=_shift(bpu.shape_b, S, -1, keep_negative=False))
+    return dataclasses.replace(flat, bodies=bodies, shapes=batch.shapes,
+                               contacts=contacts, joints=batch.joints,
+                               broadphase=bpu)
+
+
+def _world_view(flat: WorldState, w: int, n_w: int) -> WorldState:
+    """World w of the flat state as a single-world state (its bodies,
+    shapes and tuning, ids local), for the single-world passes that a rare
+    branch runs world by world."""
+    b, sh = flat.bodies, flat.shapes
+    nb = b.center.shape[0] // n_w
+    S = sh.body.shape[0] // n_w
+    rows = lambda x, n: x[w * n:(w + 1) * n]  # noqa: E731
+    bodies = dataclasses.replace(b, **{
+        f.name: (getattr(b, f.name)[w] if f.name in _BODY_SCALARS
+                 else rows(getattr(b, f.name), nb))
+        for f in dataclasses.fields(b)})
+    bodies = dataclasses.replace(bodies,
+                                 island_label=bodies.island_label - w * nb,
+                                 island_fresh=bodies.island_fresh - w * nb)
+    shapes = map_state(lambda x: rows(x, S), sh)
+    shapes = dataclasses.replace(shapes, body=shapes.body - w * nb)
+    if shapes.table is not None:
+        tbl = shapes.table.clone()
+        tbl[:, -1] -= w * nb
+        shapes = dataclasses.replace(shapes, table=tbl)
+    return dataclasses.replace(
+        flat, bodies=bodies, shapes=shapes,
+        tuning=map_state(lambda x: x[w], flat.tuning))
+
+
+def _tuning_per_lane(tuning, reps: int):
+    """The worlds' tuning with each field repeated for the reps lanes of its
+    world: (W * reps, ...)."""
+    return map_state(lambda x: x.repeat_interleave(reps, dim=0), tuning)
+
+
+# ---------------------------------------------------------------------------
+# the step
+# ---------------------------------------------------------------------------
+
+def _batched_step(batch: WorldState, dt, cap: Capacity,
+                  classes_present: frozenset, substeps: int,
+                  continuous: bool, stats: BatchStats,
+                  tail_w: int) -> WorldState:
+    if batch.particles is not None:
+        _refuse("particles", "ROADMAP.md queue 12b (vmapped particle worlds)")
+    n_w = batch.bodies.center.shape[0]
+    b0 = batch.bodies
+    jn = batch.joints
+    # the idle gate of each world (box2d_tpu/world.py:137-159); the
+    # refusals ride on the same read
+    work = batch.broadphase.dirty | (
+        b0.awake & (b0.type != 0) & b0.enabled).any(dim=1)
+    n_work, n_joints, n_sensors = stats.read(
+        work.sum(), (jn.enabled & (jn.type >= 0)).sum(),
+        batch.shapes.is_sensor.sum())
+    if n_joints:
+        _refuse("joints", "ROADMAP.md queue 12a (vmapped jointed worlds)")
+    if n_sensors:
+        _refuse("sensor shapes",
+                "ROADMAP.md queue 12c (vmapped sensor worlds)")
+    stats.steps += 1
+    stats.worlds = n_w
+    if n_work == 0:
+        stats.idle_steps += 1
+        return _idle_output(batch, cap)
+    out = _unflatten(_batched_work(_flatten(batch), dt, cap, classes_present,
+                                   substeps, continuous, stats, tail_w,
+                                   n_w), batch)
+    if n_work < n_w:
+        # an idle world takes the idle branch's output, not the work's
+        keep = lambda i, o: torch.where(  # noqa: E731
+            work.reshape((n_w,) + (1,) * (o.dim() - 1)), o, i)
+        out = map_state(keep, _idle_output(batch, cap), out)
+    return out
+
+
+def _idle_output(batch: WorldState, cap: Capacity) -> WorldState:
+    """What the idle branch leaves (box2d_tpu/world.py:137-159): zeroed
+    events and profile, step_count + 1, the rest as it was."""
+    n_w, nb = batch.bodies.center.shape[:2]
+    dev = batch.bodies.center.device
+    return dataclasses.replace(
+        batch, events=_zero_events_batched(cap, dev, n_w, nb),
+        profile=map_state(lambda x: x.expand(n_w).clone(),
+                          zero_profile(dev)),
+        step_count=batch.step_count + 1)
+
+
+def batched_kernel_args(batch: WorldState, dt, step: BatchedStep):
+    """The arguments that `step` hands contact_solve_batched for this
+    batch, without launching it (for checks of the kernel against single
+    launches and its twin)."""
+    return _batched_work(_flatten(batch), dt, step.capacity, step.classes,
+                         step.substeps, step.continuous, BatchStats(),
+                         step.tail_w, batch.bodies.center.shape[0],
+                         until="layout")
+
+
+def _batched_work(state: WorldState, dt, cap: Capacity,
+                  classes_present: frozenset, substeps: int,
+                  continuous: bool, stats: BatchStats, tail_w: int,
+                  n_w: int, until: str = "") -> WorldState:
+    """world._step_work of every world, on the flat state; until="layout"
+    returns the solver's arguments instead."""
+    dt, inv_dt, h, inv_h = _f32_scalars(dt, substeps)
+    b = state.bodies
+    NB = b.center.shape[0]
+    nb = NB // n_w
+    S = state.shapes.body.shape[0] // n_w
+    P = cap.max_contact_pairs
+    dev = b.center.device
+    tn = state.tuning
+    tn_b = _tuning_per_lane(tn, nb)
+    tn_p = _tuning_per_lane(tn, P)
+
+    old_key_a = state.contacts.key_a
+    old_key_b = state.contacts.key_b
+    aabbs = compute_shape_aabbs(state, cap.max_verts)
+    pairs, new_bp, cache, orphan_mask, store_drops, rebuild_kind = \
+        find_pairs_incremental_batched(state, cap, aabbs, n_w, stats)
+    state = dataclasses.replace(state, broadphase=new_bp, contacts=cache)
+    data = narrow_phase(state, pairs, classes_present, cap.max_verts, stats)
+    touching = data.manifold.point_count > 0
+
+    # --- constraint graph coloring (contacts, then joint lanes) ----------
+    awake_dyn = b.awake & (b.type == DYNAMIC)
+    jn = state.joints
+    J = jn.type.shape[0] // n_w
+    joint_active = (jn.enabled & (jn.type >= 0) & (jn.type != JOINT_FILTER)
+                    & (awake_dyn[torch.clamp(jn.body_a, min=0).long()]
+                       | awake_dyn[torch.clamp(jn.body_b, min=0).long()]))
+    ad_a = (data.dyn_a[:, 12] > 0) & (data.dyn_a[:, 11] == 2)
+    ad_b = (data.dyn_b[:, 12] > 0) & (data.dyn_b[:, 11] == 2)
+    contact_live = touching & (ad_a | ad_b)
+    per_world = lambda c, j: torch.cat(  # noqa: E731
+        [c.reshape(n_w, P), j.reshape(n_w, J)], dim=1)
+    all_ba = per_world(data.body_a, jn.body_a)
+    all_bb = per_world(data.body_b, jn.body_b)
+    all_active = per_world(contact_live, joint_active)
+    all_prev = per_world(torch.where(touching, data.prev_color, -1),
+                         jn.color)
+    all_reserved = per_world(touching, jn.enabled & (jn.type >= 0))
+    chunk = cap.color_chunk or auto_chunk(cap.max_contact_pairs)
+    n_all = P + J
+    raw_colors = repair_colors_batched(
+        all_ba, all_bb, all_active, all_reserved, all_prev, b.type, nb,
+        stats, cap.max_colors, color_cap=chunk,
+        repair_cap=min(max(512, cap.max_contact_pairs // 4), n_all, 1 << 16))
+    ovf = all_active & (raw_colors < 0)
+    overflow_colors = ovf.sum(dim=1).to(torch.int32)
+    colors = dense_remap(
+        torch.where(all_active,
+                    torch.where(ovf, cap.max_colors - 1, raw_colors), -1),
+        all_active, cap.max_colors)
+    contact_color = torch.where(contact_live.reshape(n_w, P),
+                                colors[:, :P], -1).reshape(-1)
+    num_colors = torch.clamp(
+        torch.where(all_active, colors, -1).max(dim=1).values + 1, min=0)
+    contact_color_store = raw_colors[:, :P].reshape(-1)
+
+    # the overflow color's mass splitting over the flat bodies, so a world
+    # without overflow keeps 1.0
+    (n_ovf,) = stats.read(overflow_colors.sum())
+    relax = (overflow_relax(ovf, all_ba, all_bb, NB) if n_ovf > 0 else
+             torch.ones((n_w, n_all), dtype=torch.float32, device=dev))
+    contact_relax = relax[:, :P].reshape(-1)
+
+    bs = BodySolverState(v=b.v, w=b.w, dp=torch.zeros_like(b.center),
+                         dq=m.rot_identity((NB,), device=dev))
+    cc = prepare_contacts(dataclasses.replace(state, tuning=tn_p), data,
+                          contact_color, h, inv_h)
+
+    # --- color-bucket layout of each world -------------------------------
+    layout_idx, l0, layout_len = color_layout(
+        cc.color.reshape(n_w, P), num_colors, overflow_colors,
+        cap.max_colors, chunk)
+    gidx = torch.clamp(layout_idx, 0, layout_len - 1)
+    active_lane = (layout_idx < layout_len).reshape(-1)
+
+    data_p, acc_p, idx_p = pack_constraints_pairs(cc, contact_relax)
+    # the kernel takes each world's own body lanes
+    idx_p = _shift(idx_p.reshape(n_w, P, 2), nb, -1)
+    rowsL = _scatter_rows_batched(
+        layout_len, 0.0, layout_idx,
+        torch.cat([data_p, acc_p], dim=1).reshape(n_w, P, NF + NA))
+    idxL = _scatter_rows_batched(layout_len, -1, layout_idx, idx_p)
+    f32 = lambda x: torch.full((n_w,), x, dtype=torch.float32,  # noqa: E731
+                               device=dev)
+    zero = f32(0.0)
+    scalars = torch.stack([
+        f32(h), f32(inv_h), tn.contact_speed, tn.restitution_threshold,
+        tn.max_linear_speed, zero, zero, zero], dim=1)[:, None, :]
+    bodyp, paramsp = pack_bodies(b, bs, tn_b, h, inv_dt)
+    to_w = lambda x: x.reshape(x.shape[0], n_w, nb).transpose(  # noqa: E731
+        0, 1).contiguous()
+    kernel_args = (scalars.contiguous(), idxL.transpose(1, 2).contiguous(),
+                   rowsL[..., :NF].transpose(1, 2).contiguous(),
+                   rowsL[..., NF:NF + NA].transpose(1, 2).contiguous(),
+                   to_w(bodyp), to_w(paramsp), substeps, chunk, l0,
+                   cap.max_colors, tail_w)
+    if until == "layout":
+        return kernel_args
+    out_body, out_acc = contact_solve_batched(*kernel_args)
+    if dev.type == "cuda":
+        stats.solver_launches += 1
+    bs = unpack_bodies(bs, out_body.transpose(0, 1).reshape(8, NB))
+    pair_acc = torch.gather(
+        out_acc.transpose(1, 2), 1,
+        gidx[..., None].expand(n_w, P, NA)).reshape(n_w * P, NA)
+    act = active_lane[:, None]
+    data = data._replace(
+        normal_impulse=torch.where(act, pair_acc[:, 0:2],
+                                   data.normal_impulse),
+        tangent_impulse=torch.where(act, pair_acc[:, 2:4],
+                                    data.tangent_impulse),
+        rolling_impulse=torch.where(active_lane, pair_acc[:, 6],
+                                    data.rolling_impulse))
+    tni = torch.where(act, pair_acc[:, 4:6], 0.0)
+
+    # --- the tail (world.py:706-805) -------------------------------------
+    state = dataclasses.replace(
+        state, contacts=update_cache(data, contact_color_store))
+    events, ev_drop = _contact_hit_events(
+        state, data, touching, cc.relative_velocity, tni, cap,
+        tn_p.hit_event_threshold[:, None], (orphan_mask, old_key_a,
+                                            old_key_b), n_w, stats)
+
+    advance = None
+    overflow_ccd = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    if continuous:
+        advance, overflow_ccd = _continuous_batched(
+            state, bs, dt, cap, tn_b, n_w, stats)
+    state = finalize_bodies(dataclasses.replace(state, tuning=tn_b), bs, dt,
+                            inv_dt, advance)
+    state = dataclasses.replace(state, tuning=tn)
+
+    awake_fin = state.bodies.awake
+    new_touch = touching & ~data.was_touching
+    lost_touch = (data.was_touching & ~touching) | orphan_mask
+    state = wake_and_sleep_batched(state, touching, new_touch, data.body_a,
+                                   data.body_b, dt, data.dyn_a, data.dyn_b,
+                                   lost_touch, n_w, tn_b.enable_sleep, stats)
+    bnew = state.bodies
+    moved = (awake_fin & (bnew.type != 0) & bnew.enabled).reshape(n_w, nb)
+    fell = moved & ~bnew.awake.reshape(n_w, nb)
+    events = dataclasses.replace(
+        events, body_moved=moved, body_fell_asleep=fell,
+        body_move_count=moved.sum(dim=1).to(torch.int32),
+        body_fell_asleep_count=fell.sum(dim=1).to(torch.int32))
+    zero_w = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    profile = Profile(
+        pair_count=pairs.count,
+        contact_point_count=data.manifold.point_count.reshape(
+            n_w, P).sum(dim=1).to(torch.int32),
+        color_count=num_colors.to(torch.int32),
+        overflow_pairs=pairs.overflow,
+        overflow_colors=overflow_colors,
+        store_drops=store_drops,
+        overflow_ccd=overflow_ccd,
+        overflow_particles=zero_w,
+        events_dropped=ev_drop,
+        pair_rebuild=rebuild_kind,
+    )
+    return dataclasses.replace(state, events=events, profile=profile,
+                               step_count=state.step_count + 1)
+
+
+def _continuous_batched(state, bs, dt, cap, tn_b, n_w, stats):
+    """The CCD gate of every world (one read); behind it, the single-world
+    TOI sweep of each world whose gate opened (continuous._continuous_impl
+    on that world's rows), its results written back."""
+    NB = state.bodies.center.shape[0]
+    nb = NB // n_w
+    S = state.shapes.body.shape[0] // n_w
+    dev = state.bodies.center.device
+    mask, bullet_body, max_velocity = gate_batched(state, bs, dt, n_w,
+                                                   tn_b.enable_continuous)
+    stats.syncs += 1
+    gates = mask.reshape(n_w, S).any(dim=1).tolist()
+    advance = torch.ones(NB, dtype=torch.float32, device=dev)
+    overflow = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    if not any(gates):
+        return advance, overflow
+    b = state.bodies
+    c2 = b.center + bs.dp
+    q2 = m.rot_normalize(m.rot_mul(bs.dq, b.rot))
+    for w in [k for k, g in enumerate(gates) if g]:
+        stats.ccd_gate_openings += 1
+        stats.ccd_world_calls += 1
+        rb = slice(w * nb, (w + 1) * nb)
+        bs_w = BodySolverState(*(x[rb] for x in bs))
+        adv_w, ovf_w = _continuous_impl(
+            _world_view(state, w, n_w), bs_w, dt, cap.fast_cap or 32,
+            cap.cand_cap, mask[w * S:(w + 1) * S], bullet_body[rb], c2[rb],
+            q2[rb], max_velocity[rb], stats)
+        advance[rb] = adv_w
+        overflow[w] = ovf_w
+    return advance, overflow

@@ -76,17 +76,7 @@ class PairBuffer(NamedTuple):
 
 def _grid_cell(cap: Capacity, alive, fat_lo, fat_hi):
     """Grid cell size = widest non-big fat extent (see find_pairs)."""
-    S = alive.shape[0]
-    B = min(cap.big_shape_cap, max(S - 1, 1))
-    extent = torch.where(alive, torch.maximum(fat_hi[:, 0] - fat_lo[:, 0],
-                                              fat_hi[:, 1] - fat_lo[:, 1]),
-                         float("-inf"))
-    kb = min(B + 1, S)
-    top_ext, _ = _top_k(extent, kb)
-    cell0 = torch.clamp(top_ext[kb - 1], min=1e-3)
-    genuine = top_ext[:B] > 2.0 * cell0
-    return torch.maximum(
-        cell0, torch.where(genuine, float("-inf"), top_ext[:B]).max())
+    return _grid_cell_batched(cap, alive[None], fat_lo[None], fat_hi[None])[0]
 
 
 def _box_overlap(a, b):
@@ -342,92 +332,167 @@ def find_pairs(state: WorldState, cap: Capacity, aabbs,
                custom_filter=None) -> PairBuffer:
     """Full rebuild: big-shape pass + grid-cell block-tile pass
     (box2d_tpu/broadphase.py:409-667), then the user's custom_filter on
-    the candidate set (:660)."""
-    S = aabbs.shape[0]
+    the candidate set (:660): find_pairs_batched of one world."""
+    pb = find_pairs_batched(state, cap, aabbs, 1)
+    valid = pb.valid
+    if custom_filter is not None:
+        valid = valid & torch.as_tensor(
+            custom_filter(state, pb.shape_a, pb.shape_b), dtype=torch.bool)
+    return PairBuffer(pb.shape_a, pb.shape_b, valid, pb.count[0],
+                      pb.overflow[0])
+
+
+# ---------------------------------------------------------------------------
+# batched worlds
+# ---------------------------------------------------------------------------
+# The batched step (batch.py) lays W worlds of one capacity side by side on
+# one lane axis: world w's shapes are lanes [w * S, (w + 1) * S) and its
+# bodies [w * Nb, (w + 1) * Nb), and every shape and body id it holds is
+# offset by that much. Lane-wise code runs on that flat state as it is;
+# what couples the lanes of one world (a top-k, a sort, a compaction into
+# a fixed capacity, a reduction behind a branch) runs here on (W, N) views,
+# along the last axis, so that every world keeps its own order, its own
+# capacity and its own counts.
+
+def _gather_rows(x, idx):
+    """x (W, N, ...) at idx (W, K): (W, K, ...)."""
+    tail = tuple(x.shape[2:])
+    ix = idx.long().reshape(idx.shape + (1,) * len(tail)).expand(
+        idx.shape + tail)
+    return torch.gather(x, 1, ix)
+
+
+def _scatter_rows_batched(n_rows: int, fill, idx, rows):
+    """out[w, idx[w, i]] = rows[w, i] into (W, n_rows, ...) pre-filled with
+    `fill`; idx >= n_rows is dropped."""
+    n_w = idx.shape[0]
+    tail = tuple(rows.shape[idx.dim():])
+    out = torch.full((n_w * (n_rows + 1),) + tail, fill, dtype=rows.dtype,
+                     device=rows.device)
+    base = (torch.arange(n_w, device=idx.device) * (n_rows + 1)).reshape(
+        (n_w,) + (1,) * (idx.dim() - 1))
+    out[(torch.clamp(idx, max=n_rows) + base).reshape(-1)] = rows.reshape(
+        (-1,) + tail)
+    return out.reshape((n_w, n_rows + 1) + tail)[:, :n_rows]
+
+
+def _grid_cell_batched(cap: Capacity, alive, fat_lo, fat_hi):
+    """The grid cell size of each world, the widest non-big fat extent
+    (find_pairs_batched): alive (W, S), fat (W, S, 2) -> (W,)."""
+    S = alive.shape[1]
+    B = min(cap.big_shape_cap, max(S - 1, 1))
+    extent = torch.where(alive, torch.maximum(fat_hi[..., 0] - fat_lo[..., 0],
+                                              fat_hi[..., 1] - fat_lo[..., 1]),
+                         float("-inf"))
+    kb = min(B + 1, S)
+    top_ext, _ = _top_k(extent, kb)
+    cell0 = torch.clamp(top_ext[:, kb - 1], min=1e-3)
+    genuine = top_ext[:, :B] > 2.0 * cell0[:, None]
+    return torch.maximum(cell0, torch.where(genuine, float("-inf"),
+                                            top_ext[:, :B]).max(dim=1).values)
+
+
+def find_pairs_batched(state: WorldState, cap: Capacity, aabbs,
+                       n_worlds: int) -> PairBuffer:
+    """The full rebuild (box2d_tpu/broadphase.py:409-667) of each of the
+    n_worlds worlds of a flat batched state (see above): shape_a /
+    shape_b / valid (W * P,) with flat shape ids, count and overflow
+    (W,). find_pairs is its one-world case."""
+    n_w = n_worlds
+    S = aabbs.shape[0] // n_w
     dev = aabbs.device
-    W = min(cap.sap_window, max(S - 1, 1))
+    win = min(cap.sap_window, max(S - 1, 1))
     B = min(cap.big_shape_cap, max(S - 1, 1))
     P = cap.max_contact_pairs
     sh = state.shapes
     b = state.bodies
+    nb = b.center.shape[0] // n_w
     body_l = sh.body.long()
+    r = lambda x: x.reshape((n_w, S) + tuple(x.shape[1:]))  # noqa: E731
 
-    alive = sh.enabled & b.enabled[body_l] & ~sh.is_sensor
-    fat_lo = aabbs[:, :2] - AABB_MARGIN
-    fat_hi = aabbs[:, 2:] + AABB_MARGIN
+    alive = r(sh.enabled & b.enabled[body_l] & ~sh.is_sensor)
+    box = r(aabbs)
+    fat_lo = box[..., :2] - AABB_MARGIN
+    fat_hi = box[..., 2:] + AABB_MARGIN
     center = 0.5 * (fat_lo + fat_hi)
-    extent = torch.where(alive, torch.maximum(fat_hi[:, 0] - fat_lo[:, 0],
-                                              fat_hi[:, 1] - fat_lo[:, 1]),
+    extent = torch.where(alive, torch.maximum(fat_hi[..., 0] - fat_lo[..., 0],
+                                              fat_hi[..., 1] - fat_lo[..., 1]),
                          float("-inf"))
 
     # ---- big-shape pass ----------------------------------------------------
     kb = min(B + 1, S)
     top_ext, bigs = _top_k(extent, kb)
-    cell0 = torch.clamp(top_ext[kb - 1], min=1e-3)
-    bigs = bigs[:min(B, S)]
-    B = bigs.shape[0]
-    genuine = top_ext[:B] > 2.0 * cell0
-    cell = torch.maximum(
-        cell0, torch.where(genuine, float("-inf"), top_ext[:B]).max())
-    big_valid = alive[bigs] & genuine
-    is_big = torch.zeros(S, dtype=torch.bool, device=dev)
-    is_big[bigs] = big_valid
+    cell0 = torch.clamp(top_ext[:, kb - 1], min=1e-3)
+    bigs = bigs[:, :min(B, S)]
+    B = bigs.shape[1]
+    genuine = top_ext[:, :B] > 2.0 * cell0[:, None]
+    cell = torch.maximum(cell0, torch.where(genuine, float("-inf"),
+                                            top_ext[:, :B]).max(dim=1).values)
+    big_valid = torch.gather(alive, 1, bigs) & genuine
+    is_big = torch.zeros((n_w, S), dtype=torch.bool, device=dev).scatter(
+        1, bigs, big_valid)
     all_ids = torch.arange(S, device=dev)
-    body_of = sh.body
-    body_dyn = b.type[body_l] == DYNAMIC
-    blo = fat_lo[bigs]
-    bhi = fat_hi[bigs]
-    ok_sb = ((fat_lo[:, 0:1] <= bhi[None, :, 0])
-             & (blo[None, :, 0] <= fat_hi[:, 0:1])
-             & (fat_lo[:, 1:2] <= bhi[None, :, 1])
-             & (blo[None, :, 1] <= fat_hi[:, 1:2])
-             & alive[:, None] & big_valid[None, :]
-             & (body_of[:, None] != body_of[bigs][None, :])
-             & (body_dyn[:, None] | body_dyn[bigs][None, :])
-             & (all_ids[:, None] != bigs[None, :])
-             & (~is_big[:, None] | (all_ids[:, None] < bigs[None, :])))
+    woff = (torch.arange(n_w, device=dev) * nb)[:, None]
+    body_of = r(sh.body).long() - woff               # local body ids
+    body_dyn = r(b.type[body_l] == DYNAMIC)
+    blo = _gather_rows(fat_lo, bigs)
+    bhi = _gather_rows(fat_hi, bigs)
+    g_body = torch.gather(body_of, 1, bigs)
+    g_dyn = torch.gather(body_dyn, 1, bigs)
+    ok_sb = ((fat_lo[:, :, None, 0] <= bhi[:, None, :, 0])
+             & (blo[:, None, :, 0] <= fat_hi[:, :, None, 0])
+             & (fat_lo[:, :, None, 1] <= bhi[:, None, :, 1])
+             & (blo[:, None, :, 1] <= fat_hi[:, :, None, 1])
+             & alive[:, :, None] & big_valid[:, None, :]
+             & (body_of[:, :, None] != g_body[:, None, :])
+             & (body_dyn[:, :, None] | g_dyn[:, None, :])
+             & (all_ids[None, :, None] != bigs[:, None, :])
+             & (~is_big[:, :, None]
+                | (all_ids[None, :, None] < bigs[:, None, :])))
     KB = min(8, B)
-    scoreB = torch.where(ok_sb, B - torch.arange(B, device=dev)[None, :], 0)
+    scoreB = torch.where(ok_sb, B - torch.arange(B, device=dev), 0)
     topB, _ = _top_k(scoreB, KB)
     b_slot_ok = topB > 0
-    b_partner = bigs[torch.clamp(B - topB, 0, B - 1)]
-    overflow_big = torch.clamp(ok_sb.sum(dim=1) - KB, min=0).sum()
+    b_partner = torch.gather(
+        bigs, 1, torch.clamp(B - topB, 0, B - 1).reshape(n_w, -1)).reshape(
+            n_w, S, KB)
+    overflow_big = torch.clamp(ok_sb.sum(dim=2) - KB, min=0).sum(dim=1)
 
     # ---- grid-cell block-tile pass -----------------------------------------
     alive_w = alive & ~is_big
-    inv_c = 1.0 / cell
-    xi = torch.floor(center[:, 0] * inv_c).to(torch.int32)
-    yi = torch.floor(center[:, 1] * inv_c).to(torch.int32)
+    inv_c = (1.0 / cell)[:, None]
+    xi = torch.floor(center[..., 0] * inv_c).to(torch.int32)
+    yi = torch.floor(center[..., 1] * inv_c).to(torch.int32)
     key = torch.where(alive_w,
                       (((yi + 0x4000) & 0x7FFF) << 16)
                       | ((xi + 0x8000) & 0xFFFF),
                       torch.tensor(INT32_MAX, dtype=torch.int32, device=dev))
-    order = torch.argsort(key, stable=True)
-    skey = key[order]
+    order = torch.argsort(key, dim=1, stable=True)
+    skey = torch.gather(key, 1, order)
 
     BLK = 128
     T = max(256, ((cap.bp_tile + BLK - 1) // BLK) * BLK)
-    K = max(4, min(W, 24))
+    K = max(4, min(win, 24))
     n_blk = (S + BLK - 1) // BLK
     S_pad = n_blk * BLK
 
-    body_f = sh.body.float()
-    dyn_f = body_dyn.float()
-    unsorted = torch.cat([fat_lo, fat_hi, alive_w.float()[:, None],
-                          body_f[:, None], dyn_f[:, None]], dim=1)
-    us = unsorted[order]
-    srt = torch.cat([us[:, :4], (skey >> 16).float()[:, None], us[:, 4:]],
-                    dim=1)                                   # (S, 8)
-    srt = torch.cat([srt, torch.zeros((S_pad + T - S, 8), device=dev)], dim=0)
-    blocks = srt[:S_pad].reshape(n_blk, BLK, 8)
+    unsorted = torch.cat([fat_lo, fat_hi, alive_w.float()[..., None],
+                          body_of.float()[..., None],
+                          body_dyn.float()[..., None]], dim=2)
+    us = _gather_rows(unsorted, order)
+    srt = torch.cat([us[..., :4], (skey >> 16).float()[..., None],
+                     us[..., 4:]], dim=2)                    # (W, S, 8)
+    srt = torch.cat([srt, torch.zeros((n_w, S_pad + T - S, 8), device=dev)],
+                    dim=1)
+    blocks = srt[:, :S_pad].reshape(n_w, n_blk, BLK, 8)
     tiles = torch.stack(
-        [srt[k * BLK: k * BLK + S_pad].reshape(n_blk, BLK, 8)
-         for k in range(T // BLK)], dim=1).reshape(n_blk, T, 8)
+        [srt[:, k * BLK: k * BLK + S_pad].reshape(n_w, n_blk, BLK, 8)
+         for k in range(T // BLK)], dim=2).reshape(n_w, n_blk, T, 8)
 
-    bi = blocks[:, :, None, :]
-    tj = tiles[:, None, :, :]
-    l_loc = torch.arange(BLK, device=dev)[None, :, None]
-    t_loc = torch.arange(T, device=dev)[None, None, :]
+    bi = blocks[:, :, :, None, :]
+    tj = tiles[:, :, None, :, :]
+    l_loc = torch.arange(BLK, device=dev)[:, None]
+    t_loc = torch.arange(T, device=dev)[None, :]
     ok = ((bi[..., 0] <= tj[..., 2]) & (tj[..., 0] <= bi[..., 2])
           & (bi[..., 1] <= tj[..., 3]) & (tj[..., 1] <= bi[..., 3])
           & ((tj[..., 4] == bi[..., 4]) | (tj[..., 4] == bi[..., 4] + 1))
@@ -436,69 +501,135 @@ def find_pairs(state: WorldState, cap: Capacity, aabbs,
           & (bi[..., 6] != tj[..., 6])
           & ((bi[..., 7] > 0) | (tj[..., 7] > 0)))
 
-    # coverage overflow (int32 arithmetic wraps like the JAX key compare)
     sh_n = min(T - BLK, S)
-    ahead = torch.cat([skey[sh_n:], torch.full(
-        (sh_n,), INT32_MAX, dtype=torch.int32, device=dev)])
+    ahead = torch.cat([skey[:, sh_n:], torch.full(
+        (n_w, sh_n), INT32_MAX, dtype=torch.int32, device=dev)], dim=1)
     overflow_shapes = ((ahead <= skey + ((1 << 16) + 1))
-                       & (skey != INT32_MAX)).sum()
+                       & (skey != INT32_MAX)).sum(dim=1)
 
-    # per-shape K-slot compaction: the k-th set entry of each row, as the
-    # JAX rank-match reduction picks it (a top-k over distinct scores)
-    cnt = ok.sum(dim=2)
+    cnt = ok.sum(dim=3)
     score = torch.where(ok, T - t_loc, 0)
-    kslot, _ = torch.topk(score, K, dim=2)
+    kslot, _ = torch.topk(score, K, dim=3)
     t_base = torch.arange(n_blk, device=dev)[:, None, None] * BLK
-    nbr = torch.where(kslot > 0, t_base + (T - kslot), -1).reshape(S_pad, K)
-    cnt = cnt.reshape(S_pad)
-    overflow_shapes = overflow_shapes + torch.clamp(cnt - K, min=0).sum()
+    nbr = torch.where(kslot > 0, t_base + (T - kslot), -1).reshape(
+        n_w, S_pad, K)
+    cnt = cnt.reshape(n_w, S_pad)
+    overflow_shapes = overflow_shapes + torch.clamp(cnt - K, min=0).sum(dim=1)
     cntK = torch.clamp(cnt, max=K)
 
-    # ---- global slots + one pair scatter -----------------------------------
-    base_w = torch.cumsum(cntK, 0) - cntK
-    count_win = base_w[-1] + cntK[-1]
-    karange = torch.arange(K, device=dev)[None, :]
-    tgt = torch.where((karange < cntK[:, None]) & (nbr >= 0),
-                      base_w[:, None] + karange, P)
-    tgt = torch.clamp(tgt, max=P)                 # >= P rows are dropped
-    pos_i = torch.arange(S_pad, device=dev)[:, None].expand(S_pad, K)
+    # ---- each world's slots + one pair scatter ------------------------------
+    base_w = torch.cumsum(cntK, 1) - cntK
+    count_win = base_w[:, -1] + cntK[:, -1]
+    karange = torch.arange(K, device=dev)
+    tgt = torch.where((karange < cntK[..., None]) & (nbr >= 0),
+                      base_w[..., None] + karange, P)
+    pos_i = torch.arange(S_pad, device=dev)[None, :, None].expand(
+        n_w, S_pad, K)
     pair_pos = torch.stack([pos_i, torch.clamp(nbr, min=0)], dim=-1)
-    pos_ab = torch.full((P + 1, 2), -1, dtype=torch.int64, device=dev)
-    pos_ab[tgt.reshape(-1)] = pair_pos.reshape(-1, 2)
-    pos_ab = pos_ab[:P]
+    pos_ab = _scatter_rows_batched(P, -1, tgt, pair_pos)
 
-    rank_b = torch.cumsum(b_slot_ok.long(), dim=1) - 1
-    cnt_b = b_slot_ok.sum(dim=1)
-    base_b = count_win + torch.cumsum(cnt_b, 0) - cnt_b
-    slot_b = torch.clamp(torch.where(b_slot_ok, base_b[:, None] + rank_b, P),
-                         max=P)
-    count = count_win + cnt_b.sum()
-    ids_bg = torch.stack([all_ids[:, None].expand(b_partner.shape),
+    rank_b = torch.cumsum(b_slot_ok.long(), dim=2) - 1
+    cnt_b = b_slot_ok.sum(dim=2)
+    base_b = count_win[:, None] + torch.cumsum(cnt_b, 1) - cnt_b
+    slot_b = torch.where(b_slot_ok, base_b[..., None] + rank_b, P)
+    count = count_win + cnt_b.sum(dim=1)
+    ids_bg = torch.stack([all_ids[None, :, None].expand(n_w, S, KB),
                           b_partner], dim=-1)
-    id_ab = torch.full((P + 1, 2), -1, dtype=torch.int64, device=dev)
-    id_ab[slot_b.reshape(-1)] = ids_bg.reshape(-1, 2)
-    id_ab = id_ab[:P]
+    id_ab = _scatter_rows_batched(P, -1, slot_b, ids_bg)
 
-    from_win = pos_ab[:, 0] >= 0
-    ord_pad = torch.cat([order, torch.zeros(S_pad + T - S, dtype=order.dtype,
-                                            device=dev)])
-    ids_win = ord_pad[torch.clamp(pos_ab, 0, S_pad - 1)]
-    raw_a = torch.where(from_win, ids_win[:, 0], id_ab[:, 0])
-    raw_b = torch.where(from_win, ids_win[:, 1], id_ab[:, 1])
-    pair_valid = from_win | (id_ab[:, 0] >= 0)
-    shape_a = torch.where(pair_valid, torch.minimum(raw_a, raw_b), 0)
-    shape_b = torch.where(pair_valid, torch.maximum(raw_a, raw_b), 0)
+    from_win = pos_ab[..., 0] >= 0
+    ord_pad = torch.cat([order, torch.zeros((n_w, S_pad + T - S),
+                                            dtype=order.dtype, device=dev)],
+                        dim=1)
+    ids_win = torch.gather(ord_pad, 1, torch.clamp(
+        pos_ab, 0, S_pad - 1).reshape(n_w, -1)).reshape(n_w, P, 2)
+    raw_a = torch.where(from_win, ids_win[..., 0], id_ab[..., 0])
+    raw_b = torch.where(from_win, ids_win[..., 1], id_ab[..., 1])
+    pair_valid = from_win | (id_ab[..., 0] >= 0)
+    soff = (torch.arange(n_w, device=dev) * S)[:, None]
+    shape_a = (torch.where(pair_valid, torch.minimum(raw_a, raw_b), 0)
+               + soff).reshape(-1)
+    shape_b = (torch.where(pair_valid, torch.maximum(raw_a, raw_b), 0)
+               + soff).reshape(-1)
+    pair_valid = pair_valid.reshape(-1)
 
     if cap.has_filters:
         pair_valid = pair_valid & _group_pass(sh, shape_a, shape_b)
     if cap.has_joint_exclusions:
         pair_valid = pair_valid & ~_joint_excluded(state, shape_a, shape_b)
-    if custom_filter is not None:
-        pair_valid = pair_valid & torch.as_tensor(
-            custom_filter(state, shape_a, shape_b), dtype=torch.bool)
 
     overflow = (overflow_shapes + overflow_big
                 + torch.clamp(count - P, min=0)).to(torch.int32)
     return PairBuffer(shape_a.to(torch.int32), shape_b.to(torch.int32),
                       pair_valid, torch.clamp(count, max=P).to(torch.int32),
                       overflow)
+
+
+def find_pairs_incremental_batched(state: WorldState, cap: Capacity, aabbs,
+                                   n_worlds: int, syncs):
+    """find_pairs_incremental of each world of a flat batched state, in its
+    keep / full tiers (Capacity.bp_repair_cap 0, the JAX package's
+    vmapped bench): a world whose shapes all stay inside their fat boxes
+    and whose broadphase is clean keeps its pairs, the others rebuild
+    them. One device read: whether any world rebuilds. Returns what
+    find_pairs_incremental returns, each world's counts (W,)."""
+    from .narrowphase import remap_cache_batched
+
+    if cap.bp_repair_cap > 0:
+        raise ValueError("the batched broadphase has no repair tier: "
+                         "Capacity.bp_repair_cap must be 0")
+    n_w = n_worlds
+    bp = state.broadphase
+    sh = state.shapes
+    b = state.bodies
+    cache = state.contacts
+    S = aabbs.shape[0] // n_w
+    P = cache.key_a.shape[0] // n_w
+    dev = aabbs.device
+    alive = sh.enabled & b.enabled[sh.body.long()] & ~sh.is_sensor
+    inside = ((aabbs[:, 0] >= bp.fat[:, 0]) & (aabbs[:, 1] >= bp.fat[:, 1])
+              & (aabbs[:, 2] <= bp.fat[:, 2]) & (aabbs[:, 3] <= bp.fat[:, 3]))
+    esc = alive & ~inside
+    full_w = (bp.dirty | (alive != bp.alive).reshape(n_w, S).any(dim=1)
+              | esc.reshape(n_w, S).any(dim=1))
+    fat_t = torch.cat([aabbs[:, :2] - AABB_MARGIN,
+                       aabbs[:, 2:] + AABB_MARGIN], -1)
+    (n_full,) = syncs.read(full_w.sum())
+    zero_w = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    if n_full == 0:
+        sa, sb, valid, count, ovf = (bp.shape_a, bp.shape_b, bp.valid,
+                                     bp.count, bp.overflow)
+        fat, cache2, cell, drops = bp.fat, cache, bp.cell, zero_w
+        orphan = torch.zeros(n_w * P, dtype=torch.bool, device=dev)
+    else:
+        # every world runs the rebuild; each keeps its own tier's outputs
+        pb = find_pairs_batched(state, cap, aabbs, n_w)
+        new_ka = torch.where(pb.valid, pb.shape_a, -1)
+        new_kb = torch.where(pb.valid, pb.shape_b, -1)
+        new_cache, orphan, drops = remap_cache_batched(
+            cache, new_ka, new_kb, cap.max_contact_pairs, n_w, S)
+        cell = _grid_cell_batched(cap, alive.reshape(n_w, S),
+                                  fat_t[:, :2].reshape(n_w, S, 2),
+                                  fat_t[:, 2:].reshape(n_w, S, 2))
+        lane_p = full_w.repeat_interleave(P)
+        pick = lambda new, old, m: torch.where(  # noqa: E731
+            m.reshape(m.shape + (1,) * (new.dim() - 1)), new, old)
+        sa = pick(pb.shape_a, bp.shape_a, lane_p)
+        sb = pick(pb.shape_b, bp.shape_b, lane_p)
+        valid = pick(pb.valid, bp.valid, lane_p)
+        count = pick(pb.count, bp.count, full_w)
+        ovf = pick(pb.overflow, bp.overflow, full_w)
+        fat = pick(fat_t, bp.fat, full_w.repeat_interleave(S))
+        cache2 = dataclasses.replace(cache, **{
+            f.name: pick(getattr(new_cache, f.name), getattr(cache, f.name),
+                         lane_p) for f in dataclasses.fields(cache)})
+        orphan = orphan & lane_p
+        drops = torch.where(full_w, drops, 0)
+        cell = torch.where(full_w, cell, bp.cell)
+    new_bp = BroadphaseStore(
+        fat=fat, alive=alive, shape_a=sa, shape_b=sb, valid=valid,
+        count=count, overflow=ovf,
+        dirty=torch.zeros(n_w, dtype=torch.bool, device=dev), cell=cell)
+    kind = torch.where(full_w, 2, 0).to(torch.int32)
+    return (PairBuffer(sa, sb, valid, count, ovf), new_bp, cache2, orphan,
+            drops, kind)

@@ -29,14 +29,25 @@ summed in. Within a color bucket or joint segment no two lanes share a
 dynamic body (the coloring sees to it), so there this equals a Gauss-Seidel
 sweep and the kernel writes each lane's bodies straight away; the
 overflow tail and the overflow color's joint segment, whose lanes do share
-bodies, are true Jacobi windows. The overflow color's joints are swept as
-the tiled Pallas kernel sweeps them: one window per type, cut into windows
-of at most JOINT_WINDOW lanes. The contact tail is cut as the Pallas path
-the JAX package would take for the same world cuts it (tail_window): the
-width of a Jacobi window changes the physics.
+bodies, are true Jacobi windows. There the kernel sums each body's deltas
+in fixed point (int64, units of 2^-32), so its result does not depend on
+the order its lanes add in; the twin adds them as floats with index_add_,
+and the two differ by rounding. The overflow color's joints are swept as
+the tiled Pallas kernel sweeps them: one window per type, cut into
+windows of at most JOINT_WINDOW lanes. The contact tail is cut as the
+Pallas path the JAX package would take for the same world cuts it
+(tail_window): the width of a Jacobi window changes the physics.
 
 `contact_solve` takes the twin for CPU tensors only. For CUDA tensors it
 launches the kernel or raises; there is no fallback.
+
+`contact_solve_batched` is the same pipeline for W worlds of one capacity
+in one launch (the counterpart of the mode-1 Pallas kernel under
+jax.vmap, whose grid gains a batch axis): every array gains a leading
+world axis, and world w of the result is what `contact_solve` returns
+for world w's arrays. Its twin, `contact_solve_batched_reference`, sweeps
+all worlds' lanes of a window together: no two worlds share a body, so
+that is each world's own sweep.
 """
 
 from __future__ import annotations
@@ -79,15 +90,17 @@ TILED_WINDOW = 128
 TILED_BODY_TILE = 512
 
 # kernel launches made by contact_solve (the twin does not count), and how
-# many of them carried a joint region (the joint sweep ran on the card)
+# many of them carried a joint region (the joint sweep ran on the card);
+# launches made by contact_solve_batched
 LAUNCHES = 0
 JOINT_LAUNCHES = 0
+BATCHED_LAUNCHES = 0
 
 SOURCE = os.path.join(HERE, "csrc", "contact_solver.cu")
 JOINT_SOURCE = os.path.join(HERE, "csrc", "joint_sweep.cuh")
 _LIB = None
 BUILD_SECONDS = None   # wall time of this process's nvcc build
-_SHAPES = {}           # launch_shape's answers, by whether joints ride
+_SHAPES = {}           # launch_shape's answers, by instance
 
 
 def build() -> ctypes.CDLL:
@@ -99,13 +112,17 @@ def build() -> ctypes.CDLL:
         return _LIB
     lib, log, BUILD_SECONDS = nvcc_build(SOURCE, "contact_solver")
     fn = lib.b2t_contact_solve
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fnj = lib.b2t_contact_solve_joints
-    fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 11 + [
+    fnj.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fnj.restype = ctypes.c_int
+    fnb = lib.b2t_contact_solve_batched
+    fnb.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+        ctypes.c_void_p]
+    fnb.restype = ctypes.c_int
     lib.b2t_launch_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.b2t_launch_shape.restype = ctypes.c_int
     lib.ptxas_log = log
@@ -113,15 +130,17 @@ def build() -> ctypes.CDLL:
     return lib
 
 
-def launch_shape(joints: bool) -> dict:
+def launch_shape(joints: bool, batched: bool = False) -> dict:
     """The kernel's launch on the current card: `cluster` CTAs of `threads`
-    threads, one cluster a launch, and `max_active_clusters`, how many such
-    clusters the card can hold at once (cudaOccupancyMaxActiveClusters).
-    Raises if the cluster does not fit. Asked once per process."""
-    key = bool(joints)
+    threads, one cluster a launch (a world, in a batched launch), and
+    `max_active_clusters`, how many such clusters the card can hold at
+    once (cudaOccupancyMaxActiveClusters). Raises if the cluster does not
+    fit. Asked once per process and instance (joints; batched, which
+    carries none)."""
+    key = 2 if batched else int(bool(joints))
     if key not in _SHAPES:
         out = (ctypes.c_int * 3)()
-        rc = build().b2t_launch_shape(int(key), ctypes.addressof(out))
+        rc = build().b2t_launch_shape(key, ctypes.addressof(out))
         shape = dict(cluster=out[0], threads=out[1],
                      max_active_clusters=out[2])
         if rc != 0 or shape["max_active_clusters"] < 1:
@@ -184,11 +203,9 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
     lib = build()
     L = data.shape[1]
     nb = body.shape[1]
-    scratch_w = max(min(L - l0, tail_w), JOINT_WINDOW, 1)
     out_body = torch.empty_like(body)
     out_acc = torch.empty_like(acc)
-    scratch = torch.empty((6, scratch_w), dtype=torch.float32,
-                          device=body.device)
+    jsum = torch.empty((4, nb), dtype=torch.int64, device=body.device)
     with torch.cuda.device(body.device):
         launch_shape(joints is not None)
         stream = torch.cuda.current_stream(body.device).cuda_stream
@@ -196,18 +213,18 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
             rc = lib.b2t_contact_solve(
                 scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
                 acc.data_ptr(), body.data_ptr(), params.data_ptr(),
-                out_body.data_ptr(), out_acc.data_ptr(), scratch.data_ptr(),
-                nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w, stream)
+                out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
+                nb, L, chunk, l0, n_colors, nsub, tail_w, stream)
         else:
             out_jacc = torch.empty_like(joints.acc)
             rc = lib.b2t_contact_solve_joints(
                 scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
                 acc.data_ptr(), body.data_ptr(), params.data_ptr(),
-                out_body.data_ptr(), out_acc.data_ptr(), scratch.data_ptr(),
+                out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
                 joints.idx.data_ptr(), joints.data.data_ptr(),
                 joints.acc.data_ptr(), joints.type.data_ptr(),
                 joints.offsets.data_ptr(), out_jacc.data_ptr(),
-                nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w,
+                nb, L, chunk, l0, n_colors, nsub, tail_w,
                 joints.data.shape[1], int(joints.overflow), JOINT_WINDOW,
                 stream)
     if rc != 0:
@@ -218,6 +235,53 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
         return out_body, out_acc
     JOINT_LAUNCHES += 1
     return out_body, out_acc, out_jacc
+
+
+def contact_solve_batched(scalars, idx, data, acc, body, params, nsub: int,
+                          chunk: int, l0: int, n_colors: int, tail_w: int):
+    """The contact-only pipeline of W worlds in one launch: scalars (W, 1,
+    8), idx (W, 2, L), data (W, NF, L), acc (W, NA, L), body (W, 8, Nb),
+    params (W, 12, Nb), the rest as contact_solve. Returns (body (W, 8,
+    Nb), acc (W, NA, L)); world w is contact_solve of world w's arrays,
+    each world on a cluster of its own."""
+    if idx.dim() != 3 or body.dim() != 3:
+        raise ValueError("contact_solve_batched takes a leading world axis")
+    n_w = body.shape[0]
+    for t in (scalars, idx, data, acc, params):
+        if t.shape[0] != n_w:
+            raise ValueError(f"world axes differ: {t.shape[0]} and {n_w}")
+    _check(scalars[0], idx[0], data[0], acc[0], body[0], params[0], chunk,
+           l0, n_colors, tail_w)
+    if not all(t.is_contiguous() for t in (scalars, idx, data, acc, body,
+                                            params)):
+        raise ValueError("contact_solve_batched needs contiguous tensors")
+    if body.device.type == "cpu":
+        return contact_solve_batched_reference(
+            scalars, idx, data, acc, body, params, nsub, chunk, l0,
+            n_colors, tail_w)
+    if body.device.type != "cuda":
+        raise ValueError(f"contact_solve_batched: unsupported device "
+                         f"{body.device}")
+    global BATCHED_LAUNCHES
+    lib = build()
+    L = data.shape[2]
+    nb = body.shape[2]
+    out_body = torch.empty_like(body)
+    out_acc = torch.empty_like(acc)
+    jsum = torch.empty((n_w, 4, nb), dtype=torch.int64, device=body.device)
+    with torch.cuda.device(body.device):
+        launch_shape(False, batched=True)
+        stream = torch.cuda.current_stream(body.device).cuda_stream
+        rc = lib.b2t_contact_solve_batched(
+            scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
+            acc.data_ptr(), body.data_ptr(), params.data_ptr(),
+            out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
+            n_w, nb, L, chunk, l0, n_colors, nsub, tail_w, stream)
+    if rc != 0:
+        raise RuntimeError(f"contact_solve_batched kernel launch failed: "
+                           f"cudaError {rc}")
+    BATCHED_LAUNCHES += 1
+    return out_body, out_acc
 
 
 # ---------------------------------------------------------------------------
@@ -593,3 +657,60 @@ def _window(body, acc, data, idx, lanes, p, inv_h, contact_speed, rthresh):
     vel = body[0:3]   # a view: index_add_ writes into body
     vel.index_add_(1, ia[dyn_a], dva[:, dyn_a])
     vel.index_add_(1, ib[dyn_b], dvb[:, dyn_b])
+
+
+def _batched_windows(idx, chunk: int, l0: int, n_colors: int, tail_w: int):
+    """The windows of a stage for W stacked worlds, in visit order, as
+    lanes of the flattened (W * L) lane axis: each of a world's windows
+    (window_table) joins the windows of the same color bucket, or the
+    same tail window, of the other worlds. A world's own windows keep
+    their order, and within a window each world's lanes keep theirs."""
+    n_w, _, L = idx.shape
+    keyed: dict = {}
+    for w in range(n_w):
+        live = idx[w, 0] >= 0
+        for kind, _, lo, hi in window_table(idx[w], chunk, l0, n_colors,
+                                            tail_w):
+            key = (0, lo) if kind == "contact" else (1, lo)
+            lanes = torch.nonzero(live[lo:hi]).squeeze(1) + (lo + w * L)
+            keyed.setdefault(key, []).append(lanes)
+    return [torch.cat(keyed[k]) for k in sorted(keyed)]
+
+
+def contact_solve_batched_reference(scalars, idx, data, acc, body, params,
+                                    nsub: int, chunk: int, l0: int,
+                                    n_colors: int, tail_w: int):
+    """contact_solve_batched in plain PyTorch: the worlds side by side on
+    one lane axis and one body axis (world w's bodies at w * Nb), every
+    window of a stage taking all worlds' lanes of that window, each world
+    with its own scalars. The arithmetic is contact_solve_reference's,
+    operation by operation."""
+    n_w, _, L = idx.shape
+    nb = body.shape[2]
+    dev = body.device
+    flat = lambda t: t.permute(1, 0, 2).reshape(t.shape[1], -1)  # noqa
+    off = (torch.arange(n_w, dtype=idx.dtype, device=dev) * nb)[:, None,
+                                                                 None]
+    idx_f = flat(torch.where(idx >= 0, idx + off, idx))
+    out_body = flat(body).clone()
+    out_acc = flat(acc).clone()
+    data_f = flat(data)
+    prm_f = flat(params)
+    s = scalars.reshape(n_w, 8)
+    per_body = lambda col: s[:, col].repeat_interleave(nb)  # noqa: E731
+    h_b, max_lin_b = per_body(0), per_body(4)
+    windows = _batched_windows(idx, chunk, l0, n_colors, tail_w)
+    lane_s = [(s[lanes // L, 1], s[lanes // L, 2], s[lanes // L, 3])
+              for lanes in windows]
+    for k in range(3 * nsub + 1):
+        p = 3 if k == 3 * nsub else k % 3
+        if p == 0:
+            _integrate_velocities(out_body, prm_f, max_lin_b)
+        elif p == 2:
+            _integrate_positions(out_body, h_b)
+        for lanes, (inv_h, speed, rthresh) in zip(windows, lane_s):
+            _window(out_body, out_acc, data_f, idx_f, lanes, p, inv_h, speed,
+                    rthresh)
+    unflat = lambda t, r: t.reshape(r, n_w, -1).permute(1, 0, 2)  # noqa
+    return (unflat(out_body, 8).contiguous(),
+            unflat(out_acc, acc.shape[1]).contiguous())

@@ -25,22 +25,34 @@ from .state import DYNAMIC, IS_BULLET, STATIC, WorldState
 
 
 def _gate(state: WorldState, bs, dt):
-    """(fast shape mask (S,), bullet bodies (Nb,), max velocity (Nb,))."""
+    """(fast shape mask (S,), bullet bodies (Nb,), max velocity (Nb,)):
+    gate_batched of one world."""
+    return gate_batched(state, bs, dt, 1, state.tuning.enable_continuous)
+
+
+def gate_batched(state: WorldState, bs, dt, n_worlds: int, enable_continuous):
+    """The fast shapes (S,), bullet bodies and max velocities (Nb,) of each
+    world of a flat batched state (broadphase.py, "batched worlds");
+    enable_continuous is the worlds' tuning flag per body, or one flag. A
+    non-bullet fast shape only sweeps against static shapes, a bullet
+    against any non-bullet shape, of its own world; with no such target
+    it never hits."""
     sh = state.shapes
     b = state.bodies
     body = sh.body.long()
+    S = body.shape[0] // n_worlds
     max_velocity = m.length(bs.v) + torch.abs(bs.w) * b.max_extent
     fast_body = ((b.type == DYNAMIC) & b.awake & b.enabled
                  & (max_velocity * dt > 0.5 * b.min_extent)
-                 & state.tuning.enable_continuous)
+                 & enable_continuous)
     bullet_body = fast_body & ((b.flags & IS_BULLET) != 0)
     mask = fast_body[body] & sh.enabled & ~sh.is_sensor
-    # a non-bullet fast shape only sweeps against static shapes, a bullet
-    # against any non-bullet shape; with no such target it never hits
     tgt_bullet = (b.flags[body] & IS_BULLET) != 0
     base_ok = sh.enabled & b.enabled[body] & ~sh.is_sensor & ~tgt_bullet
-    has_static_target = (base_ok & (b.type[body] == STATIC)).any()
-    has_any_target = base_ok.any()
+    per_world = lambda x: x.reshape(n_worlds, S).any(  # noqa: E731
+        dim=1).repeat_interleave(S)
+    has_static_target = per_world(base_ok & (b.type[body] == STATIC))
+    has_any_target = per_world(base_ok)
     mask = mask & torch.where(bullet_body[body], has_any_target,
                               has_static_target)
     return mask, bullet_body, max_velocity

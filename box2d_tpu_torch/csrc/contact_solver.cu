@@ -42,10 +42,18 @@
 // add in L2 leaves v0 + (v - v0), what the twin's index_add_ leaves. Joint
 // segment c and bucket c are one such window, with one barrier behind it.
 // The overflow tail's windows and the overflow color's joint segment share
-// bodies and stay Jacobi windows, each in two phases: phase 1 writes each
-// lane's deltas to scratch, barrier, phase 2 adds them with atomicAdd,
-// barrier; so every tail window reads the body state its predecessor
-// left, as the reference's windows in sequence do. That joint segment is
+// bodies and stay Jacobi windows, each in two phases: phase 1 adds each
+// lane's deltas to its bodies' sums, barrier, phase 2 (a pass over the
+// bodies) adds each body's sums to its velocity, barrier; so every tail
+// window reads the body state its predecessor left, as the reference's
+// windows in sequence do. The sums are fixed point (int64 in units of
+// 2^-32, added with integer atomics), so they come out the same whatever
+// order the lanes add in: a launch gives the same bits every time, and a
+// world in a batched launch the same bits as alone. The twin's index_add_
+// adds floats lane by lane; the two differ by that rounding alone. A delta
+// of 2^30 or more, or one that is not finite, makes its body's velocity
+// NaN. The sums live in jsum, zeroed once by a call that has such
+// windows; phase 2 clears what it adds. That joint segment is
 // cut as the tiled Pallas kernel cuts it: one window per joint type, at
 // most `jwin` lanes each. Static and kinematic endpoints have zero inverse
 // mass; their delta is exactly zero and is not written.
@@ -73,9 +81,15 @@
 // a call takes about (windows per stage x stages) x (that chain + a
 // barrier), a few microseconds a window. Its bound from bytes is three
 // orders of magnitude lower. Keeping the body rows in the cluster's
-// distributed shared memory (a shorter chain), one cluster per world for
-// flat batches, and CUDA graphs around the host-bound step are the next
-// levers (ROADMAP.md section 2).
+// distributed shared memory (a shorter chain) and CUDA graphs around the
+// host-bound step are the next levers (ROADMAP.md section 2).
+//
+// Batches: b2t_contact_solve_batched solves W worlds of one capacity in
+// one launch, the arrays stacked world after world, one cluster of
+// kCluster CTAs a world. Each world runs exactly what a single call on its
+// own arrays runs (its own window table, its own choice of the cluster or
+// CTA 0). A small world frees seven of its CTAs after the prologue, so
+// the clusters the card holds at once do not queue for long.
 //
 // Joints: a jointed world launches the second instance of the kernel
 // (solve_kernel<true>), which sweeps a joint segment with each color's
@@ -98,6 +112,9 @@ constexpr int kCluster = 8;     // CTAs of the cluster
 constexpr int kClusterThreads = kThreads * kCluster;
 constexpr int kMaxColors = 32;   // the coloring's color masks hold 32 bits
 
+constexpr int NF_ROWS = 33;   // rows of data
+constexpr int NA_ROWS = 9;    // rows of acc
+
 enum Row {
   NX = 0, NY, FRICTION, RESTITUTION, TANGENT_SPEED, ROLLING_RES,
   ROLLING_MASS, SOFT_BIAS, SOFT_MASS, SOFT_IMP,
@@ -113,8 +130,10 @@ struct Problem {
   const float* params;
   float* body;
   float* acc;
-  float* scratch;  // (6, scratch_w) per-lane velocity deltas, Jacobi windows
-  int nb, L, chunk, l0, n_colors, nsub, scratch_w;
+  long long* jsum;  // (4, nb): a Jacobi window's sums of each body's
+                    // velocity deltas (rows 0-2, units of 2^-32) and a
+                    // flag for a delta out of range (row 3)
+  int nb, L, chunk, l0, n_colors, nsub;
   int tail_w;      // lanes of a tail window
 };
 
@@ -454,27 +473,81 @@ __device__ void colored_window(const Problem& q, const JointRegion& jr,
   }
 }
 
+constexpr float kFixScale = 4294967296.0f;       // 2^32 units a m/s
+constexpr float kFixUnit = 1.0f / 4294967296.0f;
+constexpr float kFixMax = 1073741824.0f;         // 2^30
+
+// Add one delta to a body's fixed-point sum (d * 2^32 is exact in float,
+// then rounded to an integer; an integer add that returns nothing), or
+// flag it when it is out of range.
+__device__ __forceinline__ void add_fixed(long long* sum, long long* flag,
+                                          float d) {
+  if (fabsf(d) < kFixMax) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(sum),
+              static_cast<unsigned long long>(__float2ll_rn(d * kFixScale)));
+  } else {
+    __stcg(flag, 1ll);
+  }
+}
+
+// Phase 2 of a Jacobi window, over the bodies: each adds its sums to its
+// velocity and clears them (a body no lane of the window touched has sums
+// of zero; a flag turns its velocity to NaN, as a non-finite delta would
+// in a float sum). A thread loads the sums of up to kApply bodies at once,
+// so that their loads overlap, then adds each to its velocity in L2 (an
+// add that returns nothing, so the thread does not wait for it; the only
+// add to that velocity in the pass).
+constexpr int kApply = 4;
+
+__device__ void apply_sums(const Problem& q, const Pass& pass) {
+  const int nb = q.nb;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int base = pass.first; base < nb; base += kApply * pass.step) {
+    long long t[kApply][4];
+#pragma unroll
+    for (int j = 0; j < kApply; ++j) {
+      const int b = base + j * pass.step;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        t[j][r] = b < nb ? __ldcg(q.jsum + r * nb + b) : 0ll;
+    }
+#pragma unroll
+    for (int j = 0; j < kApply; ++j) {
+      const int b = base + j * pass.step;
+      const bool bad = t[j][3] != 0;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        if (t[j][r] == 0 && !bad) continue;
+        atomicAdd(q.body + r * nb + b,
+                  bad ? nan : __ll2float_rn(t[j][r]) * kFixUnit);
+        __stcg(q.jsum + r * nb + b, 0ll);
+      }
+      if (bad) __stcg(q.jsum + 3 * nb + b, 0ll);
+    }
+  }
+}
+
 // A window [lo, lo + n) whose lanes share bodies: every lane reads the
-// body state at the window's start (phase 1 keeps its deltas in scratch),
-// then the deltas are summed in (phase 2). Contact lanes, or joint lanes
-// when kJoint.
+// body state at the window's start and adds its deltas to the bodies'
+// fixed-point sums (phase 1), then each body adds its sums to its
+// velocity (phase 2). Contact lanes, or joint lanes when kJoint.
 template <bool kJoint>
 __device__ void jacobi_window(const Problem& q, const JointRegion& jr,
                               int lo, int n, const Stage& s,
                               const Pass& pass, cg::cluster_group cluster) {
-  const int sw = q.scratch_w;
+  const int nb = q.nb;
+  long long* flag = q.jsum + 3 * nb;
   for (int i = pass.first; i < n; i += pass.step) {
     LaneOut o;
     if (!solve<kJoint>(q, jr, lo + i, s, o)) continue;
-    for (int r = 0; r < 6; ++r) __stcg(q.scratch + r * sw + i, o.d[r]);
+    for (int r = 0; r < 3; ++r) {
+      if (o.dyn_a) add_fixed(q.jsum + r * nb + o.ia, flag + o.ia, o.d[r]);
+      if (o.dyn_b)
+        add_fixed(q.jsum + r * nb + o.ib, flag + o.ib, o.d[3 + r]);
+    }
   }
   pass_barrier(pass, cluster);
-  for (int i = pass.first; i < n; i += pass.step) {
-    LaneOut o;
-    if (!endpoints<kJoint>(q, jr, lo + i, o)) continue;
-    for (int r = 0; r < 6; ++r) o.d[r] = __ldcg(q.scratch + r * sw + i);
-    add_deltas(q.body, q.nb, o);
-  }
+  apply_sums(q, pass);
   pass_barrier(pass, cluster);
 }
 
@@ -499,13 +572,29 @@ __device__ void overflow_joint_windows(const Problem& q,
   }
 }
 
-template <bool kJoints>
+// kBatch: the arrays hold one world after another, each at its own
+// stride, and world w is solved by cluster w of the grid: every world has
+// its own window table, its own on_cluster choice, its own output rows and
+// scratch.
+template <bool kJoints, bool kBatch>
 __global__ void __launch_bounds__(kThreads, 1)
 solve_kernel(Problem q, JointRegion jr, const float* acc_in,
              const float* body_in, const float* jacc_in) {
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const int t0 = cluster_lane(rank);
+  if constexpr (kBatch) {
+    const long w = blockIdx.x / kCluster;
+    q.scal += 8 * w;
+    q.idx += 2 * w * q.L;
+    q.data += long(NF_ROWS) * w * q.L;
+    q.acc += long(NA_ROWS) * w * q.L;
+    acc_in += long(NA_ROWS) * w * q.L;
+    q.body += 8 * w * q.nb;
+    body_in += 8 * w * q.nb;
+    q.params += 12 * w * q.nb;
+    q.jsum += 4 * w * q.nb;
+  }
   __shared__ Table tab;
   Stage s;
   s.h = q.scal[0];
@@ -589,6 +678,13 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
   const Pass pass = on_cluster
       ? Pass{t0, kClusterThreads, true}
       : Pass{static_cast<int>(threadIdx.x), kThreads, false};
+  // The Jacobi windows' sums start at zero, and each window leaves them
+  // so; a call without such windows never touches them.
+  if (tab.end[ncol] > q.l0 || tab.split >= 0) {
+    for (int i = pass.first; i < 4 * q.nb; i += pass.step)
+      __stcg(q.jsum + i, 0ll);
+    pass_barrier(pass, cluster);
+  }
   const int stages = 3 * q.nsub + 1;
   for (int k = 0; k < stages; ++k) {
     s.p = (k == stages - 1) ? 3 : k % 3;
@@ -631,11 +727,12 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
   }
 }
 
-// The launch: one cluster of kCluster CTAs.
+// The launch: one cluster of kCluster CTAs per world, `worlds` worlds (1
+// for a single-world call).
 cudaLaunchConfig_t launch_config(cudaStream_t stream,
-                                 cudaLaunchAttribute* attr) {
+                                 cudaLaunchAttribute* attr, int worlds) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.gridDim = dim3(kCluster * worlds, 1, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -648,14 +745,15 @@ cudaLaunchConfig_t launch_config(cudaStream_t stream,
   return cfg;
 }
 
-template <bool kJoints>
+template <bool kJoints, bool kBatch>
 int launch(const Problem& q, const JointRegion& jr, const float* acc_in,
-           const float* body_in, const float* jacc_in, void* stream) {
+           const float* body_in, const float* jacc_in, int worlds,
+           void* stream) {
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = launch_config(
-      static_cast<cudaStream_t>(stream), attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, solve_kernel<kJoints>, q,
-                                             jr, acc_in, body_in, jacc_in);
+      static_cast<cudaStream_t>(stream), attr, worlds);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, solve_kernel<kJoints, kBatch>, q, jr, acc_in, body_in, jacc_in);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
@@ -663,23 +761,25 @@ int launch(const Problem& q, const JointRegion& jr, const float* acc_in,
 }  // namespace
 
 // Plain C entry points for ctypes. tail_w: the width of the tail's Jacobi
-// windows; scratch_w >= min(L - l0, tail_w) and >= jwin. Each launch is one
-// cluster on `stream`;
+// windows; jsum: (4, nb) int64 of scratch, which the kernel zeroes. Each
+// launch is one cluster on `stream`;
 // it does not synchronise, allocates nothing, and returns the launch's
 // error code (cudaLaunchKernelEx, then cudaGetLastError()).
 
-// The launch shape of solve_kernel<joints>: out[0] CTAs of the cluster,
-// out[1] threads of a CTA, out[2] how many such clusters the card can hold
-// at once (cudaOccupancyMaxActiveClusters; 0: the cluster does not fit).
-extern "C" int b2t_launch_shape(int joints, int* out) {
+// The launch shape of one instance of the kernel (kind 0: contact only,
+// 1: with the joint sweep, 2: the batched contact-only instance): out[0]
+// CTAs of the cluster, out[1] threads of a CTA, out[2] how many such
+// clusters the card can hold at once (cudaOccupancyMaxActiveClusters; 0:
+// the cluster does not fit).
+extern "C" int b2t_launch_shape(int kind, int* out) {
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = launch_config(nullptr, attr);
+  const cudaLaunchConfig_t cfg = launch_config(nullptr, attr, 1);
+  const void* fn =
+      kind == 1 ? reinterpret_cast<void*>(solve_kernel<true, false>)
+      : kind == 2 ? reinterpret_cast<void*>(solve_kernel<false, true>)
+                  : reinterpret_cast<void*>(solve_kernel<false, false>);
   int n = 0;
-  const cudaError_t err = joints
-      ? cudaOccupancyMaxActiveClusters(
-            &n, reinterpret_cast<void*>(solve_kernel<true>), &cfg)
-      : cudaOccupancyMaxActiveClusters(
-            &n, reinterpret_cast<void*>(solve_kernel<false>), &cfg);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
   out[0] = kCluster;
   out[1] = kThreads;
   out[2] = err == cudaSuccess ? n : 0;
@@ -689,14 +789,35 @@ extern "C" int b2t_launch_shape(int joints, int* out) {
 extern "C" int b2t_contact_solve(
     const float* scalars, const int* idx, const float* data,
     const float* acc_in, const float* body_in, const float* params,
-    float* out_body, float* out_acc, float* scratch,
-    int nb, int L, int chunk, int l0, int n_colors, int nsub, int scratch_w,
-    int tail_w, void* stream) {
-  const Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
-                  nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w};
+    float* out_body, float* out_acc, long long* jsum,
+    int nb, int L, int chunk, int l0, int n_colors, int nsub, int tail_w,
+    void* stream) {
+  const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
+                  nb, L, chunk, l0, n_colors, nsub, tail_w};
   const JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
                          0};
-  return launch<false>(q, none, acc_in, body_in, nullptr, stream);
+  return launch<false, false>(q, none, acc_in, body_in, nullptr, 1, stream);
+}
+
+// The contact-only pipeline for `worlds` worlds in one launch. Every array
+// holds one world after another: scalars (W, 8), idx (W, 2, L), data
+// (W, 33, L), acc_in / out_acc (W, 9, L), body_in / out_body (W, 8, nb),
+// params (W, 12, nb), jsum (W, 4, nb); every world has the same
+// nb, L, chunk, l0, n_colors, nsub and tail_w. Each world takes a cluster
+// of kCluster CTAs (gridDim W x kCluster) and chooses the whole cluster or
+// CTA 0 as a single call does.
+extern "C" int b2t_contact_solve_batched(
+    const float* scalars, const int* idx, const float* data,
+    const float* acc_in, const float* body_in, const float* params,
+    float* out_body, float* out_acc, long long* jsum, int worlds,
+    int nb, int L, int chunk, int l0, int n_colors, int nsub, int tail_w,
+    void* stream) {
+  const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
+                  nb, L, chunk, l0, n_colors, nsub, tail_w};
+  const JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
+                         0};
+  return launch<false, true>(q, none, acc_in, body_in, nullptr, worlds,
+                             stream);
 }
 
 // The same pipeline with a joint region: jidx (2, LJ), jdata (39, LJ),
@@ -706,14 +827,14 @@ extern "C" int b2t_contact_solve(
 extern "C" int b2t_contact_solve_joints(
     const float* scalars, const int* idx, const float* data,
     const float* acc_in, const float* body_in, const float* params,
-    float* out_body, float* out_acc, float* scratch,
+    float* out_body, float* out_acc, long long* jsum,
     const int* jidx, const float* jdata, const float* jacc_in,
     const int* jtype, const int* joff, float* out_jacc,
-    int nb, int L, int chunk, int l0, int n_colors, int nsub, int scratch_w,
-    int tail_w, int LJ, int overflow, int jwin, void* stream) {
-  const Problem q{scalars, idx, data, params, out_body, out_acc, scratch,
-                  nb, L, chunk, l0, n_colors, nsub, scratch_w, tail_w};
+    int nb, int L, int chunk, int l0, int n_colors, int nsub, int tail_w,
+    int LJ, int overflow, int jwin, void* stream) {
+  const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
+                  nb, L, chunk, l0, n_colors, nsub, tail_w};
   const JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ, overflow,
                        jwin};
-  return launch<true>(q, jr, acc_in, body_in, jacc_in, stream);
+  return launch<true, false>(q, jr, acc_in, body_in, jacc_in, 1, stream);
 }

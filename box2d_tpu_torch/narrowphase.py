@@ -324,40 +324,77 @@ def empty_cache(P: int, device) -> ContactStore:
 def remap_cache(old_cache: ContactStore, new_ka, new_kb,
                 capacity_pairs: int):
     """Re-align the per-lane contact cache to a rebuilt pair buffer through
-    a transient open-addressed table (box2d_tpu/narrowphase.py:393-484).
-    Returns (new_cache, orphan_mask, drops)."""
+    a transient open-addressed table (box2d_tpu/narrowphase.py:393-484):
+    remap_cache_batched of one world. Returns (new_cache, orphan_mask,
+    drops)."""
+    new_cache, orphan, drops = remap_cache_batched(
+        old_cache, new_ka, new_kb, capacity_pairs, 1, 0)
+    return new_cache, orphan, drops[0]
+
+
+def update_cache(data: ContactData, color=None) -> ContactStore:
+    """This step's pair-order results become the per-lane cache."""
+    touching = (data.manifold.point_count > 0) & (data.key_a >= 0)
+    if color is None:
+        color = torch.full_like(data.key_a, -1)
+    return ContactStore(
+        key_a=data.key_a, key_b=data.key_b, ids=data.manifold.ids,
+        normal_impulse=data.normal_impulse,
+        tangent_impulse=data.tangent_impulse,
+        rolling_impulse=data.rolling_impulse,
+        touching=touching,
+        color=torch.where(touching, color, -1),
+    )
+
+
+def remap_cache_batched(old_cache: ContactStore, new_ka, new_kb,
+                        capacity_pairs: int, n_worlds: int, n_shapes: int):
+    """The contact store's remap of each world of a flat batched state
+    (broadphase.py, "batched worlds"): the keys are flat shape ids, world
+    w's lanes are [w * P, (w + 1) * P). Old lanes probe-insert into a
+    transient open-addressed table (each round, pending lanes claim their
+    slot if it was empty before the round; races resolve by the lowest
+    lane id), then each new key looks its old lane up. Each world probes
+    its own table of the same size with its own local keys, so its slots,
+    races and drops are those of a single world. Returns (new_cache,
+    orphan_mask, drops (W,))."""
     t = table_size(capacity_pairs)
     ka, kb = old_cache.key_a, old_cache.key_b
-    P = ka.shape[0]
+    n = ka.shape[0]
+    P = n // n_worlds
     dev = ka.device
-    lane = torch.arange(P, dtype=torch.int32, device=dev)
+    lane = torch.arange(n, dtype=torch.int32, device=dev)
+    world = lane.long() // P
+    soff = world * n_shapes
+    local = lambda k: torch.where(k >= 0, k - soff, -1)  # noqa: E731
+    toff = (world * t)[:, None]
+    spare = n_worlds * t
     live = ka >= 0
     big = 1 << 30
 
-    # probe-insert old lanes: each round, pending lanes claim their slot if
-    # it was empty before the round; races resolve by the lowest lane id
-    slots = _probe_slots(ka, kb, t)
-    tbl_lane = torch.full((t + 1,), big, dtype=torch.int32, device=dev)
-    slot_of = torch.full((P,), -1, dtype=torch.int64, device=dev)
+    slots = _probe_slots(local(ka), local(kb), t) + toff
+    tbl_lane = torch.full((spare + 1,), big, dtype=torch.int32, device=dev)
+    slot_of = torch.full((n,), -1, dtype=torch.int64, device=dev)
     for r in range(_PROBES):
         s_r = slots[:, r]
         pend = live & (slot_of < 0)
         cand = pend & (tbl_lane[s_r] == big)
         tbl_lane = tbl_lane.scatter_reduce(
-            0, torch.where(cand, s_r, t), torch.where(cand, lane, big),
+            0, torch.where(cand, s_r, spare), torch.where(cand, lane, big),
             reduce="amin")
         won = cand & (tbl_lane[s_r] == lane)
         slot_of = torch.where(won, s_r, slot_of)
-    drops = (live & (slot_of < 0)).sum().to(torch.int32)
+    drops = (live & (slot_of < 0)).reshape(n_worlds, P).sum(dim=1).to(
+        torch.int32)
 
     rows = torch.stack([lane, ka, kb], dim=1)
-    tbl = torch.full((t + 1, 3), -1, dtype=torch.int32, device=dev)
-    tbl[torch.where(slot_of >= 0, slot_of, t)] = rows
-    tbl[t] = -1   # lanes without a slot wrote the spare row
+    tbl = torch.full((spare + 1, 3), -1, dtype=torch.int32, device=dev)
+    tbl[torch.where(slot_of >= 0, slot_of, spare)] = rows
+    tbl[spare] = -1
 
-    nslots = _probe_slots(new_ka, new_kb, t)
+    nslots = _probe_slots(local(new_ka), local(new_kb), t) + toff
     live_new = new_ka >= 0
-    old_lane_s = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    old_lane_s = torch.full((n,), -1, dtype=torch.int32, device=dev)
     for r in range(_PROBES):
         row = tbl[nslots[:, r]]
         ok = (live_new & (old_lane_s < 0)
@@ -379,23 +416,8 @@ def remap_cache(old_cache: ContactStore, new_ka, new_kb,
         touching=f & old_cache.touching[old_lane],
         color=torch.where(f, old_cache.color[old_lane], -1),
     )
-    claimed = torch.zeros(P + 1, dtype=torch.bool, device=dev)
-    claimed[torch.where(found, old_lane, P)] = True
-    claimed[P] = False
-    orphan = live & old_cache.touching & ~claimed[:P]
+    claimed = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+    claimed[torch.where(found, old_lane, n)] = True
+    claimed[n] = False
+    orphan = live & old_cache.touching & ~claimed[:n]
     return new_cache, orphan, drops
-
-
-def update_cache(data: ContactData, color=None) -> ContactStore:
-    """This step's pair-order results become the per-lane cache."""
-    touching = (data.manifold.point_count > 0) & (data.key_a >= 0)
-    if color is None:
-        color = torch.full_like(data.key_a, -1)
-    return ContactStore(
-        key_a=data.key_a, key_b=data.key_b, ids=data.manifold.ids,
-        normal_impulse=data.normal_impulse,
-        tangent_impulse=data.tangent_impulse,
-        rolling_impulse=data.rolling_impulse,
-        touching=touching,
-        color=torch.where(touching, color, -1),
-    )

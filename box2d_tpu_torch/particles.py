@@ -14,13 +14,19 @@ velocity, the anti-tunnel ray (the slab ray where every shape is a
 polygon, else queries.ray_shape_analytic), lifetimes, integration,
 the single un-sort and stuck detection.
 
+With more nearby shapes than `block_shape_slots` (a flat batch of
+replicated tanks), the body coupling and the polygon anti-tunnel ray take
+per-block shape culling (box2d_tpu/particles.py:679-729, :900-959,
+:985-994): each block of 256 sorted particles couples with its own top-K
+shapes whose fattened boxes overlap it, instead of with every nearby
+shape.
+
 The port always takes K3 for the neighbour passes; the JAX package does so
 only on an accelerator with at least 2048 particles and otherwise runs
 the windowed `_find_contacts_sorted` pipeline, which agrees with K3
 wherever the windows do not truncate. The flag-gated passes, pairs and
-triads, solid and rigid groups, per-block shape culling and the windowed
-pipeline are not ported: they raise NotImplementedError naming their
-ROADMAP.md item.
+triads, solid and rigid groups and the windowed pipeline are not ported:
+they raise NotImplementedError naming their ROADMAP.md item.
 
 PyTorch runs eagerly: the `lax.scan` over sub-iterations is a Python loop,
 and the rank repair's `lax.cond` is a host branch on one device read per
@@ -188,8 +194,6 @@ def unported(cfg: ParticleConfig, n_shapes: int) -> str | None:
             return f"the particle {gate} pass: {_REMAINDER}"
     if not cfg.use_window_kernel:
         return f"the windowed _find_contacts_sorted pipeline: {_REMAINDER}"
-    if min(cfg.max_body_shapes, n_shapes) > cfg.block_shape_slots:
-        return f"per-block body-shape culling: {_REMAINDER}"
     return None
 
 
@@ -457,14 +461,23 @@ def _ray_polygon_batched(pos, delta, s_origin, s_rot, verts, normals,
 
 
 def _tunnel_polygons(pos, vel, dt, inv_dt, alive, bs_valid, s_origin,
-                     s_rot, s_verts, s_normals, s_count):
+                     s_rot, s_verts, s_normals, s_count, cull=None):
     """The anti-tunnel ray of a world whose shapes are all polygons: the
     slab ray against the nearby shapes (box2d_tpu/particles.py:1657-1695),
-    the velocity clamped at the first nearest hit."""
+    or, under per-block culling (`cull`, a BlockShapes), against each
+    block's own shapes (:1660-1679); the velocity clamped at the first
+    nearest hit."""
     step_v = dt * vel
-    hit, frac, wnx, wny = _ray_polygon_batched(
-        pos, step_v, s_origin, s_rot, s_verts, s_normals, s_count)
-    hit = hit & bs_valid[None, :] & alive[:, None]
+    if cull is None:
+        hit, frac, wnx, wny = _ray_polygon_batched(
+            pos, step_v, s_origin, s_rot, s_verts, s_normals, s_count)
+        hit = hit & bs_valid[None, :] & alive[:, None]
+    else:
+        dvp = cull.pad(step_v, 0.0)
+        hit, frac, wnx, wny = (cull.flat(x) for x in torch.vmap(
+            _ray_polygon_batched)(cull.posp, dvp, cull.origin, cull.rot,
+                                  cull.verts, cull.normals, cull.count))
+        hit = hit & cull.expand(cull.ok) & alive[:, None]
     frac = torch.where(hit, frac, math.inf)
     fbest, hidx = frac.min(dim=1)      # the first nearest hit
     any_hit = torch.isfinite(fbest)
@@ -508,6 +521,113 @@ def _tunnel_analytic(pos, vel, dt, inv_dt, alive, bs_valid, s_origin, s_rot,
 
 
 # ---------------------------------------------------------------------------
+# per-block shape culling
+# ---------------------------------------------------------------------------
+
+CULL_BLK = 256   # sorted particles per culling block (particles.py:77)
+
+
+class BlockShapes(NamedTuple):
+    """The shapes each block of CULL_BLK sorted particles couples with this
+    sub-iteration: K slots a block, rows (NBlk, K, ...) gathered from the
+    per-shape table (box2d_tpu/particles.py:900-959). `ok` marks the
+    filled slots; `body` is the slot's body lane, nb for an empty one."""
+
+    n: int
+    posp: Any       # (NBlk, BLK, 2) positions, padding at 1e9
+    ok: Any         # (NBlk, K)
+    body: Any       # (NBlk, K) i64
+    origin: Any
+    rot: Any
+    center: Any
+    v: Any
+    w: Any
+    invm: Any       # 0 in an empty slot
+    invI: Any
+    dyn: Any        # False in an empty slot
+    radius: Any
+    count: Any
+    verts: Any
+    normals: Any
+    over: Any       # overlapping shapes beyond K, summed over blocks
+
+    def pad(self, x, fill):
+        """(n, ...) per-particle rows -> (NBlk, BLK, ...)."""
+        nblk, blk = self.posp.shape[:2]
+        extra = torch.full((nblk * blk - self.n,) + tuple(x.shape[1:]), fill,
+                           dtype=x.dtype, device=x.device)
+        return torch.cat([x, extra]).reshape((nblk, blk) + tuple(x.shape[1:]))
+
+    def flat(self, x):
+        """(NBlk, BLK, K, ...) per-(particle, slot) values -> (n, K, ...)."""
+        return x.reshape((-1,) + tuple(x.shape[2:]))[:self.n]
+
+    def expand(self, a):
+        """(NBlk, K, ...) block rows -> (n, K, ...) per particle."""
+        nblk, blk = self.posp.shape[:2]
+        out = a[:, None].expand((nblk, blk) + tuple(a.shape[1:]))
+        return out.reshape((nblk * blk,) + tuple(a.shape[1:]))[:self.n]
+
+    def block_sum(self, x):
+        """(n, K, ...) per-(particle, slot) values summed per block:
+        (NBlk, K, ...)."""
+        return self.pad(x, 0.0).sum(dim=1)
+
+
+def _shape_table(s_origin, s_rot, s_center, s_v, s_w, s_invm, s_invI, s_dyn,
+                 s_radius, s_count, s_verts, s_normals):
+    """The packed per-shape rows (Sb, 14 + 4V) that the culling gathers
+    (box2d_tpu/particles.py:718-729)."""
+    sb = s_verts.shape[0]
+    return torch.cat([
+        s_origin, s_rot, s_center, s_v, s_w[:, None], s_invm[:, None],
+        s_invI[:, None], s_dyn.float()[:, None], s_radius[:, None],
+        s_count.float()[:, None], s_verts.reshape(sb, -1),
+        s_normals.reshape(sb, -1)], dim=1)
+
+
+def _block_shapes(pos, alive, s_fatbox, bs_valid, shape_tab, p_body, k: int,
+                  nb: int) -> BlockShapes:
+    """Each block's top-k overlapping shapes, lowest nearby-shape slot
+    first (box2d_tpu/particles.py:900-944)."""
+    n = pos.shape[0]
+    nblk = -(-n // CULL_BLK)
+    npad = nblk * CULL_BLK - n
+    dev = pos.device
+    posp = torch.cat([pos, torch.full((npad, 2), 1e9, device=dev)]).reshape(
+        nblk, CULL_BLK, 2)
+    alivep = torch.cat([alive, torch.zeros(npad, dtype=torch.bool,
+                                           device=dev)]).reshape(nblk,
+                                                                 CULL_BLK)
+    blk_lo = torch.where(alivep[..., None], posp, math.inf).min(dim=1).values
+    blk_hi = torch.where(alivep[..., None], posp, -math.inf).max(dim=1).values
+    ov = ((blk_lo[:, None, 0] <= s_fatbox[None, :, 2])
+          & (s_fatbox[None, :, 0] <= blk_hi[:, None, 0])
+          & (blk_lo[:, None, 1] <= s_fatbox[None, :, 3])
+          & (s_fatbox[None, :, 1] <= blk_hi[:, None, 1])
+          & bs_valid[None, :])                              # (NBlk, Sb)
+    sb = s_fatbox.shape[0]
+    score = torch.where(ov, sb - torch.arange(sb, device=dev)[None, :], 0)
+    top, _ = _top_k(score, k)
+    ok = top > 0
+    j = torch.where(ok, sb - top, 0)
+    over = torch.clamp(ov.sum(dim=1) - k, min=0).sum().to(torch.int32)
+    rows = shape_tab[j.reshape(-1)].reshape(nblk, k, -1)
+    v = (rows.shape[2] - 14) // 4
+    return BlockShapes(
+        n=n, posp=posp, ok=ok,
+        body=torch.where(ok, p_body[j], nb),
+        origin=rows[..., 0:2], rot=rows[..., 2:4], center=rows[..., 4:6],
+        v=rows[..., 6:8], w=rows[..., 8],
+        invm=torch.where(ok, rows[..., 9], 0.0),
+        invI=torch.where(ok, rows[..., 10], 0.0),
+        dyn=(rows[..., 11] > 0) & ok, radius=rows[..., 12],
+        count=rows[..., 13].to(torch.int32),
+        verts=rows[..., 14:14 + 2 * v].reshape(nblk, k, v, 2),
+        normals=rows[..., 14 + 2 * v:].reshape(nblk, k, v, 2), over=over)
+
+
+# ---------------------------------------------------------------------------
 # the particle step
 # ---------------------------------------------------------------------------
 
@@ -531,7 +651,9 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
     """One full particle update (ref: Solve :1512-1564;
     box2d_tpu/particles.py:642-1447). Returns (particles, body_dv (Nb, 2),
     body_dw (Nb,), neighbor_overflow): K3 never truncates, so the overflow
-    is the nearby shapes beyond max_body_shapes.
+    is the nearby shapes beyond max_body_shapes plus, under per-block
+    culling, the most overlapping shapes beyond the blocks' slots in any
+    sub-iteration.
 
     stats: a world.StepStats; counts the rank-repair reads and which branch
     each sub-iteration took (rank_repairs / full_sorts)."""
@@ -600,18 +722,46 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
     s_count = sh.count[bs_idx]
     s_radius = sh.radius[bs_idx]
 
+    # per-block culling when the nearby shapes outnumber a block's slots:
+    # the shapes' boxes grown by the coupling radius and one diameter of
+    # travel (a particle moves under a diameter a sub-iteration)
+    sb = bs_idx.shape[0]
+    use_cull = sb > cfg.block_shape_slots
+    if use_cull:
+        marg = prm.radius + diameter + PARTICLE_LINEAR_SLOP
+        s_boxes = boxes[bs_idx]
+        s_fatbox = torch.where(
+            bs_valid[:, None],
+            torch.cat([s_boxes[:, :2] - marg, s_boxes[:, 2:] + marg], dim=1),
+            math.inf)
+        shape_tab = _shape_table(s_origin, s_rot, s_center, s_v, s_w, s_invm,
+                                 s_invI, s_dyn, s_radius, s_count, s_verts,
+                                 s_normals)
+    cull_over = torch.zeros((), dtype=torch.int32, device=dev)
+
     body_dv = torch.zeros((nb, 2), dtype=torch.float32, device=dev)
     body_dw = torch.zeros(nb, dtype=torch.float32, device=dev)
     polygons_only = (cfg.geom_types is not None
                      and cfg.geom_types <= {POLYGON})
 
-    def apply_body_impulse(dv, dw, impulse, active):
-        """Sum the (n, Sb, 2) per-contact impulses per shape, then add them
-        to the shapes' bodies (the dense branch, particles.py:996-999)."""
-        imp = torch.where((active & s_dyn[None, :])[..., None], impulse, 0.0)
-        ang = m.cross(pos[:, None, :] - s_center[None, :, :], imp)
-        dv = dv.index_add(0, p_body, imp.sum(dim=0) * s_invm[:, None])
-        dw = dw.index_add(0, p_body, s_invI * ang.sum(dim=0))
+    def apply_body_impulse(dv, dw, impulse, active, cull, e_dyn, e_center):
+        """Sum the (n, C, 2) per-contact impulses per shape (dense, C = Sb)
+        or per (block, slot) (culled, C = K), then add them to the shapes'
+        bodies (box2d_tpu/particles.py:985-999). The culled rows come in
+        through `cull`, never from an enclosing scope."""
+        imp = torch.where((active & e_dyn)[..., None], impulse, 0.0)
+        ang = m.cross(pos[:, None, :] - e_center, imp)
+        if cull is None:
+            dv = dv.index_add(0, p_body, imp.sum(dim=0) * s_invm[:, None])
+            dw = dw.index_add(0, p_body, s_invI * ang.sum(dim=0))
+            return dv, dw
+        # empty slots add into a spare row nb (JAX mode="drop")
+        tgt = cull.body.reshape(-1)
+        dv = torch.cat([dv, dv[:1]]).index_add(
+            0, tgt, (cull.block_sum(imp) * cull.invm[..., None]).reshape(
+                -1, 2))[:nb]
+        dw = torch.cat([dw, dw[:1]]).index_add(
+            0, tgt, (cull.invI * cull.block_sum(ang)).reshape(-1))[:nb]
         return dv, dw
 
     # the carry stays in the PREVIOUS sub-iteration's sorted order; s2o maps
@@ -665,16 +815,35 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         zcol = torch.zeros(n, dtype=torch.float32, device=dev)
         w_pairs = pk.window_pass(pos_c, skey, alive, zcol, zcol, scal_k, pk.PH_WEIGHT)[:, 0]
 
-        # ---- body contacts (ref UpdateBodyContacts), dense over Sb ----
-        bdist, bnrm = _point_shape_distance_batched(
-            pos, s_origin, s_rot, s_verts, s_normals, s_count, s_radius)
-        bc_ok = (bdist < prm.radius) & alive[:, None] & bs_valid[None, :]
+        # ---- body contacts (ref UpdateBodyContacts): dense over Sb, or
+        # each block's K culled shapes ----
+        if use_cull:
+            cull = _block_shapes(pos, alive, s_fatbox, bs_valid, shape_tab,
+                                 p_body, cfg.block_shape_slots, nb)
+            bdist, bnrm = (cull.flat(x) for x in torch.vmap(
+                _point_shape_distance_batched)(
+                    cull.posp, cull.origin, cull.rot, cull.verts,
+                    cull.normals, cull.count, cull.radius))
+            bc_valid = cull.expand(cull.ok)
+            e_center, e_v, e_w = (cull.expand(cull.center),
+                                  cull.expand(cull.v), cull.expand(cull.w))
+            e_invm, e_invI = cull.expand(cull.invm), cull.expand(cull.invI)
+            e_dyn = cull.expand(cull.dyn)
+            cull_over = torch.maximum(cull_over, cull.over)
+        else:
+            cull = None
+            bdist, bnrm = _point_shape_distance_batched(
+                pos, s_origin, s_rot, s_verts, s_normals, s_count, s_radius)
+            bc_valid = bs_valid[None, :]
+            e_center, e_v, e_w = s_center[None, :, :], s_v[None], s_w[None]
+            e_invm, e_invI, e_dyn = s_invm[None], s_invI[None], s_dyn[None]
+        bc_ok = (bdist < prm.radius) & alive[:, None] & bc_valid
         bc_n = -bnrm
         bc_w = torch.where(bc_ok, 1.0 - bdist * inv_diameter * 2.0, 0.0)
-        rpn = m.cross(pos[:, None, :] - s_center[None, :, :], bnrm)
+        rpn = m.cross(pos[:, None, :] - e_center, bnrm)
         wall = (flags & P_WALL) != 0
         inv_m_c = (torch.where(wall, 0.0, inv_mass)[:, None]
-                   + s_invm[None, :] + s_invI[None, :] * rpn * rpn)
+                   + e_invm + e_invI * rpn * rpn)
         bc_mass = torch.where(
             inv_m_c > 0, 1.0 / torch.where(inv_m_c > 0, inv_m_c, 1.0), 0.0)
         bc_mass = torch.where(bc_ok, bc_mass, 0.0)
@@ -701,13 +870,13 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
               * (accum[:, None] + ppw * bc_w))[..., None] * bc_n
         fb = torch.where(bc_ok[..., None], fb, 0.0)
         vel = vel - inv_mass * fb.sum(dim=1)
-        body_dv, body_dw = apply_body_impulse(body_dv, body_dw, fb, bc_ok)
+        body_dv, body_dw = apply_body_impulse(body_dv, body_dw, fb, bc_ok,
+                                              cull, e_dyn, e_center)
         vel = vel + pk.window_pass(pos_c, skey, alive, accum.contiguous(),
                                    zcol, scal_k, pk.PH_PRESSURE)
 
         # ---- damping (ref SolveDamping) ----
-        vrel = (s_v[None, :, :]
-                + m.cross_sv(s_w[None, :], pos[:, None, :] - s_center[None]))
+        vrel = e_v + m.cross_sv(e_w, pos[:, None, :] - e_center)
         vn = m.dot(vrel - vel[:, None, :], bc_n)
         damp = torch.maximum(lin_d * bc_w,
                              torch.clamp(-quad_d * vn, max=0.5))
@@ -716,7 +885,8 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         fb = torch.where(approach[..., None], fb, 0.0)
         vel = vel + inv_mass * fb.sum(dim=1)
         body_dv, body_dw = apply_body_impulse(body_dv, body_dw, -fb,
-                                              approach)
+                                              approach, cull, e_dyn,
+                                              e_center)
         vel = vel + pk.window_pass(pos_c, skey, alive,
                                    vel[:, 0].contiguous(),
                                    vel[:, 1].contiguous(), scal_k,
@@ -732,7 +902,7 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         if polygons_only:
             vel = _tunnel_polygons(pos, vel, dt, inv_dt, alive, bs_valid,
                                    s_origin, s_rot, s_verts, s_normals,
-                                   s_count)
+                                   s_count, cull)
         else:
             vel = _tunnel_analytic(pos, vel, dt, inv_dt, alive, bs_valid,
                                    s_origin, s_rot, sh.type[bs_idx],
@@ -767,4 +937,4 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         force=torch.zeros_like(pt.force),
         consecutive_contact_steps=torch.where(
             stuck_now, pt.consecutive_contact_steps + 1, 0).to(torch.int32))
-    return out, body_dv, body_dw, shape_overflow
+    return out, body_dv, body_dw, shape_overflow + cull_over

@@ -2,8 +2,8 @@
 barrage and the dam break.
 
 Port of box2d_tpu/scenes.py `pyramid` (:19-36), `tumbler` (:39-63),
-`joint_farm` (:65-106), `bullet_barrage` (:109-126) and `dam_break`
-(:128-145).
+`joint_farm` (:65-106), `bullet_barrage` (:109-126), `dam_break`
+(:128-145) and `replicate` (:148-234), the flat batch.
 The other scenes come with the slices that step them (ROADMAP.md queue).
 Like every entry point of the port, a scene is built on the card unless the
 caller names another device.
@@ -12,6 +12,8 @@ caller names another device.
 from __future__ import annotations
 
 import math
+
+import numpy as np
 
 from . import geometry as g
 from . import types as t
@@ -153,3 +155,81 @@ def dam_break(particles_target: int = 2000, substeps: int = 4,
     ps.create_group_box(center=(-4.0 + side / 2 + 0.3, side / 2 + 0.05),
                         half_w=side / 2, half_h=side / 2)
     return w
+
+
+def replicate(base: World, n: int, spacing: float | None = None) -> World:
+    """Tile `n` copies of a scene into ONE world, spatially offset: the flat
+    batch. It steps as one world through the same step and kernels; the
+    copies never overlap, so the broadphase finds no pair across copies
+    and the particle cell keys none either. Copy k holds the bodies,
+    shapes and joints of index range k * (n_bodies, n_shapes, n_joints)
+    of the base scene, and its particles and groups likewise.
+
+    The copies sit on a near-square grid, not a line: the grid broadphase
+    sorts by cell row, and a line of copies would put every copy's boxes
+    into the same rows, where the block-tile window overflows once a row
+    run passes Capacity.bp_tile."""
+    bb = base.builder
+    pb = bb._particle_builder
+    lo_y, hi_y = 1e30, -1e30
+    for b in bb._bodies:
+        lo_y = min(lo_y, float(b["position"][1]))
+        hi_y = max(hi_y, float(b["position"][1]))
+    if pb is not None and pb.pos:
+        pp = np.asarray(pb.pos, np.float32)
+        lo_y = min(lo_y, float(pp[:, 1].min()))
+        hi_y = max(hi_y, float(pp[:, 1].max()))
+    if spacing is None:
+        lo, hi = 1e30, -1e30
+        for b in bb._bodies:
+            lo = min(lo, float(b["position"][0]))
+            hi = max(hi, float(b["position"][0]))
+        if pb is not None and pb.pos:
+            lo = min(lo, float(pp[:, 0].min()))
+            hi = max(hi, float(pp[:, 0].max()))
+        # the scene's x extent with a margin for the widest shape
+        spacing = max(2.0 * (hi - lo + 10.0), 20.0)
+    cols = int(math.ceil(math.sqrt(n)))
+    spacing_y = max(2.0 * (hi_y - lo_y + 10.0), 20.0)
+
+    out = World(bb.def_, substeps=base.substeps, device=base.device)
+    nb = len(bb._bodies)
+    for k in range(n):
+        dx = (k % cols) * spacing
+        dy = (k // cols) * spacing_y
+        for b in bb._bodies:
+            nbod = dict(b)
+            nbod["position"] = b["position"] + np.array([dx, dy], np.float32)
+            nbod["mass_center"] = b["mass_center"].copy()
+            out.builder._bodies.append(nbod)
+        off = k * nb
+        for s in bb._shapes:
+            ns = dict(s)
+            ns["body"] = s["body"] + off
+            out.builder._shapes.append(ns)
+        for j in bb._joints:
+            nj = dict(j)
+            nj["body_a"] = j["body_a"] + off
+            nj["body_b"] = j["body_b"] + off
+            out.builder._joints.append(nj)
+
+    # the particles tile the same way, one sorted particle table serving
+    # every copy (pairs and triads are not ported: the builder refuses them)
+    if pb is not None:
+        opb = out.builder.create_particle_system(pb.radius, pb.density)
+        ngrp = len(pb.group_flags)
+        for k in range(n):
+            dxy = np.array([(k % cols) * spacing,
+                            (k // cols) * spacing_y], np.float32)
+            off_g = k * ngrp
+            for i in range(len(pb.pos)):
+                opb.pos.append(pb.pos[i] + dxy)
+                opb.vel.append(pb.vel[i])
+                opb.flags.append(pb.flags[i])
+                opb.group.append(pb.group[i] + off_g
+                                 if pb.group[i] >= 0 else -1)
+                opb.lifetime.append(pb.lifetime[i])
+                opb.color.append(pb.color[i])
+            opb.group_flags.extend(pb.group_flags)
+            opb.group_strength.extend(pb.group_strength)
+    return out

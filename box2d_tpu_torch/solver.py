@@ -72,7 +72,8 @@ def prepare_contacts(state: WorldState, data: ContactData, color, h: float,
                      inv_h: float) -> ContactConstraints:
     """ref: src/ContactSolver.cs:40-115. Body operands come from the narrow
     phase's packed rows (data.dyn_a/dyn_b). h and inv_h are float32 values
-    held in Python floats."""
+    held in Python floats. The tuning's contact fields are 0-d, or one per
+    pair lane (a flat batch of worlds, batch.py)."""
     tn = state.tuning
     man = data.manifold
     da, db = data.dyn_a, data.dyn_b
@@ -123,6 +124,7 @@ def prepare_contacts(state: WorldState, data: ContactData, color, h: float,
     rel_v = m.dot(nrm, vr_b - vr_a)
 
     warm = torch.where(tn.enable_warm_starting, 1.0, 0.0)
+    warm2 = warm[..., None]
     lane = torch.arange(2, device=normal.device)[None, :]
     point_mask = lane < man.point_count[:, None]
     return ContactConstraints(
@@ -135,8 +137,8 @@ def prepare_contacts(state: WorldState, data: ContactData, color, h: float,
         normal_mass=_safe_recip(k_n), tangent_mass=_safe_recip(k_t),
         relative_velocity=rel_v, point_mask=point_mask,
         inv_mass_a=ma, inv_mass_b=mb, inv_i_a=ia, inv_i_b=ib, color=color,
-        normal_impulse=warm * data.normal_impulse * point_mask,
-        tangent_impulse=warm * data.tangent_impulse * point_mask,
+        normal_impulse=warm2 * data.normal_impulse * point_mask,
+        tangent_impulse=warm2 * data.tangent_impulse * point_mask,
         total_normal_impulse=torch.zeros_like(data.normal_impulse),
         rolling_impulse=warm * data.rolling_impulse,
     )
@@ -181,14 +183,15 @@ def pack_constraints_pairs(cc: ContactConstraints, relax=None):
 
 
 def pack_bodies(b, bs: BodySolverState, tuning, h: float, inv_dt: float):
-    """Bodies + solver state -> (body (8, Nb), params (12, Nb))."""
+    """Bodies + solver state -> (body (8, Nb), params (12, Nb)); the
+    tuning's gravity is (2,), or (Nb, 2) one per body (batch.py)."""
     pos_active = ((b.type != STATIC) & b.awake & b.enabled).float()
     vel_active = ((b.type == DYNAMIC) & b.awake & b.enabled).float()
     body = torch.stack([bs.v[:, 0], bs.v[:, 1], bs.w, bs.dp[:, 0],
                         bs.dp[:, 1], bs.dq[:, 0], bs.dq[:, 1], pos_active])
     g_scale = torch.where(b.inv_mass > 0, b.gravity_scale, 0.0)
     ext_dv = h * (b.inv_mass[:, None] * b.force
-                  + g_scale[:, None] * tuning.gravity[None, :])
+                  + g_scale[:, None] * tuning.gravity.reshape(-1, 2))
     ext_dw = h * b.inv_inertia * b.torque
     # float32 product, as the JAX code forms it from a traced inv_dt
     max_w = float(np.float32(MAX_ROTATION) * np.float32(inv_dt))

@@ -401,3 +401,40 @@ def state_from_numpy(leaves: dict, device) -> WorldState:
 
     tree.setdefault("particles", None)
     return make(WorldState, tree)
+
+
+# ---------------------------------------------------------------------------
+# batched states: a leading world axis on every tensor
+# ---------------------------------------------------------------------------
+
+def map_state(fn, *trees):
+    """Apply fn leaf by leaf over dataclass trees of the same structure
+    (None leaves stay None): fn(*tensors) -> tensor."""
+    first = trees[0]
+    if first is None:
+        return None
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: map_state(fn, *(getattr(t, f.name) for t in trees))
+            for f in dataclasses.fields(first)})
+    return fn(*trees)
+
+
+def broadcast_state(state, n_worlds: int):
+    """A batch of n_worlds copies of `state`: every tensor gains a leading
+    world axis (the counterpart of jax.tree.map(lambda x:
+    jnp.broadcast_to(x, (W,) + x.shape), state) in the JAX package's
+    bench)."""
+    return map_state(lambda x: x.expand((n_worlds,) + tuple(x.shape))
+                     .contiguous(), state)
+
+
+def stack_states(states):
+    """A batch of the given states (one capacity): leaf by leaf, stacked on
+    a new leading world axis."""
+    return map_state(lambda *xs: torch.stack(xs), *states)
+
+
+def unstack_state(batch, w: int):
+    """World w of a batch, as a single-world state."""
+    return map_state(lambda x: x[w], batch)

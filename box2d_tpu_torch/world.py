@@ -45,7 +45,8 @@ from .solver import (BodySolverState, finalize_bodies, pack_bodies,
                      pack_constraints_pairs, prepare_contacts, unpack_bodies)
 from .state import (DYNAMIC, JOINT_DISTANCE, JOINT_FILTER, JOINT_PRISMATIC,
                     JOINT_REVOLUTE, JOINT_WHEEL, Capacity, Profile,
-                    WorldState, auto_chunk, zero_events, zero_profile)
+                    WorldState, auto_chunk, map_state, zero_events,
+                    zero_profile)
 
 
 class StepStats:
@@ -147,6 +148,17 @@ def make_step(capacity: Capacity, classes_present: frozenset,
                 particle_cfg, sensor_ids, mode, custom_filter, pre_solve)
 
 
+def make_batched_step(capacity: Capacity, classes_present: frozenset,
+                      substeps: int = 4, continuous: bool = True, **refused):
+    """The step of a batch of worlds of one configuration, each tensor of
+    its state with a leading world axis: the counterpart of jax.vmap of
+    the JAX step (batch.py, which refuses joints, particles, sensors and
+    hooks through `refused`)."""
+    from .batch import make_batched_step as make
+
+    return make(capacity, classes_present, substeps, continuous, **refused)
+
+
 def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
           substeps: int, continuous: bool, syncs: StepStats,
           light_events: bool = False,
@@ -233,6 +245,53 @@ def _scatter_rows(rows, idx, n, fill):
     return out[:n]
 
 
+def overflow_relax(ovf, body_a, body_b, n_bodies: int):
+    """The mass-splitting scale of the overflow color (box2d_tpu/world.py:
+    308-321): for each lane of `ovf` (any shape; a world's lanes, or W
+    worlds' as (W, N)), 1 / the larger count of overflow lanes at either
+    of its bodies, 1 off the overflow color. body ids index one body axis
+    of n_bodies (a batch's offset ids: each world counts its own)."""
+    ovf_f = ovf.reshape(-1)
+    ovf2 = torch.cat([ovf_f, ovf_f])
+    both = torch.cat([body_a.reshape(-1), body_b.reshape(-1)]).long()
+    deg = torch.zeros(n_bodies + 1, dtype=torch.float32, device=ovf.device)
+    deg.index_add_(0, torch.where(ovf2, both, n_bodies),
+                   torch.ones_like(both, dtype=torch.float32))
+    deg2 = deg[both % (n_bodies + 1)]
+    k = ovf_f.shape[0]
+    cdeg = torch.clamp(torch.maximum(deg2[:k], deg2[k:]), min=1.0)
+    return torch.where(ovf, 1.0 / cdeg.reshape(ovf.shape), 1.0)
+
+
+def color_layout(color, num_colors, overflow_colors, max_colors: int,
+                 chunk: int):
+    """The color-bucket layout (box2d_tpu/world.py:337-378) of W worlds'
+    pair lanes: color (W, P), num_colors and overflow_colors (W,). A lane
+    of color c takes slot c * chunk + its rank in c; lanes past a bucket's
+    chunk, and the overflow color's when the coloring overflowed, go to
+    the overflow tail at l0 in lane order. Returns (layout_idx (W, P),
+    layout_len for a lane left out; l0; layout_len)."""
+    p = color.shape[1]
+    l0 = max_colors * chunk
+    ovf_cap = ((min(p, 2 * chunk) + chunk - 1) // chunk) * chunk
+    layout_len = l0 + ovf_cap
+    onehot = color[..., None] == torch.arange(max_colors,
+                                              device=color.device)
+    ranks = torch.cumsum(onehot.to(torch.int32), 1, dtype=torch.int32)
+    slot = torch.where(onehot, ranks, 0).sum(dim=2) - 1
+    is_ovf_lane = ((((color == (num_colors - 1)[:, None])
+                     & (overflow_colors > 0)[:, None])
+                    | (slot >= chunk)) & (color >= 0))
+    tail_rank = torch.cumsum(is_ovf_lane.to(torch.int64), 1) - 1
+    layout_idx = torch.where(
+        color < 0, layout_len,
+        torch.where(is_ovf_lane,
+                    torch.where(tail_rank < ovf_cap, l0 + tail_rank,
+                                layout_len),
+                    color.long() * chunk + slot))
+    return layout_idx, l0, layout_len
+
+
 def _step_work(state: WorldState, dt, cap: Capacity,
                classes_present: frozenset, substeps: int, continuous: bool,
                syncs: StepStats, until: str = "",
@@ -308,19 +367,9 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     state = dataclasses.replace(state, joints=dataclasses.replace(
         jn, color=torch.where(joint_active, raw_colors[p:], jn.color)))
 
-    # mass-splitting scale for the overflow color (world.py:308-321)
     (n_ovf,) = syncs.read(overflow_colors)
-    if n_ovf > 0:
-        ovf2 = torch.cat([ovf, ovf])
-        both = torch.cat([all_ba, all_bb]).long()
-        deg = torch.zeros(nb + 1, dtype=torch.float32, device=dev)
-        deg.index_add_(0, torch.where(ovf2, both, nb),
-                       torch.ones_like(both, dtype=torch.float32))
-        deg2 = deg[both % (nb + 1)]
-        cdeg = torch.clamp(torch.maximum(deg2[:n_all], deg2[n_all:]), min=1.0)
-        relax = torch.where(ovf, 1.0 / cdeg, 1.0)
-    else:
-        relax = torch.ones(n_all, dtype=torch.float32, device=dev)
+    relax = (overflow_relax(ovf, all_ba, all_bb, nb) if n_ovf > 0 else
+             torch.ones(n_all, dtype=torch.float32, device=dev))
     contact_relax = relax[:p]
     if until == "colors":
         return contact_color, joint_color, num_colors, contact_relax
@@ -334,24 +383,10 @@ def _step_work(state: WorldState, dt, cap: Capacity,
     if until == "prepare":
         return cc, jc
 
-    # --- color-bucket layout (world.py:337-378) ---------------------------
-    l0 = cap.max_colors * chunk
-    ovf_cap = ((min(p, 2 * chunk) + chunk - 1) // chunk) * chunk
-    layout_len = l0 + ovf_cap
-    onehot_c = cc.color[:, None] == torch.arange(cap.max_colors,
-                                                 device=dev)[None, :]
-    ranks = torch.cumsum(onehot_c.to(torch.int32), 0, dtype=torch.int32)
-    ovf_color = num_colors - 1
-    slot = torch.where(onehot_c, ranks, 0).sum(dim=1) - 1
-    is_ovf_lane = ((((cc.color == ovf_color) & (overflow_colors > 0))
-                    | (slot >= chunk)) & (cc.color >= 0))
-    tail_rank = torch.cumsum(is_ovf_lane.to(torch.int64), 0) - 1
-    layout_idx = torch.where(
-        cc.color < 0, layout_len,
-        torch.where(is_ovf_lane,
-                    torch.where(tail_rank < ovf_cap, l0 + tail_rank,
-                                layout_len),
-                    cc.color.long() * chunk + slot))
+    layout_idx, l0, layout_len = color_layout(
+        cc.color[None], num_colors[None], overflow_colors[None],
+        cap.max_colors, chunk)
+    layout_idx = layout_idx[0]
     gidx = torch.clamp(layout_idx, 0, layout_len - 1)
     active_lane = layout_idx < layout_len
 
@@ -433,20 +468,11 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
     if light_events:
         events, ev_drop = zero_events(cap, dev), i0
     else:
-        # the begin/end, orphan and hit conds of the JAX code share one read
-        ev = data.ev_contact
-        begin = touching & ~data.was_touching & ev
-        end = ~touching & data.was_touching & ev
-        approach = -relv
-        pt_ok = (approach > state.tuning.hit_event_threshold) & (tni > 0.0)
-        hit = data.ev_hit & touching & pt_ok.any(dim=1)
-        any_be, any_orphan, any_hit = syncs.read(
-            (begin | end).any(), orphan_info[0].any(), hit.any())
-        events, ev_drop = _contact_events(state, data, begin, end, cap,
-                                          orphan_info, any_be, any_orphan)
-        events, d_hit = _hit_events(data, approach, pt_ok, hit, events, cap,
-                                    any_hit)
-        ev_drop = ev_drop + d_hit
+        events, ev_drop = _contact_hit_events(
+            state, data, touching, relv, tni, cap,
+            state.tuning.hit_event_threshold, orphan_info[:3], 1, syncs)
+        events = map_state(lambda x: x[0], events)
+        ev_drop = ev_drop[0]
         if jc is not None:
             events, d_joint = _joint_events(state, jc, inv_h, events, cap)
             ev_drop = ev_drop + d_joint
@@ -512,92 +538,120 @@ def _store_joint_impulses(joints, jc):
         angular_impulse=jc.angular_impulse)
 
 
-def _compact_events(mask, payload, capacity):
-    """The first `capacity` set lanes of `mask`, in ascending lane order,
-    as a fixed-size event array; returns (rows, count, dropped)."""
-    n = mask.shape[0]
+def _compact_events(mask, payload, capacity: int):
+    """The first `capacity` set lanes of each world's mask, in ascending
+    lane order, as a fixed-size event array: mask (W, n), payload (W, n,
+    ...) -> (rows (W, capacity, ...), count (W,), dropped (W,))."""
+    n_w, n = mask.shape
     big = 1 << 30
     lane = torch.arange(n, dtype=torch.int32, device=mask.device)
     k = min(capacity, n)
-    idx = torch.sort(torch.where(mask, lane, big)).values[:k]
+    idx = torch.sort(torch.where(mask, lane, big), dim=1).values[:, :k]
     valid = idx < big
-    rows = payload[torch.clamp(idx, 0, n - 1).long()]
-    rows = torch.where(valid.reshape((k,) + (1,) * (payload.dim() - 1)),
-                       rows, 0)
+    tail = tuple(payload.shape[2:])
+    ix = torch.clamp(idx, 0, n - 1).long().reshape(
+        (n_w, k) + (1,) * len(tail)).expand((n_w, k) + tail)
+    rows = torch.gather(payload, 1, ix)
+    rows = torch.where(valid.reshape((n_w, k) + (1,) * len(tail)), rows, 0)
     if k < capacity:
         rows = torch.cat([rows, torch.zeros(
-            (capacity - k,) + tuple(payload.shape[1:]), dtype=payload.dtype,
-            device=payload.device)])
-    count = mask.sum()
+            (n_w, capacity - k) + tail, dtype=payload.dtype,
+            device=payload.device)], dim=1)
+    count = mask.sum(dim=1)
     return (rows, torch.clamp(count, max=capacity).to(torch.int32),
             torch.clamp(count - capacity, min=0).to(torch.int32))
 
 
-def _contact_events(state, data, begin, end, cap, orphan_info,
-                    any_be: bool, any_orphan: bool):
-    """Begin/end touch events plus end events of pairs a rebuild dropped
-    (box2d_tpu/world.py:858-921); any_be / any_orphan are the host values
-    of the JAX code's two conds."""
-    sh = state.shapes
-    e = cap.event_capacity
-    events = zero_events(cap, begin.device)
-    if any_be:
-        pairs_ab = torch.stack([data.shape_a, data.shape_b], dim=1)
-        begin_arr, begin_count, drop_b = _compact_events(begin, pairs_ab, e)
-        end_arr, end_count, drop_e = _compact_events(end, pairs_ab, e)
-        dropped = drop_b + drop_e
-    else:
-        begin_arr, end_arr = events.contact_begin, events.contact_end
-        begin_count = end_count = dropped = events.contact_begin_count
+def _put_batched(arr, tgt, val):
+    """arr (W, e, ...) with arr[w, tgt[w, i]] = val[w, i]; tgt == e drops."""
+    n_w, e = arr.shape[:2]
+    tail = tuple(arr.shape[2:])
+    ext = torch.cat([arr, arr[:, :1]], dim=1)
+    ix = tgt.reshape(tgt.shape + (1,) * len(tail)).expand(tgt.shape + tail)
+    return ext.scatter(1, ix, val.to(arr.dtype))[:, :e]
 
+
+def _zero_events_batched(cap: Capacity, dev, n_w: int, nb: int):
+    return map_state(lambda x: x.expand((n_w,) + tuple(x.shape)).clone(),
+                     zero_events(cap, dev, nb))
+
+
+def _contact_hit_events(state, data, touching, relv, tni, cap, hit_threshold,
+                        orphan_info, n_w, stats):
+    """The contact begin / end events, with the end events of pairs a
+    rebuild dropped (box2d_tpu/world.py:858-921), and the hit events, the
+    fastest approaching point of each qualifying pair
+    (box2d_tpu/world.py:924-961), of each of the n_w worlds of a flat
+    state (batch.py; one world: the state itself), in lane order, into
+    each world's own buffers; hit_threshold broadcasts against (lanes,
+    2). The begin / end, orphan and hit conds of the JAX code share one
+    read. Returns (events (W, ...), dropped (W,))."""
+    e = cap.event_capacity
+    dev = touching.device
+    P = touching.shape[0] // n_w
+    S = state.shapes.body.shape[0] // n_w
+    nb = state.bodies.center.shape[0] // n_w
+    rw = lambda x: x.reshape((n_w, P) + tuple(x.shape[1:]))  # noqa: E731
+    ev = data.ev_contact
+    begin = touching & ~data.was_touching & ev
+    end = ~touching & data.was_touching & ev
+    approach = -relv
+    pt_ok = (approach > hit_threshold) & (tni > 0.0)
+    hit = data.ev_hit & touching & pt_ok.any(dim=1)
+    orphan_mask, old_key_a, old_key_b = orphan_info
+    any_be, any_orphan, any_hit = stats.read(
+        (begin | end).any(), orphan_mask.any(), hit.any())
+
+    events = _zero_events_batched(cap, dev, n_w, nb)
+    soff = (torch.arange(n_w, device=dev) * S)[:, None]
+    local = lambda k: rw(k) - soff.to(k.dtype)  # noqa: E731
+    pairs_ab = torch.stack([local(data.shape_a), local(data.shape_b)], dim=2)
+    zero_w = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    begin_arr, end_arr = events.contact_begin, events.contact_end
+    begin_count = end_count = dropped = zero_w
+    if any_be:
+        begin_arr, begin_count, drop_b = _compact_events(
+            rw(begin), pairs_ab, e)
+        end_arr, end_count, drop_e = _compact_events(
+            rw(end), pairs_ab, e)
+        dropped = drop_b + drop_e
     if any_orphan:
-        orphan_mask, old_key_a, old_key_b = orphan_info[:3]
-        ka = torch.clamp(old_key_a, min=0).long()
-        kb = torch.clamp(old_key_b, min=0).long()
-        orphan = (orphan_mask & sh.enable_contact_events[ka]
-                  & sh.enable_contact_events[kb])
-        pos = end_count + torch.cumsum(orphan.to(torch.int64), 0) - 1
+        sh = state.shapes
+        ka = torch.clamp(rw(old_key_a) - soff, min=0)
+        kb = torch.clamp(rw(old_key_b) - soff, min=0)
+        evc = sh.enable_contact_events
+        orphan = (rw(orphan_mask) & evc[(ka + soff).reshape(-1)].reshape(
+            n_w, P) & evc[(kb + soff).reshape(-1)].reshape(n_w, P))
+        pos = end_count[:, None] + torch.cumsum(orphan.to(torch.int64), 1) - 1
         tgt = torch.where(orphan & (pos < e), pos, e)
-        ext = torch.cat([end_arr, end_arr[:1]])
-        ext[tgt] = torch.stack([ka, kb], dim=1).to(end_arr.dtype)
-        end_arr = ext[:e]
-        total = end_count + orphan.sum()
+        end_arr = _put_batched(end_arr, tgt, torch.stack([ka, kb], dim=2))
+        total = end_count + orphan.sum(dim=1)
         end_count = torch.clamp(total, max=e).to(torch.int32)
         dropped = dropped + torch.clamp(total - e, min=0).to(torch.int32)
-
-    return dataclasses.replace(
+    events = dataclasses.replace(
         events, contact_begin=begin_arr, contact_begin_count=begin_count,
-        contact_end=end_arr, contact_end_count=end_count), dropped
+        contact_end=end_arr, contact_end_count=end_count)
 
-
-def _hit_events(data, approach, pt_ok, hit, events, cap, any_hit: bool):
-    """Contact hit events (box2d_tpu/world.py:924-961): the fastest
-    approaching point of each qualifying pair, in lane order."""
-    e = cap.event_capacity
-    if not any_hit:
-        return events, torch.zeros((), dtype=torch.int32, device=hit.device)
-    best_pt = torch.argmax(torch.where(pt_ok, approach, float("-inf")), dim=1)
-    lane = torch.arange(data.shape_a.shape[0], device=hit.device)
-    speed = approach[lane, best_pt]
-    point = data.manifold.point[lane, best_pt]
-    pairs_ab = torch.stack([data.shape_a, data.shape_b], dim=1)
-    pos = torch.cumsum(hit.to(torch.int64), 0) - 1
-    tgt = torch.clamp(torch.where(hit, pos, e), max=e)
-    n_hit = hit.sum()
-
-    def put(arr, val):
-        out = torch.cat([arr, arr[:1]])
-        out[tgt] = val.to(arr.dtype)
-        return out[:e]
-
-    return dataclasses.replace(
-        events,
-        hit_point=put(events.hit_point, point),
-        hit_normal=put(events.hit_normal, data.manifold.normal),
-        hit_speed=put(events.hit_speed, speed),
-        hit_shapes=put(events.hit_shapes, pairs_ab),
-        hit_count=torch.clamp(n_hit, max=e).to(torch.int32),
-    ), torch.clamp(n_hit - e, min=0).to(torch.int32)
+    if any_hit:
+        best_pt = torch.argmax(torch.where(pt_ok, approach, float("-inf")),
+                               dim=1)
+        lane = torch.arange(approach.shape[0], device=dev)
+        speed = approach[lane, best_pt]
+        point = data.manifold.point[lane, best_pt]
+        hit_w = rw(hit)
+        pos = torch.cumsum(hit_w.to(torch.int64), 1) - 1
+        tgt = torch.clamp(torch.where(hit_w, pos, e), max=e)
+        n_hit = hit_w.sum(dim=1)
+        events = dataclasses.replace(
+            events,
+            hit_point=_put_batched(events.hit_point, tgt, rw(point)),
+            hit_normal=_put_batched(events.hit_normal, tgt,
+                                    rw(data.manifold.normal)),
+            hit_speed=_put_batched(events.hit_speed, tgt, rw(speed)),
+            hit_shapes=_put_batched(events.hit_shapes, tgt, pairs_ab),
+            hit_count=torch.clamp(n_hit, max=e).to(torch.int32))
+        dropped = dropped + torch.clamp(n_hit - e, min=0).to(torch.int32)
+    return events, dropped
 
 
 def _joint_events(state, jc, inv_h, events, cap):

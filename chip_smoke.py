@@ -21,7 +21,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    windows per stage, its launch shape (one thread-block cluster) and
    what ptxas reported for the kernel instance it ran; untimed, also at
    the inputs of tumbler(2000) after 120 steps and bullet_barrage(100) at
-   its last TOI sweep step in the first 30;
+   its last TOI sweep step in the first 30; every case launched twice,
+   the two equal bit for bit;
    then the particle kernels at the inputs the port's dam_break(100000)
    step gives them after 30 steps: the window pass K3 in its three phases
    and the rank repair K4 (also against torch.argsort(stable=True)),
@@ -55,6 +56,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    one-way pre_solve, joint setters, an explosion, run(collect_events=
    True)) and a 4,096-particle tank with a circle and a capsule, each on
    the card against the CPU.
+6. batching: 64 x pyramid-20 as a batch of worlds (make_batched_step,
+   Capacity.batched, bp_repair_cap 0: the JAX package's vmapped bench),
+   120 steps from spawn after one warm run, one solver launch a step for
+   all 64 worlds; that launch against 64 single-world launches (bit for
+   bit) and its twin, each launched ten times (every launch equal to the
+   first, bit for bit), on a perturbed batch's inputs at spawn
+   (a live Jacobi window in every world's tail) and after 30 steps, and
+   with three buckets moved into every world's tail for three seeds,
+   then timed; worlds 0 and 63 of a perturbed batch held to the single-world
+   step in lockstep, and a batch of identical worlds staying identical,
+   bit for bit, running free and in lockstep;
+   then the flat batches (scenes.replicate) 64 x pyramid-20 and 1,024 x
+   pyramid-8 through the solver kernel, the RL loop (64 x joint_farm(1),
+   256 steps, per-world motor speeds written on the card) through the
+   joint sweep, and 64 x dam_break(500) and 8 x dam_break(12000) through
+   K3 and K4 with per-block shape culling (a culled step held to the
+   CPU's, overflow count included; at 64 x dam_break(500) the culled
+   coupling held to the dense one with slots enough for every block).
 It then prints one JSON line describing the kernels (times beside their
 roofline bound), and as its last line {"ok": true, "device": {...}}. There
 is no CPU path: without a CUDA device it fails.
@@ -73,16 +92,20 @@ import torch
 from port_fixtures import (all_types_scene, api_sequence,
                            chain_sensor_scene, hub_scene, k3_table,
                            library_rank, median_ms, move_buckets_to_tail,
-                           obstacle_tank, rank_table, record_particle_calls)
+                           obstacle_tank, perturbed_leaves, rank_table,
+                           record_particle_calls)
 
 MAIN_STEPS = 120        # joint_farm(1000)
 PYRAMID_STEPS = 120     # the earlier paths
 WARM_STEPS = 30
 TIMED_CALLS = 20
 # kernel vs twin: the kernel rounds each operation like the twin (built
-# with -fmad=false); what differs is the order of float additions where
-# lanes of a Jacobi window (the overflow tail, the overflow color's joint
-# windows) share a body (atomicAdd vs index_add_)
+# with -fmad=false); what differs is how the deltas are summed where lanes
+# of a Jacobi window (the overflow tail, the overflow color's joint
+# windows) share a body: fixed point in the kernel, index_add_'s float
+# adds in the twin. Those sums do not depend on the order the kernel's
+# lanes add in, so two launches on the same inputs, and a world of a
+# batched launch against its single launch, must agree bit for bit
 ATOL, RTOL = 1e-5, 1e-4
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores
@@ -125,6 +148,27 @@ DRUM_AXIS_Y = 10.0
 DRUM_INNER = 9.5
 SMALL_STEPS = 20
 PARTICLE_TANK = 4096
+# batching: bench.py's vmapped batch (measure_batch, :116-171) and flat
+# batches (:174-205, :236-243), and the RL loop of tests/test_rl_demo.py
+BATCH_WORLDS = 64
+BATCH_ROWS = 20
+BATCH_STEPS = 120
+LOCKSTEP_STEPS = 20
+# the batched launch's Jacobi checks: perturbed batches from these seeds,
+# each case launched this many times (batched and single alike). World w
+# of a batch is jittered from seed + w, so seeds BATCH_WORLDS apart share
+# no world
+JACOBI_SEEDS = (7, 7 + BATCH_WORLDS, 7 + 2 * BATCH_WORLDS)
+JACOBI_REPEATS = 10
+FLAT = ((64, 20), (1024, 8))
+FLAT_STEPS = 60
+RL_WORLDS = 64
+RL_STEPS = 256
+FLAT_PARTICLES = ((64, 500), (8, 12000))
+FLAT_PARTICLE_STEPS = 30
+# the culled coupling against the dense one, the CPU test's bound
+# (tests/test_particles.py test_block_culled_body_coupling_matches_dense)
+CULL_RTOL, CULL_ATOL = 1e-5, 5e-5
 
 
 def phase_device():
@@ -193,9 +237,12 @@ def _bound_ms(args):
 
 
 def _ptxas_kernels(log):
-    """What `ptxas -v` reported for each instance of the solver kernel, by
-    whether it holds the joint sweep: registers, static shared memory and
-    spill stores / loads."""
+    """What `ptxas -v` reported for each instance of the solver kernel:
+    registers, static shared memory and spill stores / loads. Keyed by
+    whether it holds the joint sweep (the single-world instances), and
+    "batched" for the batched one."""
+    instances = {"ILb0ELb0E": False, "ILb1ELb0E": True,
+                 "ILb0ELb1E": "batched"}
     out, entry, props = {}, None, {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -209,9 +256,10 @@ def _ptxas_kernels(log):
             smem = next((x.strip() for x in regs if "smem" in x),
                         "0 bytes smem")
             spill = props.get(entry, "no spill line")
-            if "solve_kernel" in entry:
-                out["ILb1E" in entry] = (f"{regs[0].strip()}, {smem}, "
-                                         f"{spill}")
+            key = next((v for k, v in instances.items() if k in entry),
+                       None)
+            if "solve_kernel" in entry and key is not None:
+                out[key] = f"{regs[0].strip()}, {smem}, {spill}"
             entry = None
     return out
 
@@ -296,9 +344,9 @@ def phase_kernel_vs_twin():
     windows). Then, untimed, the layouts of the continuous-collision
     paths: tumbler(TUMBLER_BOXES) after CCD_STEPS steps and
     bullet_barrage(BARRAGE_BULLETS) at a step whose TOI sweep ran. Where a
-    Jacobi window's lanes share a body the atomics add in no fixed order,
-    so those cases are held to ATOL / RTOL; the rest must agree bit for
-    bit."""
+    Jacobi window's lanes share a body the kernel's fixed-point sums round
+    otherwise than the twin's float adds, so those cases are held to
+    ATOL / RTOL; the rest must agree bit for bit."""
     from box2d_tpu_torch import contact_solver as cs
     from box2d_tpu_torch import scenes, world
 
@@ -379,18 +427,33 @@ def phase_kernel_vs_twin():
     return results
 
 
+def _same_twice(tag, args, first):
+    """Launch the solver kernel again on `args` and hold it to `first`, the
+    outputs of an earlier launch, bit for bit: its Jacobi sums are fixed
+    point, so no order of its atomics shows."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    again = cs.contact_solve(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y), (
+            f"{tag}: two launches on the same inputs differ by "
+            f"{float((x - y).abs().max()):.3e}")
+
+
 def _kernel_vs_twin(tag, args):
     """The solver kernel and its twin on the same inputs: prints the
     layout and the error, holds them to ATOL / RTOL, and bit for bit where
-    no lane is in the overflow tail. Returns (error, live lanes, live tail
-    lanes, tail windows, warm lanes, window stats)."""
+    no lane is in the overflow tail; a second launch must give the same
+    bits. Returns (error, live lanes, live tail lanes, tail windows, warm
+    lanes, window stats)."""
     from box2d_tpu_torch import contact_solver as cs
 
     idx, data, acc, body, l0, chunk = (args[1], args[2], args[3], args[4],
                                        args[8], args[7])
     kb, ka = cs.contact_solve(*args)
     tb, ta = cs.contact_solve_reference(*args)
-    torch.cuda.synchronize()
+    _same_twice(tag, args, (kb, ka))
     err_b = float((kb - tb).abs().max())
     err_a = float((ka - ta).abs().max())
     live = int((idx[0] >= 0).sum())
@@ -447,7 +510,7 @@ def phase_joint_kernel_vs_twin():
         assert jr is not None, f"{tag}: no joint region was packed"
         kb, ka, kj = cs.contact_solve(*args)
         tb, ta, tj = cs.contact_solve_reference(*args)
-        torch.cuda.synchronize()
+        _same_twice(tag, args, (kb, ka, kj))
         errs = [float((x - y).abs().max()) if x.numel() else 0.0
                 for x, y in ((kb, tb), (ka, ta), (kj, tj))]
         jlive = int((jr.idx[0] >= 0).sum())
@@ -1052,6 +1115,22 @@ def _count_launches(fn):
     return n or None
 
 
+def _device_work(fn):
+    """(CUDA kernels, their summed device ms) of one call of fn, from
+    torch.profiler's trace ((None, None) where it holds no device
+    event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return None, None
+    return len(ev), sum(e.time_range.elapsed_us() for e in ev) / 1e3
+
+
 def _close(tag, a, b, exact=False, atol=1e-5, rtol=1e-4):
     """a (card) against b (CPU): equal for masks, ids and counts; atol /
     rtol for floats (a query's outputs 1e-5 / 1e-4). Returns the largest
@@ -1338,7 +1417,7 @@ def _joint_setters():
                             joint_types=step.joint_types, hooks=step.hooks)
     kb, ka, kj = cs.contact_solve(*args)
     tb, ta, tj = cs.contact_solve_reference(*args)
-    torch.cuda.synchronize()
+    _same_twice("joint_farm after the setters", args, (kb, ka, kj))
     jerr = max(float((x - y).abs().max()) for x, y in
                ((kb, tb), (ka, ta), (kj, tj)))
     for x, y in ((kb, tb), (ka, ta), (kj, tj)):
@@ -1486,6 +1565,522 @@ def _small_worlds_against_cpu():
           f"{SMALL_STEPS} steps from spawn")
     return launches
 
+
+# ---------------------------------------------------------------------------
+# phase 6: batching
+# ---------------------------------------------------------------------------
+
+def phase_batching():
+    """Batches of worlds (box2d_tpu_torch/batch.py) and flat batches
+    (scenes.replicate). Returns the batched solver's row of the kernels
+    line, and the launches of the other kernels on these paths."""
+    t0 = time.perf_counter()
+    row = _vmapped_batch()
+    print(f"[batch] vmapped batch done in {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    launches = _flat_batches()
+    launches.update(_rl_loop())
+    launches.update(_flat_particle_batches())
+    print(f"[batch] flat batches done in {time.perf_counter() - t1:.1f} s")
+    return row, launches
+
+
+def _batch_setup(rows, device="cuda"):
+    """pyramid(rows) built on `device`, its capacity as the JAX package's
+    vmapped bench sets it (bp_repair_cap 0, batched), its pair classes and
+    the batched step."""
+    import dataclasses
+
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.narrowphase import classes_for_shape_types
+
+    w = scenes.pyramid(rows=rows, device=device)
+    state, cap = w.builder.build(device=device)
+    cap = dataclasses.replace(cap, bp_repair_cap=0, batched=True)
+    classes = classes_for_shape_types(
+        s["geom"].type for s in w.builder._shapes)
+    return state, cap, classes, world.make_batched_step(cap, classes, 4,
+                                                        True)
+
+
+def _spread(leaves):
+    """The largest difference of a float leaf between any world and world
+    0 of a batch's leaves; raises if a discrete leaf differs."""
+    for key, v in leaves.items():
+        if v.dtype.kind != "f":
+            assert np.array_equal(v, np.broadcast_to(v[:1], v.shape)), (
+                f"identical worlds: {key} differs")
+    return max(float(np.abs(v - v[:1]).max()) for v in leaves.values()
+               if v.dtype.kind == "f" and v.size)
+
+
+def _batched_bound_ms(args):
+    """_bound_ms of the batched call: the bytes and operations of all its
+    worlds (live lanes only)."""
+    scalars, idx, data, acc, body, params, nsub = args[:7]
+    live = int((idx[:, 0] >= 0).sum())
+    nb = body.shape[0] * body.shape[2]
+    stages = 3 * nsub + 1
+    nbytes = 4 * (live * (2 + 33 + 9 + 9) + nb * (8 + 8 + 12)
+                  + 8 * body.shape[0])
+    flops = (live * stages * FLOP_CONTACT_LANE_STAGE
+             + nb * nsub * FLOP_BODY_SUBSTEP)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _perturbed_args(base, n_w, seed, bstep):
+    """The batched solver's arguments for a perturbed batch of `base`
+    (jitter from `seed`, world n_w - 1 kicked) after WARM_STEPS steps."""
+    from box2d_tpu_torch import batch as bt
+    from box2d_tpu_torch.state import state_from_numpy
+
+    b = state_from_numpy(perturbed_leaves(
+        base, n_w, seed=seed, kick=(n_w - 1, 5, (2.0, 1.0))), "cuda")
+    for _ in range(WARM_STEPS):
+        b = bstep(b, 1 / 60)
+    return bt.batched_kernel_args(b, 1 / 60, bstep)
+
+
+def _batched_against_single(tag, args):
+    """The batched launch on `args` against the W single launches on each
+    world's arrays and against the batched twin, each launch made
+    JACOBI_REPEATS times. The kernel's Jacobi sums are fixed point, so the
+    batched launch must equal the single launches, and every launch the
+    first, bit for bit. The twin runs on the card with deterministic
+    algorithms, so that its index_add_ sums in a fixed order. Prints the
+    launches' distance from the twin (the single launches' too, at the
+    value where the batched launch is furthest from it) and the values
+    outside ATOL / RTOL of it. Returns them; the caller asserts."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    n_w, l0 = args[0].shape[0], args[8]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        twin = cs.contact_solve_batched_reference(*args)
+        twin2 = cs.contact_solve_batched_reference(*args)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    tail = [int((args[1][w, 0, l0:] >= 0).sum()) for w in range(n_w)]
+    r = dict(bt=0.0, st=0.0, st_at_bt=0.0, out_bt=0, out_st=0, unequal=[])
+    first = None
+
+    def outside(x, y):
+        return sum(int((~torch.isclose(a, b, rtol=RTOL, atol=ATOL)).sum())
+                   for a, b in zip(x, y))
+
+    def dist(x, y):
+        return max(float((a - b).abs().max()) for a, b in zip(x, y))
+
+    for k in range(JACOBI_REPEATS):
+        ob = cs.contact_solve_batched(*args)
+        one = [cs.contact_solve(*(tuple(a[w] for a in args[:6])
+                                  + tuple(args[6:]) + (None,)))
+               for w in range(n_w)]
+        sb = [torch.stack([o[i] for o in one]) for i in range(2)]
+        torch.cuda.synchronize()
+        for what, x, y in (("batched against single", ob, sb),
+                           ("batched against the first", ob,
+                            first[0] if first else ob),
+                           ("single against the first", sb,
+                            first[1] if first else sb)):
+            if not all(torch.equal(a, b) for a, b in zip(x, y)):
+                r["unequal"].append(f"launch {k}: {what} by "
+                                    f"{dist(x, y):.3e}")
+        r["out_bt"] += outside(ob, twin)
+        r["out_st"] += outside(sb, twin)
+        r["st"] = max(r["st"], dist(sb, twin))
+        for o, sv, t in zip(ob, sb, twin):
+            d = (o - t).abs()
+            at = int(d.argmax())
+            if float(d.view(-1)[at]) >= r["bt"]:
+                r["bt"] = float(d.view(-1)[at])
+                r["st_at_bt"] = float((sv - t).abs().view(-1)[at])
+        first = first or (ob, sb)
+    live = [w for w in range(n_w) if tail[w]]
+    print(f"[batch] batched launch {tag}, {JACOBI_REPEATS} launches of it "
+          f"and of the {n_w} single launches: {len(live)} worlds with a "
+          f"live tail ({min(tail)}-{max(tail)} lanes); batched, single and "
+          f"repeated launches equal bit for bit: {not r['unequal']}; "
+          f"against the twin (twice: {dist(twin, twin2):.3e} apart): "
+          f"batched {r['bt']:.3e} (single launches {r['st_at_bt']:.3e} at "
+          f"that value), single launches {r['st']:.3e}; values outside "
+          f"atol {ATOL} / rtol {RTOL} of the twin: batched {r['out_bt']}, "
+          f"single {r['out_st']}")
+    return r
+
+
+def _vmapped_batch():
+    """64 x pyramid-20 through make_batched_step: the timed run from spawn,
+    the batched launch against single launches and its twin, lockstep
+    against the single-world step, identical worlds staying identical."""
+    from box2d_tpu_torch import batch as bt
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import world
+    from box2d_tpu_torch.state import (broadcast_state, state_from_numpy,
+                                       state_to_numpy, unstack_state)
+
+    n_w = BATCH_WORLDS
+    state, cap, classes, bstep = _batch_setup(BATCH_ROWS)
+    n_dyn = int((state.bodies.type == 2).sum()) * n_w
+    batch0 = broadcast_state(state, n_w)
+    b = batch0
+    for _ in range(BATCH_STEPS):          # warm run
+        b = bstep(b, 1 / 60)
+    torch.cuda.synchronize()
+    bstep.stats = bt.BatchStats()
+    cs.BATCHED_LAUNCHES = 0
+    cs.LAUNCHES = 0
+    t0 = time.perf_counter()
+    b = batch0
+    for _ in range(BATCH_STEPS):
+        b = bstep(b, 1 / 60)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = bstep.stats
+    n_batched, n_single = cs.BATCHED_LAUNCHES, cs.LAUNCHES
+    work = st.steps - st.idle_steps
+    assert n_batched == work == st.solver_launches > 0, (
+        f"{n_batched} batched launches for {work} work steps")
+    assert n_single == 0, f"{n_single} single-world launches in the batch"
+    assert st.ccd_gate_openings == 0, "CCD gate opened"
+    leaves = state_to_numpy(b)
+    for k, v in leaves.items():
+        if v.dtype.kind == "f":
+            assert np.isfinite(v).all(), f"batch: non-finite {k}"
+    dyn = leaves["bodies.type"] == 2
+    min_y = float(leaves["bodies.center"][..., 1][dyn].min())
+    assert min_y >= 0.45, f"batch: a dynamic body sank to y={min_y}"
+    prof = {k.split(".", 1)[1]: v for k, v in leaves.items()
+            if k.startswith("profile.")}
+    for k in ("overflow_pairs", "store_drops", "events_dropped"):
+        assert int(prof[k].max()) == 0, f"batch: profile.{k}"
+    # identical worlds stay identical running free: every phase of the
+    # step, the solver's Jacobi sums included, gives the same bits
+    # whatever order its atomics take
+    free_spread = _spread(leaves)
+    assert free_spread == 0.0, (
+        f"identical worlds parted by {free_spread} in {BATCH_STEPS} steps")
+    sps = BATCH_STEPS / wall
+    print(f"[batch] {n_w} x pyramid-{BATCH_ROWS} vmapped: {n_dyn} dynamic "
+          f"bodies, {BATCH_STEPS} steps from spawn in {wall:.3f} s: "
+          f"{sps:.2f} steps/s, {sps * n_dyn:.1f} body-steps/s; reads/step "
+          f"{st.syncs / st.steps:.2f}; idle steps {st.idle_steps}; solver "
+          f"launches/step {n_batched / work:.2f} (one for all {n_w} worlds); "
+          f"identical worlds running free: max spread {free_spread:.3e} "
+          f"after {BATCH_STEPS} steps; min dynamic y {min_y:.4f}")
+    # identical worlds stay identical, in lockstep: each step starts from
+    # copies of world 0
+    b = batch0
+    for _ in range(LOCKSTEP_STEPS):
+        b = bstep(broadcast_state(unstack_state(b, 0), n_w), 1 / 60)
+        spread = _spread(state_to_numpy(b))
+        assert spread == 0.0, f"identical worlds parted by {spread}"
+    print(f"[batch] {n_w} identical worlds, {LOCKSTEP_STEPS} steps from "
+          f"spawn in lockstep: equal bit for bit at every step")
+
+    # a perturbed batch: jitter from a numpy seed, one box kicked
+    base = state_to_numpy(state)
+    pert = state_from_numpy(perturbed_leaves(
+        base, n_w, seed=JACOBI_SEEDS[0], kick=(n_w - 1, 5, (2.0, 1.0))),
+        "cuda")
+    spawn_args = bt.batched_kernel_args(pert, 1 / 60, bstep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idle0 = bstep.stats.idle_steps
+    for _ in range(WARM_STEPS):
+        pert = bstep(pert, 1 / 60)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / WARM_STEPS * 1e3
+    assert bstep.stats.idle_steps == idle0, "the perturbed batch idled"
+    reads0 = bstep.stats.syncs
+    launches_step, busy_ms = _device_work(lambda: bstep(pert, 1 / 60))
+    busy = (f"{busy_ms:.3f} ms of device time, idle "
+            f"{100 * (1 - busy_ms / step_ms):.1f}% of a {step_ms:.3f} ms "
+            f"step" if busy_ms else "device time not measured")
+    print(f"[batch] the perturbed batch's first {WARM_STEPS} steps, all "
+          f"work steps: {step_ms:.3f} ms a step; one more under the "
+          f"profiler: CUDA launches {launches_step or 'not measured'}, "
+          f"reads {bstep.stats.syncs - reads0}, {busy}")
+    args = bt.batched_kernel_args(pert, 1 / 60, bstep)
+    # the batched launch against W single launches and its twin, on the
+    # perturbed batch at spawn (a live Jacobi window in every world's
+    # overflow tail) and after WARM_STEPS steps (no live tail), and on
+    # every seed's batch after WARM_STEPS steps with TAIL_BUCKETS color
+    # buckets moved into each world's tail (three Jacobi windows whose
+    # lanes share bodies)
+    cases = [("at spawn", spawn_args),
+             (f"after {WARM_STEPS} steps", args)]
+    for seed in JACOBI_SEEDS:
+        a = args if seed == JACOBI_SEEDS[0] else _perturbed_args(
+            base, n_w, seed, bstep)
+        tails = [move_buckets_to_tail(
+            tuple(x[w] for x in a[:6]) + tuple(a[6:]) + (None,),
+            range(TAIL_BUCKETS), TAIL_BUCKETS * a[7]) for w in range(n_w)]
+        n_tail = [len(_tail_windows(t)) for t in tails]
+        cases.append((f"seed {seed}, {TAIL_BUCKETS} buckets moved into each "
+                      f"tail ({min(n_tail)}-{max(n_tail)} Jacobi windows a "
+                      f"world)", tuple(torch.stack([t[i] for t in tails])
+                                        for i in range(6)) + a[6:11]))
+    results = [_batched_against_single(*c) for c in cases]
+    for tag, r in zip([c[0] for c in cases], results):
+        assert not r["unequal"], (f"batch {tag}: launches not bit for bit: "
+                                  f"{r['unequal'][:3]}")
+        assert r["out_bt"] == 0, (
+            f"batch {tag}: {r['out_bt']} values of the batched launch "
+            f"outside atol {ATOL} / rtol {RTOL} of the twin")
+    err_twin = max(r["bt"] for r in results)
+    live = int((args[1][:, 0] >= 0).sum())
+    ms = _time_ms(lambda: cs.contact_solve_batched(*args))
+    sh = cs.launch_shape(False, batched=True)
+    ptx = _ptxas_kernels(cs.build().ptxas_log).get("batched", "not reported")
+    plain_ms = _time_ms(lambda: cs.contact_solve_batched_reference(*args))
+    one_ms = _time_ms(lambda: cs.contact_solve(
+        *(tuple(a[0] for a in args[:6]) + tuple(args[6:]) + (None,))))
+    bound_ms, bound_by = _batched_bound_ms(args)
+    print(f"[batch] {n_w} worlds after {WARM_STEPS} perturbed steps: "
+          f"{live} live lanes; the batched launch, a cluster of "
+          f"{sh['cluster']} CTAs x {sh['threads']} threads a world "
+          f"({sh['max_active_clusters']} resident at once): median of "
+          f"{TIMED_CALLS} calls {ms:.4f} ms, one world alone {one_ms:.4f} "
+          f"ms, twin {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); ptxas {ptx}")
+
+    # worlds 0 and 63 of a perturbed batch against the single-world step,
+    # in lockstep (each single step starts from the batch's world)
+    single = world.make_step(cap, classes, 4, True)
+    assert single.tail_w == bstep.tail_w
+    pert = state_from_numpy(perturbed_leaves(
+        base, n_w, seed=11, kick=(0, 7, (1.5, 0.5))), "cuda")
+    worst = 0.0
+    for _ in range(LOCKSTEP_STEPS):
+        nxt = bstep(pert, 1 / 60)
+        for w in (0, n_w - 1):
+            want = state_to_numpy(single(unstack_state(pert, w), 1 / 60))
+            got = state_to_numpy(unstack_state(nxt, w))
+            for key, a in got.items():
+                bb = want[key]
+                if a.dtype.kind == "f":
+                    d = float(np.abs(a - bb).max()) if a.size else 0.0
+                    worst = max(worst, d)
+                    assert d <= 1e-5, f"lockstep world {w} {key}: {d}"
+                else:
+                    assert np.array_equal(a, bb), f"lockstep world {w} {key}"
+        pert = nxt
+    print(f"[batch] worlds 0 and {n_w - 1} of a perturbed batch against "
+          f"the single-world step, {LOCKSTEP_STEPS} steps in lockstep: max "
+          f"|d| {worst:.3e} (bound 1e-5), discrete fields equal")
+    return {"launches": n_batched, "max_abs_err": err_twin,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _flat_batches():
+    """scenes.replicate of pyramid-20 x 64 and pyramid-8 x 1,024, each
+    timed from spawn after one warm run."""
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import scenes
+
+    out = {}
+    for n_w, rows in FLAT:
+        tag = f"{n_w} x pyramid-{rows} flat"
+        w = scenes.replicate(scenes.pyramid(rows=rows, device="cuda"), n_w)
+        w.compile()
+        n_dyn = int((w.state.bodies.type == 2).sum())
+        state0 = w.state
+        w.run(FLAT_STEPS)
+        torch.cuda.synchronize()
+        w.state = state0
+        w.reset_stats()
+        cs.LAUNCHES = 0
+        t0 = time.perf_counter()
+        w.run(FLAT_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = w.stats
+        n_launch = cs.LAUNCHES
+        leaves, prof = _check_finite(w, tag)
+        overflow = {k: prof[k] for k in (
+            "overflow_pairs", "overflow_colors", "overflow_ccd",
+            "store_drops", "events_dropped")}
+        work = st.steps - st.idle_steps
+        assert n_launch == work > 0, f"{tag}: {n_launch} launches"
+        scene_note = _pyramid_check(leaves, tag)
+        sps = FLAT_STEPS / wall
+        print(f"[batch] {tag}: {n_dyn} dynamic bodies, kernel mode "
+              f"{w._step.mode}, tail windows of {w._step.tail_w} lanes; "
+              f"{FLAT_STEPS} steps from spawn in {wall:.3f} s: {sps:.2f} "
+              f"steps/s, {sps * n_dyn:.1f} body-steps/s; reads/step "
+              f"{st.syncs / st.steps:.2f}; solver launches {n_launch}; "
+              f"overflow counters at the last step {overflow}; "
+              f"{scene_note}")
+        out[tag] = n_launch
+    return out
+
+
+def _rl_loop():
+    """tests/test_rl_demo.py on the card: 64 ragdolls tiled into one world,
+    a per-world motor speed written on the card every step (no host read
+    for it), rewards from the event surface summed on the card."""
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import scenes
+
+    base = scenes.joint_farm(ragdolls=1, device="cuda")
+    w = scenes.replicate(base, RL_WORLDS)
+    w.compile()
+    n_joints = len(base.builder._joints)
+    n_bodies = len(base.builder._bodies)
+    n_shapes = len(base.builder._shapes)
+    dev = w.state.bodies.center.device
+    motor_lanes = torch.arange(RL_WORLDS, device=dev) * n_joints
+    world_of_body = torch.arange(w.state.bodies.center.shape[0],
+                                 device=dev) // n_bodies
+    t_idx = torch.arange(RL_STEPS, device=dev, dtype=torch.float32)[:, None]
+    w_idx = torch.arange(RL_WORLDS, device=dev, dtype=torch.float32)[None]
+    actions = 2.0 * torch.sin(0.05 * t_idx + w_idx) + torch.where(
+        w_idx % 2 == 0, 1.5, -1.5)
+    rewards = torch.zeros((RL_STEPS, RL_WORLDS), device=dev)
+    w.reset_stats()
+    cs.LAUNCHES = 0
+    cs.JOINT_LAUNCHES = 0
+    import dataclasses
+    t0 = time.perf_counter()
+    for k in range(RL_STEPS):
+        s = w.state
+        w.state = dataclasses.replace(s, joints=dataclasses.replace(
+            s.joints, motor_speed=s.joints.motor_speed.index_put(
+                (motor_lanes,), actions[k])))
+        w.step(1 / 60)
+        ev = w.state.events
+        moved = torch.zeros(RL_WORLDS, device=dev).index_add(
+            0, world_of_body, ev.body_moved.float())
+        cb_ok = (torch.arange(ev.contact_begin.shape[0], device=dev)
+                 < ev.contact_begin_count)
+        cb_world = torch.where(cb_ok, ev.contact_begin[:, 0] // n_shapes,
+                               RL_WORLDS).long()
+        contacts = torch.zeros(RL_WORLDS + 1, device=dev).index_add(
+            0, cb_world, torch.ones_like(cb_world, dtype=torch.float32))
+        rewards[k] = moved + 0.1 * contacts[:RL_WORLDS]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = w.stats
+    r = rewards.cpu().numpy()
+    assert np.isfinite(r).all() and r.sum() > 0.0, "RL: rewards"
+    w_t = w.state.bodies.w.cpu().numpy()[1::n_bodies]
+    even, odd = w_t[0::2], w_t[1::2]
+    assert even.mean() > odd.mean() + 0.1, (
+        f"RL: actions did not differentiate worlds: even {even.mean():.3f} "
+        f"vs odd {odd.mean():.3f}")
+    work = st.steps - st.idle_steps
+    assert cs.JOINT_LAUNCHES == work > 0, f"RL: {cs.JOINT_LAUNCHES} K2j"
+    print(f"[batch] RL loop, {RL_WORLDS} x joint_farm(1) flat, {RL_STEPS} "
+          f"steps in {wall:.3f} s: {RL_STEPS / wall:.2f} steps/s; reads/step "
+          f"{st.syncs / st.steps:.2f}; joint-sweep (K2j) launches "
+          f"{cs.JOINT_LAUNCHES}; torso angular velocity even worlds "
+          f"{even.mean():.3f}, odd {odd.mean():.3f}; reward sum "
+          f"{r.sum():.1f}")
+    return {"rl joint_sweep": cs.JOINT_LAUNCHES}
+
+
+def _flat_particle_batches():
+    """64 x dam_break(500) and 8 x dam_break(12000) tiled into one world
+    each: per-block shape culling on, K3 and K4; then the culled coupling
+    held to the dense one for one step."""
+    from box2d_tpu_torch import particles as tpart
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    out = {}
+    for n_w, n in FLAT_PARTICLES:
+        tag = f"{n_w} x dam_break-{n} flat"
+        w = scenes.replicate(scenes.dam_break(n, device="cuda"), n_w)
+        w.compile()
+        cfg = w._step.particle_cfg
+        assert cfg.max_body_shapes > cfg.block_shape_slots, (
+            f"{tag}: the culled path is not taken")
+        n_live = int(w.state.particles.alive.sum())
+        state0 = w.state
+        w.run(5)
+        torch.cuda.synchronize()
+        w.state = state0
+        w.reset_stats()
+        pk.K3_LAUNCHES = 0
+        pk.K4_LAUNCHES = 0
+        t0 = time.perf_counter()
+        w.run(FLAT_PARTICLE_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = w.stats
+        k3, k4 = pk.K3_LAUNCHES, pk.K4_LAUNCHES
+        leaves, prof = _check_finite(w, tag)
+        assert k3 == 12 * FLAT_PARTICLE_STEPS, f"{tag}: {k3} K3 launches"
+        assert k4 == st.rank_repairs, f"{tag}: {k4} K4 launches"
+        # the reference's sizing of the culling slots overflows where a
+        # block of sorted particles spans several copies of a grid row
+        # (tests/test_torch_culling.py holds the count to the JAX
+        # package's): printed, and held to the CPU's count on one step
+        stt = w.state
+        cpu = state_from_numpy(state_to_numpy(stt), "cpu")
+        card = tpart.particle_step(stt.particles, stt, 1 / 60, cfg,
+                                   world.StepStats())
+        host = tpart.particle_step(cpu.particles, cpu, 1 / 60, cfg,
+                                   world.StepStats())
+        ov_card, ov_cpu = int(card[3]), int(host[3])
+        assert ov_card == ov_cpu, f"{tag}: overflow {ov_card} vs {ov_cpu}"
+        alive = card[0].alive.cpu()
+        assert torch.equal(alive, host[0].alive), f"{tag}: card alive"
+        # phase 4's card-against-CPU bounds for particles (dam_break-1000):
+        # sums in other orders flip a few particles across a threshold
+        d_card = []
+        for x, y, tol in ((card[0].pos, host[0].pos, 1e-3),
+                          (card[0].vel, host[0].vel, 1e-2)):
+            x = x.cpu()[alive]
+            torch.testing.assert_close(x, y[alive], rtol=0, atol=tol)
+            d_card.append(float((x - y[alive]).abs().max()))
+        note = (f"card against CPU, one culled step: overflow {ov_card} = "
+                f"{ov_cpu}, max |d| pos {d_card[0]:.3e}, vel "
+                f"{d_card[1]:.3e}")
+        if n == FLAT_PARTICLES[0][1]:
+            # the culled coupling against the dense one, one step on the
+            # card, with slots enough that no block overflows (still fewer
+            # than the nearby shapes, so the culled path runs)
+            wide = cfg._replace(block_shape_slots=cfg.max_body_shapes - 4)
+            dense = cfg._replace(block_shape_slots=cfg.max_body_shapes)
+            a = tpart.particle_step(stt.particles, stt, 1 / 60, wide,
+                                    world.StepStats())
+            assert int(a[3]) == 0, f"{tag}: overflow with {wide} slots"
+            b = tpart.particle_step(stt.particles, stt, 1 / 60, dense,
+                                    world.StepStats())
+            alive = a[0].alive
+            assert torch.equal(alive, b[0].alive), f"{tag}: culled alive"
+            errs = []
+            for x, y in ((a[0].pos[alive], b[0].pos[alive]),
+                         (a[0].vel[alive], b[0].vel[alive]), (a[1], b[1]),
+                         (a[2], b[2])):
+                torch.testing.assert_close(x, y, rtol=CULL_RTOL,
+                                           atol=CULL_ATOL)
+                errs.append(float((x - y).abs().max()) if x.numel() else 0.0)
+            note += (f"; culled ({wide.block_shape_slots} slots, no "
+                     f"overflow) against dense coupling, one step: max |d| "
+                     f"pos {errs[0]:.3e}, vel {errs[1]:.3e}, body dv "
+                     f"{errs[2]:.3e}, dw {errs[3]:.3e} (rtol {CULL_RTOL}, "
+                     f"atol {CULL_ATOL})")
+        sps = FLAT_PARTICLE_STEPS / wall
+        print(f"[batch] {tag}: {n_live} live particles, max_body_shapes "
+              f"{cfg.max_body_shapes}, block_shape_slots "
+              f"{cfg.block_shape_slots}; {FLAT_PARTICLE_STEPS} steps in "
+              f"{wall:.3f} s: {sps:.2f} steps/s, {sps * n_live:.1f} "
+              f"particle-steps/s; K3 launches {k3}; K4 repairs {k4} against "
+              f"{st.full_sorts} full sorts; overflow_particles "
+              f"{prof['overflow_particles']} (the reference's slot sizing, "
+              f"ROADMAP section 3); {note}")
+        out[f"{tag} K3"] = k3
+        out[f"{tag} K4"] = k4
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -1500,6 +2095,10 @@ def main():
     api_launches = phase_queries_and_host_api()
     print(f"[main] kernel launches on the queries and host-API paths: "
           f"{api_launches}")
+    t6 = time.perf_counter()
+    batched, batch_launches = phase_batching()
+    print(f"[main] kernel launches on the batching paths: {batch_launches}; "
+          f"phase 6 in {time.perf_counter() - t6:.1f} s")
     big = kern[(140, WARM_STEPS)]
     small = kern[(20, WARM_STEPS)]
     farm = jkern["joint_farm-1000"]
@@ -1575,6 +2174,21 @@ def main():
         "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
+    }, {
+        # the mode-1 kernel under jax.vmap: one launch for every world of
+        # a batch; bound from the bytes and operations of all its worlds
+        "name": "contact_solve_batched",
+        "route": "cuda",
+        "source": "box2d_tpu_torch/csrc/contact_solver.cu",
+        "replaces": "box2d_tpu/solver_pallas.py:410 (run_solver_kernel "
+                    "under jax.vmap, bench.py:143-149)",
+        "launches": batched["launches"],
+        "max_abs_err": batched["max_abs_err"],
+        "ms": batched["ms"],
+        "plain_ms": batched["plain_ms"],
+        "bound_ms": batched["bound_ms"],
+        "bound_by": batched["bound_by"],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

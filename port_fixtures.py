@@ -9,6 +9,10 @@
 - Inputs made to reach a kernel's edge cases: `move_buckets_to_tail` (an
   overflow tail of several Jacobi windows), `k3_table` (K3 blocks on their
   global-memory path) and `rank_table` (K4 stress tables).
+- Batches of worlds: `perturbed_leaves` (copies of one world's state,
+  each jittered from a numpy seed, one with a velocity kick, some put to
+  sleep), so that a wrong offset between worlds cannot hide behind
+  identical copies.
 - Timing on the card: `median_ms` (device time of one call),
   `library_rank` (the library call beside K4) and
   `record_particle_calls` (what dam_break's step hands K3 and K4).
@@ -557,3 +561,32 @@ def api_sequence(w, t, g):
     w.set_filter(11, t.Filter(group_index=-2))
     w.explode((0.0, 0.5), 3.0, 2.0)
     return h
+
+
+def perturbed_leaves(leaves, n_worlds, seed=0, jitter=0.01, kick=None,
+                     asleep=(), fast=None):
+    """A batch of n_worlds copies of one world, as {dotted path: array}
+    with a leading world axis (state_to_numpy's layout, so both packages
+    can load it). Every copy's dynamic bodies move by up to `jitter` m in
+    x and y, from numpy's generator seeded with seed + the copy's index;
+    kick = (world, body, (vx, vy)) adds that velocity to one body; the
+    worlds in `asleep` have every body asleep; fast = (world, body, (vx,
+    vy), (x, y)) moves one body's centre there and sets its velocity (a
+    fast body opens the CCD gate)."""
+    out = {k: np.stack([np.array(v, copy=True)] * n_worlds)
+           for k, v in leaves.items()}
+    dyn = leaves["bodies.type"] == 2
+    for w in range(n_worlds):
+        rng = np.random.default_rng(seed + w)
+        out["bodies.center"][w][dyn] += rng.uniform(
+            -jitter, jitter, (int(dyn.sum()), 2)).astype(np.float32)
+    if kick is not None:
+        w, body, vel = kick
+        out["bodies.v"][w, body] += np.asarray(vel, np.float32)
+    if fast is not None:
+        w, body, vel, center = fast
+        out["bodies.v"][w, body] = np.asarray(vel, np.float32)
+        out["bodies.center"][w, body] = np.asarray(center, np.float32)
+    for w in asleep:
+        out["bodies.awake"][w] = False
+    return out

@@ -235,22 +235,31 @@ def test_unported_paths_raise(small_world, what):
     """The unported particle paths raise, naming their ROADMAP.md queue.
     The anti-tunnel ray against non-polygon shapes is ported (queue 10b):
     forced on this polygon tank, its branch (queries.ray_shape_analytic)
-    gives what the polygon branch gives."""
+    gives what the polygon branch gives. Per-block shape culling is ported
+    (queue 12): with two slots a block for the tank's three shapes, the
+    culled step gives what the dense one gives, to the bound of
+    tests/test_particles.py:304-332."""
     cfg = small_world._step.particle_cfg
     state = small_world.state
-    if what == "non_polygon":
-        general = cfg._replace(geom_types=frozenset({0, 3}))
-        a = tpart.particle_step(state.particles, state, DT, general)[0]
-        b = tpart.particle_step(state.particles, state, DT, cfg)[0]
-        torch.testing.assert_close(a.pos, b.pos, atol=1e-5, rtol=0)
-        torch.testing.assert_close(a.vel, b.vel, atol=1e-5, rtol=0)
+    if what in ("non_polygon", "culling"):
+        other = (cfg._replace(geom_types=frozenset({0, 3}))
+                 if what == "non_polygon" else
+                 cfg._replace(block_shape_slots=2))
+        a = tpart.particle_step(state.particles, state, DT, other)
+        b = tpart.particle_step(state.particles, state, DT, cfg)
+        tol = (dict(atol=1e-5, rtol=0) if what == "non_polygon" else
+               dict(atol=5e-5, rtol=1e-5))
+        torch.testing.assert_close(a[0].pos, b[0].pos, **tol)
+        torch.testing.assert_close(a[0].vel, b[0].vel, **tol)
+        if what == "culling":
+            assert cfg.max_body_shapes > 2, "the culled path is not taken"
+            torch.testing.assert_close(a[1], b[1], **tol)
+            assert int(a[3]) == int(b[3]) == 0
         return
     if what in GATES:
         cfg, item = cfg._replace(**{"has_" + what: True}), "queue 13"
-    elif what == "windowed":
-        cfg, item = cfg._replace(use_window_kernel=False), "queue 13"
     else:
-        cfg, item = cfg._replace(block_shape_slots=2), "queue 13"
+        cfg, item = cfg._replace(use_window_kernel=False), "queue 13"
     with pytest.raises(NotImplementedError, match=item):
         tpart.particle_step(state.particles, state, DT, cfg)
 

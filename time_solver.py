@@ -14,7 +14,13 @@ the inputs that checkout's own step gives it:
 - the particle kernels at dam_break(100000) (record_particle_calls): K3,
   `window_pass`, in its three phases, and K4, `rank_pass`, with beside it
   the library call that computes the same function,
-  torch.argsort(stable=True) and the inverse scatter (library_rank).
+  torch.argsort(stable=True) and the inverse scatter (library_rank);
+- the solver kernel's Jacobi windows: pyramid-140 at spawn (two
+  2,560-lane tail windows) and pyramid-20 after WARM_STEPS steps with
+  three color buckets moved into its tail (three 128-lane windows), and,
+  where the checkout has `contact_solve_batched`, the batched launch on
+  64 perturbed pyramid-20 worlds after WARM_STEPS steps, as it is and
+  with three buckets moved into every world's tail.
 To compare two versions on one card, give them in turns, e.g. parent,
 change, change, parent, with the parent unpacked by `git archive` into a
 directory that .gitignore lists. The first line is the card's name and
@@ -42,12 +48,55 @@ import subprocess
 import sys
 
 from port_fixtures import (TIMED_CALLS, WARM_STEPS, library_rank, median_ms,
+                           move_buckets_to_tail, perturbed_leaves,
                            record_particle_calls)
 
 ROUNDS = 4
 CASES = ("pyramid-20", "pyramid-140", "joint_farm-1000",
          "K3 weight", "K3 pressure", "K3 damping", "K4",
-         "K4 library (argsort + scatter)")
+         "K4 library (argsort + scatter)",
+         "pyramid-140 at spawn", "pyramid-20 tail",
+         "64 x pyramid-20 batched", "64 x pyramid-20 batched tail")
+# the Jacobi cases: the color buckets moved into the overflow tail
+TAIL_BUCKETS = 3
+BATCH_WORLDS = 64
+
+
+def _layout(w, steps):
+    """The solver's arguments for World w after `steps` steps."""
+    from box2d_tpu_torch import world
+
+    w.compile()
+    w.run(steps)
+    st = w._step
+    return world._step_work(w.state, 1 / 60, w.capacity, st.classes,
+                            st.substeps, st.continuous, world.StepStats(),
+                            until="layout", joint_types=st.joint_types)
+
+
+def _batch_args():
+    """The batched solver's arguments for a perturbed batch of
+    BATCH_WORLDS pyramid-20 worlds (chip_smoke.py phase 6's, seed 7) after
+    WARM_STEPS steps."""
+    import dataclasses
+
+    from box2d_tpu_torch import batch as bt
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.narrowphase import classes_for_shape_types
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    w = scenes.pyramid(rows=20, device="cuda")
+    state, cap = w.builder.build(device="cuda")
+    cap = dataclasses.replace(cap, bp_repair_cap=0, batched=True)
+    classes = classes_for_shape_types(
+        s["geom"].type for s in w.builder._shapes)
+    bstep = world.make_batched_step(cap, classes, 4, True)
+    b = state_from_numpy(perturbed_leaves(
+        state_to_numpy(state), BATCH_WORLDS, seed=7,
+        kick=(BATCH_WORLDS - 1, 5, (2.0, 1.0))), "cuda")
+    for _ in range(WARM_STEPS):
+        b = bstep(b, 1 / 60)
+    return bt.batched_kernel_args(b, 1 / 60, bstep)
 
 
 def worker(root):
@@ -80,6 +129,25 @@ def worker(root):
         out[case] = median_ms(lambda: pk.window_pass(*args))
     out["K4"] = median_ms(lambda: pk.rank_pass(newkey, offs, rb))
     out[CASES[7]] = median_ms(lambda: library_rank(newkey))
+    # Jacobi windows: pyramid-140 at spawn (two 2,560-lane windows, on the
+    # cluster) and pyramid-20 with TAIL_BUCKETS buckets moved into its
+    # tail (three 128-lane windows, on CTA 0), alone and in a batch
+    args = _layout(scenes.pyramid(rows=140, device="cuda"), 0)
+    out[CASES[8]] = median_ms(lambda: cs.contact_solve(*args))
+    args = _layout(scenes.pyramid(rows=20, device="cuda"), WARM_STEPS)
+    args = move_buckets_to_tail(args, range(TAIL_BUCKETS),
+                                TAIL_BUCKETS * args[7])
+    out[CASES[9]] = median_ms(lambda: cs.contact_solve(*args))
+    if hasattr(cs, "contact_solve_batched"):
+        bargs = _batch_args()
+        out[CASES[10]] = median_ms(lambda: cs.contact_solve_batched(*bargs))
+        tails = [move_buckets_to_tail(
+            tuple(x[w] for x in bargs[:6]) + tuple(bargs[6:]) + (None,),
+            range(TAIL_BUCKETS), TAIL_BUCKETS * bargs[7])
+            for w in range(BATCH_WORLDS)]
+        targs = tuple(torch.stack([t[i] for t in tails])
+                      for i in range(6)) + bargs[6:11]
+        out[CASES[11]] = median_ms(lambda: cs.contact_solve_batched(*targs))
     print(json.dumps(out))
 
 
@@ -96,13 +164,17 @@ def _load_package(root, alias):
 
 
 def _sass_count(lib_path):
-    """SASS instructions of the contact-only solve_kernel in a build."""
+    """SASS instructions of the contact-only single-world solve_kernel in
+    a build (solve_kernel<false>, or <false, false> since the batched
+    instance)."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     for part in text.split("Function : ")[1:]:
-        if "solve_kernelILb0E" in part.splitlines()[0]:
+        name = part.splitlines()[0]
+        if ("solve_kernelILb0EE" in name
+                or "solve_kernelILb0ELb0EE" in name):
             return sum(1 for line in part.splitlines()
                        if line.strip().startswith("/*") and "*/" in line
                        and line.strip()[2:6].isalnum()
@@ -151,7 +223,7 @@ def one_process(roots):
             calls.append(lambda cs=cs, a=a: cs.contact_solve(*a))
             results.append(calls[-1]())
         for r in results[1:]:
-            # equal up to the order of the atomics of Jacobi windows
+            # equal up to the rounding of the Jacobi windows' sums
             assert all(torch.allclose(x, y, rtol=0, atol=1e-5)
                        for x, y in zip(r, results[0]))
         times = {name: [] for name in names}
@@ -197,7 +269,8 @@ def main():
         ms = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(dict(root=root, ms=ms))
         print(f"[time_solver] {root}: " + ", ".join(
-            f"{case} {ms[case]:.4f} ms" for case in CASES), flush=True)
+            f"{case} {ms[case]:.4f} ms" for case in CASES if case in ms),
+            flush=True)
     print(json.dumps({"timed_calls": TIMED_CALLS, "runs": runs}))
 
 
