@@ -16,10 +16,8 @@ device (one synchronisation each); a setter that walks the touching
 contacts reads them once and loops on the host. Remaking the step (a new
 geometry class, a sensor, the filter tier, a new joint type, a hook) only
 builds a new `world.Step`; the state and the step's StepStats carry over.
-
-Not ported (ROADMAP.md queue 13): destroy_particle,
-destroy_particles_in_aabb, apply_particle_force, join_particle_groups,
-split_particle_group and stuck_particles.
+The particle methods (destroy, force, join, split, stuck) edit the
+particle tree the same way.
 """
 
 from __future__ import annotations
@@ -42,8 +40,7 @@ from .narrowphase import build_static_table, classes_for_shape_types
 from .particles import (G_RIGID, G_SOLID, P_BARRIER, P_COLOR_MIXING,
                         P_ELASTIC, P_POWDER, P_REPULSIVE, P_SPRING,
                         P_STATIC_PRESSURE, P_TENSILE, P_VISCOUS, P_WALL,
-                        ParticleConfig, _point_shape_distance_batched,
-                        unported)
+                        ParticleConfig, _point_shape_distance_batched)
 from .sensors import sensor_shape_ids
 from .state import (ALLOW_FAST_ROTATION, DYNAMIC, ENABLE_SLEEP, IS_BULLET,
                     LOCK_ANGULAR_Z, LOCK_LINEAR_X, LOCK_LINEAR_Y, Capacity,
@@ -209,11 +206,6 @@ class World:
 
     def compile(self, capacity: Capacity | None = None):
         pcfg = self._particle_config()
-        if pcfg is not None:
-            n_shapes = (capacity or self.builder.default_capacity()).max_shapes
-            why = unported(pcfg, n_shapes)
-            if why is not None:
-                raise NotImplementedError(why)
         self.state, self.capacity = self.builder.build(capacity, self.device)
         self._classes = classes_for_shape_types(
             s["geom"].type for s in self.builder._shapes)
@@ -261,11 +253,13 @@ class World:
 
     def _particle_config(self) -> ParticleConfig | None:
         """The particle step's static config, sized as box2d_tpu/api.py
-        :168-244 sizes it (mbs, k_cull, depth_iterations, geom_types). The
-        window kernel is always on (the JAX package turns it on only on an
-        accelerator with >= 2048 particles), and the rank repair is on from
-        2048 particles whatever the device, so that a CPU world and a CUDA
-        world take the same branches."""
+        :168-244 sizes it (mbs, k_cull, depth_iterations, geom_types, one
+        gate a particle flag and group type present). The window kernel is
+        asked for always (the JAX package asks only on an accelerator with
+        >= 2048 particles; particle_step takes it only where no gated pass
+        needs the flat pair view or the pair / triad remap), and the rank
+        repair from 2048 particles whatever the device, so that a CPU
+        world and a CUDA world take the same branches."""
         pb = self.builder._particle_builder
         if pb is None:
             return None
@@ -1196,6 +1190,190 @@ class World:
         nl = np.hypot(*n)
         n = n / nl if nl > 0 else np.array([0.0, 1.0])
         return i, float(tt[i]), point.astype(np.float32), n.astype(np.float32)
+
+    # -- particles (post-compile edits; out of place) ------------------------
+
+    def _update_particles(self, **cols):
+        self.state = dataclasses.replace(
+            self.state,
+            particles=dataclasses.replace(self.state.particles, **cols))
+
+    def destroy_particle(self, index: int):
+        """Kill one particle (ref: ParticleSystem.DestroyParticle; the
+        zombie flag and compaction become an alive-mask clear, as in
+        box2d_tpu/api.py:999-1006)."""
+        self._update_particles(
+            alive=_put(self.state.particles.alive, index, False))
+
+    def destroy_particles_in_aabb(self, lo, hi):
+        """Kill every particle inside an AABB (box2d_tpu/api.py:1008-1016)."""
+        pt = self.state.particles
+        lo = torch.as_tensor(np.asarray(lo, np.float32), device=self.device)
+        hi = torch.as_tensor(np.asarray(hi, np.float32), device=self.device)
+        inside = ((pt.pos >= lo) & (pt.pos <= hi)).all(dim=1)
+        self._update_particles(alive=pt.alive & ~inside)
+
+    def apply_particle_force(self, index: int, force):
+        """Add a user force to one particle for the next step
+        (box2d_tpu/api.py:1018-1024)."""
+        self._update_particles(force=_add(
+            self.state.particles.force, index,
+            torch.as_tensor(np.asarray(force, np.float32),
+                            device=self.device)))
+
+    def join_particle_groups(self, group_a: int, group_b: int) -> int:
+        """Merge group_b into group_a, with spring pairs and elastic triads
+        across the seam from the current positions (ref:
+        ParticleSystem.JoinParticleGroups and the join filter of
+        UpdatePairsAndTriads; box2d_tpu/api.py:1026-1125): the native
+        builders run over both groups' live particles and only the pairs
+        and triads that join a particle of each group are kept. The pair
+        and triad columns grow; a solid result re-derives its depth."""
+        from . import native
+        from .particles import G_NEEDS_DEPTH, PARTICLE_STRIDE
+
+        pt = self.state.particles
+        group = _np(pt.group).copy()
+        alive = _np(pt.alive)
+        pos = _np(pt.pos)
+        pflags = _np(pt.flags)
+        in_a = (group == group_a) & alive
+        in_b = (group == group_b) & alive
+        group[in_b] = group_a
+        gflags = _np(pt.group_flags).copy()
+        gflags[group_a] |= gflags[group_b]
+        if gflags[group_a] & G_SOLID:
+            gflags[group_a] |= G_NEEDS_DEPTH
+        gstrength = _np(pt.group_strength)
+        strength = float(min(gstrength[group_a], gstrength[group_b]))
+
+        idx = np.where(in_a | in_b)[0]
+        d = 2.0 * float(pt.params.radius)
+        new_pairs, new_triads = [], []
+        if len(idx) >= 2:
+            pts = pos[idx].astype(np.float32)
+            from_b = in_b[idx]
+            union_flags = int(np.bitwise_or.reduce(pflags[idx]))
+            if union_flags & P_SPRING:
+                la, lb, dist = native.build_pairs(pts, d * 1.2)
+                for k in range(len(la)):
+                    a, b_ = int(la[k]), int(lb[k])
+                    if from_b[a] == from_b[b_]:
+                        continue      # only seam-crossing connections
+                    fl = int(pflags[idx[a]] | pflags[idx[b_]])
+                    if fl & P_SPRING:
+                        new_pairs.append((int(idx[a]), int(idx[b_]), fl,
+                                          strength, float(dist[k])))
+            if union_flags & P_ELASTIC:
+                tri, rest = native.build_triads(pts, PARTICLE_STRIDE * d)
+                for k in range(len(tri)):
+                    ta, tb, tc = (int(v) for v in tri[k])
+                    if from_b[ta] == from_b[tb] == from_b[tc]:
+                        continue
+                    fl = int(pflags[idx[ta]] | pflags[idx[tb]]
+                             | pflags[idx[tc]])
+                    if fl & P_ELASTIC:
+                        new_triads.append((int(idx[ta]), int(idx[tb]),
+                                           int(idx[tc]), fl, strength,
+                                           rest[k, 0], rest[k, 1],
+                                           rest[k, 2]))
+
+        dev = self.device
+        cols = {"group": torch.as_tensor(group, device=dev),
+                "group_flags": torch.as_tensor(gflags, device=dev)}
+
+        def grow(name, rows, dtype):
+            new = torch.as_tensor(np.asarray(rows, dtype), device=dev)
+            cols[name] = torch.cat([getattr(pt, name), new])
+
+        if new_pairs:
+            for j, (name, dtype) in enumerate((
+                    ("pair_a", np.int32), ("pair_b", np.int32),
+                    ("pair_flags", np.int32), ("pair_strength", np.float32),
+                    ("pair_distance", np.float32))):
+                grow(name, [p_[j] for p_ in new_pairs], dtype)
+        if new_triads:
+            for j, (name, dtype) in enumerate((
+                    ("triad_a", np.int32), ("triad_b", np.int32),
+                    ("triad_c", np.int32), ("triad_flags", np.int32),
+                    ("triad_strength", np.float32))):
+                grow(name, [t_[j] for t_ in new_triads], dtype)
+            for j, name in ((5, "triad_pa"), (6, "triad_pb"),
+                            (7, "triad_pc")):
+                grow(name, np.stack([t_[j] for t_ in new_triads]),
+                     np.float32)
+        self._update_particles(**cols)
+        return group_a
+
+    def split_particle_group(self, group: int) -> list[int]:
+        """Split a group into its connected components over current
+        proximity (closer than a diameter), like ref SplitParticleGroup's
+        contact-graph labelling (box2d_tpu/api.py:1127-1187): the largest
+        component keeps `group`, each other one gets a new group id with
+        the group's flags and strength. Returns every resulting id."""
+        pt = self.state.particles
+        garr = _np(pt.group).copy()
+        alive = _np(pt.alive)
+        pos = _np(pt.pos)
+        members = np.where((garr == group) & alive)[0]
+        if len(members) == 0:
+            return [group]
+        d = 2.0 * float(pt.params.radius)
+
+        # union-find over a cell hash (cells of one diameter, 3 x 3 window)
+        parent = {int(i): int(i) for i in members}
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        cells: dict = {}
+        for i in members:
+            cells.setdefault((int(pos[i, 0] // d), int(pos[i, 1] // d)),
+                             []).append(int(i))
+        for (cx, cy), occupants in cells.items():
+            for dx in (-1, 0, 1):
+                for dy in (-1, 0, 1):
+                    other = cells.get((cx + dx, cy + dy))
+                    if other is None:
+                        continue
+                    for i in occupants:
+                        for j in other:
+                            if j > i and np.hypot(*(pos[i] - pos[j])) < d:
+                                ri, rj = find(i), find(j)
+                                if ri != rj:
+                                    parent[ri] = rj
+        comps: dict = {}
+        for i in members:
+            comps.setdefault(find(int(i)), []).append(int(i))
+        ordered = sorted(comps.values(), key=len, reverse=True)
+        gflags = _np(pt.group_flags)
+        gstrength = _np(pt.group_strength)
+        gids = [group]
+        for comp in ordered[1:]:
+            gid = len(gflags)
+            gflags = np.append(gflags, gflags[group])
+            gstrength = np.append(gstrength, gstrength[group])
+            garr[comp] = gid
+            gids.append(gid)
+        dev = self.device
+        self._update_particles(
+            group=torch.as_tensor(garr, device=dev),
+            group_flags=torch.as_tensor(gflags, device=dev),
+            group_strength=torch.as_tensor(gstrength.astype(np.float32),
+                                           device=dev))
+        return gids
+
+    def stuck_particles(self, threshold: int = 5) -> np.ndarray:
+        """Indices of particles wedged against bodies: two or more body
+        contacts for more than `threshold` steps in a row (ref:
+        ParticleSystem.DetectStuckParticle and GetStuckCandidates;
+        box2d_tpu/api.py:1326-1333)."""
+        pt = self.state.particles
+        return np.where(_np(pt.alive)
+                        & (_np(pt.consecutive_contact_steps) > threshold))[0]
 
     def byte_count(self) -> int:
         """Device bytes held by the world state (ref: WorldAPI

@@ -1,43 +1,64 @@
-"""LiquidFun particles: the plain-water particle step.
+"""LiquidFun particles: the whole particle step.
 
-Torch port of box2d_tpu/particles.py along the path a plain-water scene
-takes (dam_break): the particle state (`ParticleParams`, `Particles`,
-`ParticleConfig`, same fields, dtypes and shapes), the builder
-(`create_particle`, `create_group_box`, `build`), the closed-form
-particle-vs-polygon distance and ray (`_point_shape_distance_batched`,
-`_ray_polygon_batched`), and `particle_step` with its sub-iterations run
-in cell-sorted order: the cell sort (the nearly-sorted rank repair K4, or
-the stable argsort), the single packed permutation, the neighbour passes
-weight, pressure and damping through the window kernel K3
-(particles_kernels.py), dense body coupling, force, gravity, limit
-velocity, the anti-tunnel ray (the slab ray where every shape is a
-polygon, else queries.ray_shape_analytic), lifetimes, integration,
-the single un-sort and stuck detection.
+Torch port of box2d_tpu/particles.py: the particle state (`ParticleParams`,
+`Particles`, `ParticleConfig`, same fields, dtypes and shapes), the builder
+(`create_particle`, `create_group_box` with the spring / barrier pairs and
+elastic triads of csrc/scene_core.cpp through native.py, `build`), the
+closed-form particle-vs-polygon distance and ray
+(`_point_shape_distance_batched`, `_ray_polygon_batched`), and
+`particle_step` with its sub-iterations run in cell-sorted order: the cell
+sort, the single packed permutation (depth and colour columns where solid
+groups or colour mixing need them), the original-lane to sorted-lane remap
+of pairs and triads, the neighbour passes, body coupling, every flag-gated
+pass (viscous, repulsive, powder, tensile, solid depth and ejection,
+static pressure, elastic, spring, rigid groups and their damping, wall,
+barrier, colour mixing), the anti-tunnel ray (the slab ray where every
+shape is a polygon, else queries.ray_shape_analytic), lifetimes,
+integration, the single un-sort and stuck detection.
+
+The neighbour passes take one of two paths, by the JAX rule
+(box2d_tpu/particles.py:734-757): where no gated pass needs the flat pair
+view or the pair / triad remap and `use_window_kernel` is set, the window
+kernel K3 (particles_kernels.py) sums weight, pressure and damping, after
+the rank repair K4 or a stable argsort; otherwise every sub-iteration
+fully sorts and the windowed `_find_contacts_sorted` pipeline gives the
+fixed same-row and row-above windows (`k_same`, `k_up`), whose truncation
+counts into the overflow, and the gated passes read their flat view.
 
 With more nearby shapes than `block_shape_slots` (a flat batch of
 replicated tanks), the body coupling and the polygon anti-tunnel ray take
 per-block shape culling (box2d_tpu/particles.py:679-729, :900-959,
 :985-994): each block of 256 sorted particles couples with its own top-K
 shapes whose fattened boxes overlap it, instead of with every nearby
-shape.
-
-The port always takes K3 for the neighbour passes; the JAX package does so
-only on an accelerator with at least 2048 particles and otherwise runs
-the windowed `_find_contacts_sorted` pipeline, which agrees with K3
-wherever the windows do not truncate. The flag-gated passes, pairs and
-triads, solid and rigid groups and the windowed pipeline are not ported:
-they raise NotImplementedError naming their ROADMAP.md item.
+shape. The culled rows reach the impulse sums as arguments, never through
+a name a later pass rebinds (the reference's rigid pass rebinds them,
+:1267).
 
 PyTorch runs eagerly: the `lax.scan` over sub-iterations is a Python loop,
-and the rank repair's `lax.cond` is a host branch on one device read per
-sub-iteration (world.StepStats counts it). The scalar chain (dt, inv_dt,
-crit_v, mass, ...) is float32, as in the JAX step: host values are
-np.float32, device values 0-d float32 tensors.
+the rank repair's `lax.cond` is a host branch on one device read a
+sub-iteration, the depth pass's `lax.cond` one read a sub-iteration of a
+world with solid groups, and the depth relaxation's `while_loop` reads the
+device every CHECK_EVERY rounds (world.StepStats counts them); the
+scatter-adds' SegmentPlans read their widest fan-in once a sub-iteration
+(neighbours, culled bodies) and once a step (triads, springs, groups).
+
+Off the K3 path, the step gives the same bits on the card as on the CPU,
+and again when run twice: the sums onto particles, groups and bodies are
+segment sums (a stable sort by target, then a fixed pairwise tree of
+elementwise adds, _segment_add) where index_add_ on the card would add a
+target's lanes in another order; row and column sums take the same tree
+(_tree_sum) where a reduction kernel would add in another order; square
+roots are correctly rounded on both devices (_sqrt); no tensor is divided
+by a host scalar (the card multiplies by its reciprocal). The plain-water
+K3 path keeps its reductions, index_add_ and torch.sqrt. The scalar chain
+(dt, inv_dt, crit_v, mass, ...) is float32, as in the JAX step: host
+values are np.float32, device values 0-d float32 tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, NamedTuple
 
@@ -78,8 +99,9 @@ MAX_PARTICLE_FORCE = 0.5
 PARTICLE_LINEAR_SLOP = 0.005
 
 _NO_PRESSURE = P_POWDER | P_TENSILE
-
-_REMAINDER = "ROADMAP.md queue 13 (the rest of the particle engine)"
+# depth relaxation rounds between two device reads of "did any depth
+# shrink" (the reference's while_loop reads it every round)
+CHECK_EVERY = 8
 
 
 @dataclasses.dataclass
@@ -157,8 +179,11 @@ class Particles:
 
 class ParticleConfig(NamedTuple):
     """Static config of the particle step (box2d_tpu.particles
-    .ParticleConfig, same fields). The port always runs the window kernel:
-    use_window_kernel=False, like every has_* gate, raises."""
+    .ParticleConfig, same fields): the window sizes, the trace-time pass
+    gates (a pass whose flag is absent from the scene never runs), the
+    window kernel K3 and rank repair K4 (taken only where no gated pass
+    needs the flat pair view or the pair / triad remap), the culling
+    slots and the scene's geometry families."""
 
     k_same: int = 12
     k_up: int = 12
@@ -182,19 +207,6 @@ class ParticleConfig(NamedTuple):
     rank_repair: bool = False
     block_shape_slots: int = 8
     geom_types: frozenset | None = None
-
-
-def unported(cfg: ParticleConfig, n_shapes: int) -> str | None:
-    """What of `cfg` this port cannot step yet (with its ROADMAP.md item),
-    or None."""
-    for gate in ("viscous", "repulsive", "powder", "tensile",
-                 "static_pressure", "colormix", "elastic", "spring",
-                 "barrier", "solid", "rigid", "wall"):
-        if getattr(cfg, "has_" + gate):
-            return f"the particle {gate} pass: {_REMAINDER}"
-    if not cfg.use_window_kernel:
-        return f"the windowed _find_contacts_sorted pipeline: {_REMAINDER}"
-    return None
 
 
 # ---------------------------------------------------------------------------
@@ -232,16 +244,14 @@ class ParticleSystemBuilder:
         self.group: list = []
         self.group_flags: list = []
         self.group_strength: list = []
+        self.pairs: list = []
+        self.triads: list = []
         self.lifetime: list = []
         self.color: list = []
 
     def create_particle(self, position, velocity=(0.0, 0.0), flags=0,
                         group=-1, lifetime=0.0,
                         color=(1.0, 1.0, 1.0, 1.0)) -> int:
-        if int(flags) & (P_SPRING | P_ELASTIC | P_BARRIER):
-            raise NotImplementedError(
-                f"particle pairs and triads (spring, elastic, barrier): "
-                f"{_REMAINDER}")
         self.pos.append(np.asarray(position, np.float32))
         self.vel.append(np.asarray(velocity, np.float32))
         self.flags.append(int(flags))
@@ -254,39 +264,76 @@ class ParticleSystemBuilder:
                          group_flags=0, strength=1.0, velocity=(0.0, 0.0),
                          lifetime=0.0, color=(1.0, 1.0, 1.0, 1.0)) -> int:
         """Fill a box with particles on the standard stride grid
-        (ref: CreateParticleGroup shape fill :652-720)."""
-        if int(flags) & (P_SPRING | P_ELASTIC | P_BARRIER):
-            raise NotImplementedError(
-                f"particle pairs and triads (spring, elastic, barrier "
-                f"groups): {_REMAINDER}")
+        (ref: CreateParticleGroup shape fill :652-720); spring, elastic
+        and barrier groups get their pairs and triads."""
         gid = len(self.group_flags)
         gf = int(group_flags)
         if gf & G_SOLID:
+            # solid groups need their depth field before the ejection can
+            # act (ref: SetGroupFlags -> NeedsUpdateDepth)
             gf |= G_NEEDS_DEPTH
         self.group_flags.append(gf)
         self.group_strength.append(float(strength))
         stride = PARTICLE_STRIDE * 2.0 * self.radius
+        first = len(self.pos)
         for p in fill_box(center, half_w, half_h, stride):
             self.create_particle(p, velocity, flags, gid, lifetime, color)
+        if int(flags) & (P_SPRING | P_ELASTIC | P_BARRIER):
+            self._build_pairs_triads(first, len(self.pos), int(flags),
+                                     strength)
         return gid
 
-    def build(self, capacity: int | None = None, device="cuda") -> Particles:
+    def _build_pairs_triads(self, first, last, flags, strength):
+        """Spring / barrier pairs from initial proximity (under 1.2
+        diameters) and elastic triads from the Voronoi diagram of the
+        group (box2d_tpu/particles.py:269-303, its native path: ref
+        :801-861). Barrier groups get pairs too: each pair is a barrier
+        segment (ref k_pairFlags = spring | barrier,
+        ParticleSystem.cs:762)."""
+        from . import native
+
+        pts = np.array(self.pos[first:last], np.float32)
+        d = 2.0 * self.radius
+        if flags & (P_SPRING | P_BARRIER):
+            a, b, dist = native.build_pairs(pts, d * 1.2)
+            for k in range(len(a)):
+                self.pairs.append((first + int(a[k]), first + int(b[k]),
+                                   flags, strength, float(dist[k])))
+        if flags & P_ELASTIC:
+            tri, rest = native.build_triads(pts, PARTICLE_STRIDE * d)
+            for k in range(len(tri)):
+                self.triads.append(
+                    (first + int(tri[k, 0]), first + int(tri[k, 1]),
+                     first + int(tri[k, 2]), flags, strength,
+                     rest[k, 0], rest[k, 1], rest[k, 2]))
+
+    def build(self, capacity: int | None = None,
+              pair_capacity: int | None = None,
+              triad_capacity: int | None = None,
+              device="cuda") -> Particles:
+        """The Particles tree (box2d_tpu/particles.py:322-367): `capacity`
+        particle lanes, `pair_capacity` pair and `triad_capacity` triad
+        lanes (each at least 1), padding lanes dead or flagged 0."""
         n = len(self.pos)
         cap = capacity or max(n, 1)
         g = max(len(self.group_flags), 1)
+        pp = pair_capacity or max(len(self.pairs), 1)
+        tp = triad_capacity or max(len(self.triads), 1)
 
         def up(a):
             return torch.from_numpy(np.asarray(a)).to(device)
 
         def pad(lst, cap_, shape=(), dtype=np.float32, fill=0):
             out = np.full((cap_,) + shape, fill, dtype)
-            for i, v in enumerate(lst):
-                out[i] = v
+            if len(lst):
+                out[:len(lst)] = np.asarray(lst, dtype).reshape(
+                    (len(lst),) + shape)
             return up(out)
 
         def zeros(shape, dtype=np.float32):
             return up(np.zeros(shape, dtype))
 
+        pairs, triads = self.pairs, self.triads
         return Particles(
             pos=pad(self.pos, cap, (2,)),
             vel=pad(self.vel, cap, (2,)),
@@ -300,13 +347,19 @@ class ParticleSystemBuilder:
             depth=zeros(cap),
             group_flags=pad(self.group_flags, g, (), np.int32),
             group_strength=pad(self.group_strength, g, (), np.float32, 1.0),
-            pair_a=zeros(1, np.int32), pair_b=zeros(1, np.int32),
-            pair_flags=zeros(1, np.int32), pair_strength=zeros(1),
-            pair_distance=zeros(1),
-            triad_a=zeros(1, np.int32), triad_b=zeros(1, np.int32),
-            triad_c=zeros(1, np.int32), triad_flags=zeros(1, np.int32),
-            triad_strength=zeros(1), triad_pa=zeros((1, 2)),
-            triad_pb=zeros((1, 2)), triad_pc=zeros((1, 2)),
+            pair_a=pad([p[0] for p in pairs], pp, (), np.int32),
+            pair_b=pad([p[1] for p in pairs], pp, (), np.int32),
+            pair_flags=pad([p[2] for p in pairs], pp, (), np.int32),
+            pair_strength=pad([p[3] for p in pairs], pp),
+            pair_distance=pad([p[4] for p in pairs], pp),
+            triad_a=pad([t[0] for t in triads], tp, (), np.int32),
+            triad_b=pad([t[1] for t in triads], tp, (), np.int32),
+            triad_c=pad([t[2] for t in triads], tp, (), np.int32),
+            triad_flags=pad([t[3] for t in triads], tp, (), np.int32),
+            triad_strength=pad([t[4] for t in triads], tp),
+            triad_pa=pad([t[5] for t in triads], tp, (2,)),
+            triad_pb=pad([t[6] for t in triads], tp, (2,)),
+            triad_pc=pad([t[7] for t in triads], tp, (2,)),
             consecutive_contact_steps=zeros(cap, np.int32),
             params=default_params(self.radius, self.density, device),
         )
@@ -331,6 +384,23 @@ def _safe_div(a, b):
     return a / torch.where(b != 0.0, b, 1.0)
 
 
+def _sqrt(x):
+    """The correctly rounded float32 square root on either device. The
+    card's float32 sqrt is an ulp off on some inputs; the float64 root
+    rounded to float32 is the correctly rounded one (float64 holds more
+    than twice float32's digits), which the CPU's float32 root already
+    is. So the card and the CPU give the same bits."""
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
+def _rot_normalize(q):
+    """math2d.rot_normalize through _sqrt."""
+    mag = _sqrt(q[..., 0] * q[..., 0] + q[..., 1] * q[..., 1])
+    pos = mag > 0.0
+    inv = torch.where(pos, 1.0 / torch.where(pos, mag, 1.0), 0.0)
+    return q * inv[..., None]
+
+
 def _pick(a, idx):
     """a (Sb, V, N) at the vertex lane idx (Sb, N): (Sb, N)."""
     return torch.gather(a, 1, idx[:, None, :]).squeeze(1)
@@ -348,10 +418,11 @@ def _lane_ok(verts, counts):
 
 
 def _point_shape_distance_batched(pos, s_origin, s_rot, verts, normals,
-                                  counts, radii):
+                                  counts, radii, sqrt=torch.sqrt):
     """(N, Sb) particle-to-shape surface distances and world-space outward
     normals (box2d_tpu/particles.py:544-627, same operations in the same
-    order, in its transposed (Sb, N) layout)."""
+    order, in its transposed (Sb, N) layout); `sqrt` takes the roots
+    (_sqrt where the card must give the CPU's bits)."""
     Sb, V = verts.shape[:2]
     lane_ok = _lane_ok(verts, counts)
     dx = pos[:, 0][None, :] - s_origin[:, 0:1]
@@ -382,7 +453,7 @@ def _point_shape_distance_batched(pos, s_origin, s_rot, verts, normals,
     ddx = lxv - cpx
     ddy = lyv - cpy
     dd2 = ddx * ddx + ddy * ddy
-    dd = torch.where(lane_ok, torch.sqrt(dd2), math.inf)
+    dd = torch.where(lane_ok, sqrt(dd2), math.inf)
     dd3 = dd.reshape(Sb, V, -1)
     # min / max take the first extreme lane, as the reference's first-true
     # select does
@@ -402,7 +473,7 @@ def _point_shape_distance_batched(pos, s_origin, s_rot, verts, normals,
     is_pt = (counts == 1)[:, None]
     dcx = lx - verts[:, 0, 0][:, None]
     dcy = ly - verts[:, 0, 1][:, None]
-    dlen = torch.sqrt(dcx * dcx + dcy * dcy)
+    dlen = sqrt(dcx * dcx + dcy * dcy)
     dls = torch.where(dlen > 0, dlen, 1.0)
     dist = torch.where(is_pt, dlen - radii[:, None], dist)
     lnx = torch.where(is_pt, dcx / dls, lnx)
@@ -568,10 +639,11 @@ class BlockShapes(NamedTuple):
         out = a[:, None].expand((nblk, blk) + tuple(a.shape[1:]))
         return out.reshape((nblk * blk,) + tuple(a.shape[1:]))[:self.n]
 
-    def block_sum(self, x):
+    def block_sum(self, x, exact=False):
         """(n, K, ...) per-(particle, slot) values summed per block:
-        (NBlk, K, ...)."""
-        return self.pad(x, 0.0).sum(dim=1)
+        (NBlk, K, ...); by _tree_sum where `exact`."""
+        x = self.pad(x, 0.0)
+        return _tree_sum(x) if exact else x.sum(dim=1)
 
 
 def _shape_table(s_origin, s_rot, s_center, s_v, s_w, s_invm, s_invI, s_dyn,
@@ -627,8 +699,9 @@ def _block_shapes(pos, alive, s_fatbox, bs_valid, shape_tab, p_body, k: int,
         normals=rows[..., 14 + 2 * v:].reshape(nblk, k, v, 2), over=over)
 
 
+
 # ---------------------------------------------------------------------------
-# the particle step
+# scatters, the cell sort and the windowed neighbour pipeline
 # ---------------------------------------------------------------------------
 
 def _scatter_rows(src, rank):
@@ -646,24 +719,376 @@ def _sort_rank(key):
                                       device=key.device), order)
 
 
+class SegmentPlan(NamedTuple):
+    """The contributions of a scatter-add onto particles or groups,
+    regrouped by target: slot (t, s) holds the lane of target t's s-th
+    contribution in lane order, or `n`, a zero row past the last lane."""
+
+    lanes: Any      # (T, C) int64
+    n: int          # contribution lanes
+
+
+def _fan_in(idx, n_targets, valid=None):
+    """The contributions each target takes, (T,) int64; lanes outside
+    `valid` (whose contributions are 0) are not counted."""
+    idx = idx.reshape(-1).long()
+    if valid is not None:
+        idx = torch.where(valid.reshape(-1), idx, n_targets)
+    return torch.bincount(idx, minlength=n_targets + 1)[:n_targets]
+
+
+def _segment_plan(idx, counts, width: int, valid=None) -> SegmentPlan:
+    """The SegmentPlan of the targets idx over the `valid` lanes (all if
+    None), whose fan-in `counts` (from _fan_in) is at most `width` (read
+    from the device by the caller; a wider plan only adds zero halves to
+    _tree_sum, so the sums are the same). Lanes outside `valid` must
+    contribute 0: they are left out of every target's sum."""
+    idx = idx.reshape(-1).long()
+    n = idx.shape[0]
+    t = counts.shape[0]
+    if valid is not None:
+        idx = torch.where(valid.reshape(-1), idx, t)
+    order = torch.argsort(idx, stable=True)
+    tgt = idx[order]
+    keep = tgt < t
+    tgt, order = tgt[keep], order[keep]
+    start = torch.cumsum(counts, 0) - counts
+    lanes = torch.full((t, max(width, 1)), n, dtype=torch.long,
+                       device=idx.device)
+    lanes[tgt, torch.arange(tgt.shape[0], device=idx.device)
+          - start[tgt]] = order
+    return SegmentPlan(lanes, n)
+
+
+def _segment_plan_of(idx, n_targets: int) -> SegmentPlan:
+    """The SegmentPlan of idx over all its lanes, its width read here."""
+    counts = _fan_in(idx, n_targets)
+    return _segment_plan(idx, counts, int(counts.max()) if n_targets else 0)
+
+
+def _tree_sum(x):
+    """x summed over dim 1 in a fixed pairwise order (zero padded to a
+    power of two). Elementwise adds only: the same bits on the CPU and on
+    the card, where a reduction kernel adds in another order."""
+    c = x.shape[1]
+    p = 1 << max(c - 1, 0).bit_length()
+    if p != c:
+        x = torch.cat([x, x.new_zeros((x.shape[0], p - c)
+                                      + tuple(x.shape[2:]))], dim=1)
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0]
+
+
+def _segment_add(x, plan: SegmentPlan, v):
+    """x with the contributions v (one a lane of the plan's index) summed
+    per target (_tree_sum, in the plan's order) and added: JAX's
+    `x.at[idx].add(v)` up to the order of the adds, and the same bits on
+    either device."""
+    flat = v.reshape((plan.n,) + tuple(x.shape[1:]))
+    flat = torch.cat([flat, flat.new_zeros((1,) + tuple(flat.shape[1:]))])
+    return x + _tree_sum(flat[plan.lanes])
+
+
+def _scatter_min(x, idx, v):
+    """x with x[idx] = min(x[idx], v) (JAX `x.at[idx].min(v,
+    mode="drop")`): lanes whose index lies outside x are dropped, not
+    clipped. A minimum is exact in any order."""
+    idx = idx.reshape(-1).long()
+    keep = (idx >= 0) & (idx < x.shape[0])
+    return x.scatter_reduce(0, torch.where(keep, idx, 0),
+                            torch.where(keep, v.reshape(-1), math.inf),
+                            "amin", include_self=True)
+
+
+def _wrap32(x):
+    """int64 values wrapped to int32, as JAX's int32 arithmetic wraps."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def _shift_up(x, k):
+    """The value at sorted lane i + k, zero past the end
+    (box2d_tpu/particles.py:384-388)."""
+    k = min(k, x.shape[0])
+    pad = torch.zeros((k,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([x[k:], pad])
+
+
+def _shift_down(x, k):
+    """out[i + k] = x[i], zero before the start (:391-395)."""
+    k = min(k, x.shape[0])
+    pad = torch.zeros((k,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return torch.cat([pad, x[:x.shape[0] - k]])
+
+
+def _partner_same(x, ks):
+    """(n, C...) sorted field -> (n, ks, C...): its values at lanes
+    i + 1 .. i + ks (:398-401)."""
+    return torch.stack([_shift_up(x, k) for k in range(1, ks + 1)], dim=1)
+
+
+class PairWindows(NamedTuple):
+    """Sorted-space neighbour windows (box2d_tpu/particles.py:404-418).
+    The same-row partner of (i, k) is sorted lane i + 1 + k; the row-above
+    partner of (i, r) is cand_up[i, r]. Normals and weights are 0 on
+    invalid lanes."""
+
+    cand_up: Any   # (n, ku) int64 clipped sorted partner index
+    v_same: Any    # (n, ks) bool
+    v_up: Any      # (n, ku) bool
+    n_same: Any    # (n, ks, 2) unit normal a -> b
+    n_up: Any      # (n, ku, 2)
+    w_same: Any    # (n, ks) contact weight
+    w_up: Any      # (n, ku)
+
+
+def _find_contacts_sorted(pos, alive, skey, diameter, cfg: ParticleConfig):
+    """Neighbour windows over cell-sorted particles (ref:
+    FindContacts_Reference :1096-1117; box2d_tpu/particles.py:421-480):
+    the next k_same sorted lanes (own and next cell of the row) and k_up
+    lanes from the row above, found by one searchsorted. Each pair appears
+    once. Returns (PairWindows, overflow): the alive particles whose
+    same-row or row-above span exceeds its window; their excess contacts
+    are shed this sub-iteration."""
+    n = pos.shape[0]
+    dev = pos.device
+    inv_d = 1.0 / diameter
+    d2max = diameter * diameter
+    ks, ku = cfg.k_same, cfg.k_up
+    srow = skey >> 16
+    lanes = torch.arange(n, device=dev)
+
+    def geom(p_part, al_part, in_rng, row_ok):
+        d = p_part - pos[:, None, :]
+        dist_sq = m.dot(d, d)
+        valid = (alive[:, None] & al_part & in_rng & row_ok
+                 & (dist_sq < d2max))
+        pos_sq = dist_sq > 0
+        inv_dist = torch.where(
+            pos_sq, 1.0 / _sqrt(torch.where(pos_sq, dist_sq, 1.0)),
+            0.0)
+        normal = d * inv_dist[..., None]
+        weight = 1.0 - dist_sq * inv_dist * inv_d    # ref :1091
+        return (valid, torch.where(valid[..., None], normal, 0.0),
+                torch.where(valid, weight, 0.0))
+
+    # same-row window: static shifts
+    in_rng_s = (lanes[:, None]
+                + torch.arange(1, ks + 1, device=dev)[None, :]) < n
+    v_same, n_same, w_same = geom(
+        _partner_same(pos, ks), _partner_same(alive, ks), in_rng_s,
+        _partner_same(srow, ks) == srow[:, None])
+
+    # row-above window: searchsorted for key(y + 1, x - 1), one packed
+    # partner gather
+    skey64 = skey.long()
+    start_up = torch.searchsorted(skey, _wrap32(skey64 + (1 << 16) - 1))
+    raw_up = start_up[:, None] + torch.arange(ku, device=dev)[None, :]
+    cand_up = raw_up.clamp(0, n - 1)
+    ptab = torch.cat([pos, srow.float()[:, None], alive.float()[:, None]],
+                     dim=1)
+    pu = ptab[cand_up]                                   # (n, ku, 4)
+    v_up, n_up, w_up = geom(
+        pu[..., :2], pu[..., 3] > 0, raw_up < n,
+        pu[..., 2].to(torch.int32) == srow[:, None] + 1)
+
+    # window-overflow accounting
+    same_end = torch.searchsorted(skey, _wrap32(skey64 + 2))
+    up_end = torch.searchsorted(skey, _wrap32(skey64 + (1 << 16) + 2))
+    over = alive & (((same_end - lanes - 1) > ks)
+                    | ((up_end - start_up) > ku))
+    return (PairWindows(cand_up, v_same, v_up, n_same, n_up, w_same, w_up),
+            over.sum().to(torch.int32))
+
+
+def _pair_accum(a_same, a_up, b_same, b_up, cand_up, n, plan=None):
+    """Per-pair contributions summed per particle in sorted space
+    (box2d_tpu/particles.py:483-494): out[i] += sum_k a_same[i, k] +
+    sum_r a_up[i, r]; out[i + 1 + k] += b_same[i, k] (static shifts);
+    out[cand_up[i, r]] += b_up[i, r] (the one scatter, through `plan`,
+    the SegmentPlan of cand_up, made here if not given). Contributions are
+    already 0 on invalid lanes."""
+    out = _tree_sum(a_same) + _tree_sum(a_up)
+    for k in range(1, a_same.shape[1] + 1):
+        out = out + _shift_down(b_same[:, k - 1], k)
+    if plan is None:
+        plan = _segment_plan_of(cand_up, n)
+    return _segment_add(out, plan, b_up)
+
+
+# ---------------------------------------------------------------------------
+# barrier and rigid groups
+# ---------------------------------------------------------------------------
+
+def _solve_barrier(pair_a, pair_b, pair_flags, group, alive, radius, pos,
+                   vel, dt):
+    """Barrier pass (ref: SolveBarrier :1670-1760;
+    box2d_tpu/particles.py:1450-1540): every pair flagged P_BARRIER is a
+    moving segment; a particle of another group whose relative trajectory
+    crosses it within dt takes the barrier point's velocity (the removed
+    momentum is absorbed, as the JAX package does), and a particle within
+    one radius of a segment loses its approach component toward it.
+    Dense over (pairs x particles). pair_a / pair_b are sorted lanes.
+    Returns the new velocity."""
+    ba, bb = pair_a.long(), pair_b.long()
+    is_bar = ((pair_flags & P_BARRIER) != 0) & alive[ba] & alive[bb]
+    lanes = torch.arange(pos.shape[0], device=pos.device)
+    pa, pb = pos[ba], pos[bb]
+    va, vb = vel[ba], vel[bb]
+    cr = m.cross
+
+    # per (pair, particle) relative kinematics: the segment point at (s, t)
+    # is qa + s e(t) + t wa with e(t) = e0 + t de, relative to the particle
+    qa = pa[:, None, :] - pos[None, :, :]                    # (Pb, Np, 2)
+    wa = va[:, None, :] - vel[None, :, :]
+    e0 = (pb - pa)[:, None, :]
+    de = (vb - va)[:, None, :]
+    c0 = cr(qa, e0)
+    c1 = cr(qa, de) + cr(wa, e0)
+    c2 = cr(wa, de)
+    eps = 1e-9
+    # candidate crossing times: the linear root and both quadratic roots
+    t_lin = _safe_div(-c0, c1)
+    disc = c1 * c1 - 4.0 * c0 * c2
+    sq = _sqrt(disc.clamp(min=0.0))
+    t_q1 = _safe_div(-c1 - sq, 2.0 * c2)
+    t_q2 = _safe_div(-c1 + sq, 2.0 * c2)
+    lin = c2.abs() < eps
+    ok_lin = lin & (c1.abs() > eps)
+    ok_q = ~lin & (disc >= 0.0)
+    cand_t = torch.stack([t_lin, t_q1, t_q2], dim=-1)        # (Pb, Np, 3)
+    cand_ok = torch.stack([ok_lin, ok_q, ok_q], dim=-1)
+    et = e0[:, :, None, :] + cand_t[..., None] * de[:, :, None, :]
+    pr = qa[:, :, None, :] + cand_t[..., None] * wa[:, :, None, :]
+    s = _safe_div(-m.dot(pr, et), m.dot(et, et))
+    same_group = group[ba][:, None] == group[None, :]
+    valid = (cand_ok & (cand_t >= 0.0) & (cand_t <= dt)
+             & (s >= 0.0) & (s <= 1.0) & is_bar[:, None, None]
+             & (~same_group)[:, :, None] & alive[None, :, None])
+    t_sel = torch.where(valid, cand_t, math.inf)
+    # earliest hit over the candidates, then over the pairs (first minimum)
+    t_pair = t_sel.min(dim=-1).values                        # (Pb, Np)
+    s_pair = torch.gather(s, -1, t_sel.argmin(dim=-1)[..., None])[..., 0]
+    k = t_pair.argmin(dim=0)                                 # (Np,)
+    hit = torch.isfinite(t_pair.min(dim=0).values)
+    s_hit = s_pair[k, lanes]
+    v_s = va[k] + s_hit[:, None] * (vb[k] - va[k])
+    vel = vel + torch.where(hit[:, None], v_s - vel, 0.0)
+
+    # proximity guard: particles pressed within one radius of a segment
+    # lose their approach component toward it (two-sided)
+    e2 = m.dot(e0, e0).clamp(min=1e-12)
+    s_c = (-m.dot(qa, e0) / e2).clamp(0.0, 1.0)             # (Pb, Np)
+    cl = qa + s_c[..., None] * e0        # particle -> closest segment point
+    d2 = m.dot(cl, cl)
+    near = (is_bar[:, None] & ~same_group & alive[None, :]
+            & (d2 < radius * radius))
+    d2m = torch.where(near, d2, math.inf)
+    kn = d2m.argmin(dim=0)
+    has_near = torch.isfinite(d2m.min(dim=0).values)
+    dn = _sqrt(d2[kn, lanes].clamp(min=1e-12))
+    n_vec = cl[kn, lanes] / torch.where(dn != 0.0, dn, 1.0)[:, None]
+    s_n = s_c[kn, lanes]
+    v_seg = va[kn] + s_n[:, None] * (vb[kn] - va[kn])
+    appr = m.dot(vel - v_seg, n_vec)                         # > 0: toward
+    cut = torch.where(has_near & (appr > 0.0), appr, 0.0)
+    return vel - cut[:, None] * n_vec
+
+
+def _rigid_group_stats(group, group_flags, alive, pos, vel, mass,
+                       plan=None):
+    """Per-rigid-group mass statistics (ref: ParticleGroup.UpdateStatistics
+    :42-120; box2d_tpu/particles.py:1543-1571): returns (in_rigid (Np,),
+    n_groups, center, linvel, omega, inv_mass, inv_inertia), the last five
+    per group. plan: the SegmentPlan of the particles' groups (made here
+    if not given)."""
+    g = group.clamp(min=0).long()
+    ng = group_flags.shape[0]
+    rigid = (group_flags & G_RIGID) != 0
+    in_rigid = alive & (group >= 0) & rigid[g]
+    w1 = torch.where(in_rigid, 1.0, 0.0)
+    if plan is None:
+        plan = _segment_plan_of(g, ng)
+
+    def gsum(v):
+        return _segment_add(torch.zeros(ng, dtype=torch.float32,
+                                        device=pos.device), plan, v)
+
+    cnt = gsum(w1)
+    safe = cnt.clamp(min=1.0)
+    center = torch.stack([gsum(w1 * pos[:, 0]) / safe,
+                          gsum(w1 * pos[:, 1]) / safe], dim=-1)
+    linvel = torch.stack([gsum(w1 * vel[:, 0]) / safe,
+                          gsum(w1 * vel[:, 1]) / safe], dim=-1)
+    rel = pos - center[g]
+    relv = vel - linvel[g]
+    inertia_u = gsum(w1 * m.dot(rel, rel))
+    angm = gsum(w1 * m.cross(rel, relv))
+    omega = _safe_div(angm, inertia_u.clamp(min=1e-9))
+    inv_m = torch.where(cnt > 0, _safe_div(1.0, mass * cnt), 0.0)
+    inv_i = torch.where(inertia_u > 1e-9, _safe_div(1.0, mass * inertia_u),
+                        0.0)
+    return in_rigid, ng, center, linvel, omega, inv_m, inv_i
+
+
+def _solve_rigid(group, group_flags, alive, pos, vel, mass, plan=None):
+    """ref: SolveRigid (box2d_tpu/particles.py:1574-1582): members of a
+    rigid group take the rigid-motion velocity of its statistics."""
+    in_rigid, _, center, linvel, omega, _, _ = _rigid_group_stats(
+        group, group_flags, alive, pos, vel, mass, plan)
+    g = group.clamp(min=0).long()
+    v_rigid = linvel[g] + m.cross_sv(omega[g], pos - center[g])
+    return torch.where(in_rigid[:, None], v_rigid, vel)
+
+
+def _relax_depth(d, ia, ib, same, r_edge, big_d, cap, stats):
+    """The solid groups' depth relaxation (box2d_tpu/particles.py:1043-1053):
+    rounds of d[a] = min(d[a], d[b] + r) over same-group contact edges
+    until a round shrinks nothing, at most `cap` rounds. The device is
+    read every CHECK_EVERY rounds: a round after the fixed point changes
+    nothing, so the result is the JAX loop's, and never past the cap."""
+    rounds = 0
+    while rounds < cap:
+        dn = _scatter_min(d, ia, torch.where(same, d[ib] + r_edge, big_d))
+        dn = _scatter_min(dn, ib, torch.where(same, d[ia] + r_edge, big_d))
+        rounds += 1
+        changed = dn < d
+        d = dn
+        if rounds % CHECK_EVERY == 0 and rounds < cap:
+            stats.rounds["reads"] += 1
+            (more,) = stats.read(changed.any())
+            if not more:
+                break
+    stats.rounds["depth"] += rounds
+    return d
+
+
+# ---------------------------------------------------------------------------
+# the particle step
+# ---------------------------------------------------------------------------
+
 def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                   stats=None):
     """One full particle update (ref: Solve :1512-1564;
     box2d_tpu/particles.py:642-1447). Returns (particles, body_dv (Nb, 2),
-    body_dw (Nb,), neighbor_overflow): K3 never truncates, so the overflow
-    is the nearby shapes beyond max_body_shapes plus, under per-block
-    culling, the most overlapping shapes beyond the blocks' slots in any
-    sub-iteration.
+    body_dw (Nb,), neighbor_overflow): the nearby shapes beyond
+    max_body_shapes plus the worst sub-iteration's sum of particles whose
+    spans exceed the neighbour windows (the windowed path; K3 never
+    truncates) and, under per-block culling, overlapping shapes beyond the
+    blocks' slots.
 
-    stats: a world.StepStats; counts the rank-repair reads and which branch
-    each sub-iteration took (rank_repairs / full_sorts)."""
+    stats: a world.StepStats; counts the device reads (the rank repair's
+    branch, the depth pass's gate, the depth relaxation's checks), which
+    sort each sub-iteration took (rank_repairs / full_sorts) and the depth
+    relaxation's rounds."""
     if stats is None:
         from .world import StepStats
         stats = StepStats()
     sh = state.shapes
-    why = unported(cfg, sh.type.shape[0])
-    if why is not None:
-        raise NotImplementedError(why)
     prm: ParticleParams = pt.params
     b = state.bodies
     nb = b.center.shape[0]
@@ -737,48 +1162,86 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         shape_tab = _shape_table(s_origin, s_rot, s_center, s_v, s_w, s_invm,
                                  s_invI, s_dyn, s_radius, s_count, s_verts,
                                  s_normals)
-    cull_over = torch.zeros((), dtype=torch.int32, device=dev)
 
     body_dv = torch.zeros((nb, 2), dtype=torch.float32, device=dev)
     body_dw = torch.zeros(nb, dtype=torch.float32, device=dev)
     polygons_only = (cfg.geom_types is not None
                      and cfg.geom_types <= {POLYGON})
 
-    def apply_body_impulse(dv, dw, impulse, active, cull, e_dyn, e_center):
-        """Sum the (n, C, 2) per-contact impulses per shape (dense, C = Sb)
-        or per (block, slot) (culled, C = K), then add them to the shapes'
-        bodies (box2d_tpu/particles.py:985-999). The culled rows come in
-        through `cull`, never from an enclosing scope."""
-        imp = torch.where((active & e_dyn)[..., None], impulse, 0.0)
-        ang = m.cross(pos[:, None, :] - e_center, imp)
-        if cull is None:
-            dv = dv.index_add(0, p_body, imp.sum(dim=0) * s_invm[:, None])
-            dw = dw.index_add(0, p_body, s_invI * ang.sum(dim=0))
-            return dv, dw
-        # empty slots add into a spare row nb (JAX mode="drop")
-        tgt = cull.body.reshape(-1)
-        dv = torch.cat([dv, dv[:1]]).index_add(
-            0, tgt, (cull.block_sum(imp) * cull.invm[..., None]).reshape(
-                -1, 2))[:nb]
-        dw = torch.cat([dw, dw[:1]]).index_add(
-            0, tgt, (cull.invI * cull.block_sum(ang)).reshape(-1))[:nb]
-        return dv, dw
+    # which gated passes need the flat (ia, ib) pair view, and which the
+    # pair / triad remap (:731-738); either turns K3 and K4 off (:757)
+    need_flat = (cfg.has_viscous or cfg.has_repulsive or cfg.has_powder
+                 or cfg.has_tensile or cfg.has_solid
+                 or cfg.has_static_pressure or cfg.has_colormix
+                 or cfg.has_rigid)
+    need_inv = cfg.has_elastic or cfg.has_spring or cfg.has_barrier
+    use_kernel = cfg.use_window_kernel and not need_flat and not need_inv
+    ks, ku = cfg.k_same, cfg.k_up
+    if cfg.has_barrier:
+        # the pair lanes flagged P_BARRIER, once a step (nonzero reads the
+        # device once): the barrier pass runs over these alone. Every
+        # other lane is masked out of its minima, so the result is that
+        # of all lanes, and with none the pass changes nothing
+        bar_lanes = torch.nonzero((pt.pair_flags & P_BARRIER) != 0)[:, 0]
+        stats.syncs += 1
+    # off the K3 path every sum runs in a fixed order on either device
+    exact = not use_kernel
+    root = _sqrt if exact else torch.sqrt
+    rsum = _tree_sum if exact else functools.partial(torch.sum, dim=1)
+
+    # the SegmentPlans of the triad, spring and group scatters, built once
+    # a step over original lanes with one read of their widest fan-in: a
+    # sub-iteration's permutation moves whole rows of the triad and spring
+    # plans (their targets are particles) and renames the lanes of the
+    # group plan (its contributions are), never a target's count. Only the
+    # lanes that can contribute count (elastic triads, springs, the
+    # members of rigid groups); the others add 0
+    ng = pt.group_flags.shape[0]
+    fixed = []
+    if cfg.has_elastic:
+        tri_ok = (pt.triad_flags & P_ELASTIC) != 0
+        fixed += [("ta", pt.triad_a, n, tri_ok), ("tb", pt.triad_b, n, tri_ok),
+                  ("tc", pt.triad_c, n, tri_ok)]
+    if cfg.has_spring:
+        spr_ok = (pt.pair_flags & P_SPRING) != 0
+        fixed += [("sa", pt.pair_a, n, spr_ok), ("sb", pt.pair_b, n, spr_ok)]
+    if cfg.has_rigid:
+        gp0 = pt.group.clamp(min=0)
+        fixed += [("g", gp0, ng, (pt.group >= 0)
+                   & ((pt.group_flags & G_RIGID) != 0)[gp0])]
+    counts = [_fan_in(x, t, ok) for _, x, t, ok in fixed]
+    plan0 = {name: _segment_plan(x, c, w, ok) for (name, x, _, ok), c, w in
+             zip(fixed, counts, stats.read(*(c.max() for c in counts))
+                 if fixed else ())}
+    if exact and not use_cull:
+        # the shapes' bodies: a body holds at most Sb of the nearby shapes
+        # (a wider plan only pads), so no read
+        plan_body = _segment_plan(p_body, _fan_in(p_body, nb), sb)
 
     # the carry stays in the PREVIOUS sub-iteration's sorted order; s2o maps
-    # sorted position -> original lane, skey_prev is the key it was sorted by
+    # sorted position -> original lane, skey_prev is the key it was sorted
+    # by. Pair and triad ids stay original-lane ids throughout: each
+    # sub-iteration remaps its own copies (:825-838), so the carry always
+    # holds the originals (:1382-1387)
     cur_pos, cur_vel, cur_force = pt.pos, pt.vel, pt.force
     cur_exp, cur_sp = pt.expiration, pt.static_pressure
     cur_flags, cur_group, cur_alive = pt.flags, pt.group, pt.alive
+    cur_depth, cur_color = pt.depth, pt.color
+    gflags = pt.group_flags
     s2o = torch.arange(n, dtype=torch.int32, device=dev)
     skey_prev = _cell_key(pt.pos, pt.alive, inv_diameter)
     bc_cnt = torch.zeros(n, dtype=torch.int32, device=dev)
+    # the worst sub-iteration's window and culling overflow
+    iter_over = torch.zeros((), dtype=torch.int32, device=dev)
     nbk = -(-n // pk.B_BLK)
     rbw = pk.rank_window(n)
+    if need_flat:
+        lanes = torch.arange(n, device=dev)
     for _ in range(cfg.iterations):
         # ---- cell sort: the whole sub-iteration runs in sorted space ----
         key = _cell_key(cur_pos, cur_alive, inv_diameter)
         use_rank = False
-        if cfg.rank_repair and n > 0:
+        if cfg.rank_repair and use_kernel and n > 0:
             # nearly-sorted repair (K4) when every particle moved at most
             # one cell since the last sort and every block's window fits;
             # else the stable argsort (the other branch of the JAX cond)
@@ -795,33 +1258,88 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             rank = _sort_rank(key)
             stats.full_sorts += 1
         # one packed permutation of every field the sub-iteration carries
-        # (float columns ride as their int32 bits, so the copy is exact)
+        # (float columns ride as their int32 bits, so the copy is exact),
+        # with the depth and colour columns where a pass needs them
+        # (:797-824)
         ints = torch.stack([cur_flags, cur_group, cur_alive.to(torch.int32),
                             s2o, key], dim=1)
-        floats = torch.cat([cur_pos, cur_vel, cur_force, cur_exp[:, None],
-                            cur_sp[:, None]], dim=1)
+        fcols = [cur_pos, cur_vel, cur_force, cur_exp[:, None],
+                 cur_sp[:, None]]
+        if cfg.has_solid:
+            fcols.append(cur_depth[:, None])
+        if cfg.has_colormix:
+            fcols.append(cur_color.reshape(n, -1))
+        floats = torch.cat(fcols, dim=1)
+        nf = floats.shape[1]
         pack = _scatter_rows(torch.cat([floats.view(torch.int32), ints],
                                        dim=1), rank)
-        fp = pack[:, :8].view(torch.float32)
+        fp = pack[:, :nf].view(torch.float32)
         pos, vel, force = fp[:, 0:2], fp[:, 2:4], fp[:, 4:6]
         expiration, static_pressure = fp[:, 6], fp[:, 7]
-        flags, group = pack[:, 8], pack[:, 9]
-        alive = pack[:, 10] > 0
-        s2o = pack[:, 11]
-        skey = pack[:, 12].contiguous()
+        c_at = 8
+        if cfg.has_solid:
+            depth = fp[:, c_at]
+            c_at += 1
+        if cfg.has_colormix:
+            col = fp[:, c_at:c_at + cur_color.shape[1]].reshape(
+                cur_color.shape)
+        flags, group = pack[:, nf], pack[:, nf + 1]
+        alive = pack[:, nf + 2] > 0
+        s2o = pack[:, nf + 3]
+        skey = pack[:, nf + 4].contiguous()
         pos_c = pos.contiguous()
+        if need_inv or cfg.has_rigid:
+            # pair and triad ids are original lanes; map them to this
+            # sub-iteration's sorted lanes (:825-838)
+            inv_order = _scatter_rows(torch.arange(n, dtype=torch.int32,
+                                                   device=dev), s2o)
 
-        # ---- neighbour contacts: weight (K3) ----
-        zcol = torch.zeros(n, dtype=torch.float32, device=dev)
-        w_pairs = pk.window_pass(pos_c, skey, alive, zcol, zcol, scal_k, pk.PH_WEIGHT)[:, 0]
+            def remap(idx):
+                return torch.where(idx >= 0,
+                                   inv_order[idx.clamp(min=0).long()], idx)
 
+            tri_a, tri_b, tri_c = (remap(pt.triad_a), remap(pt.triad_b),
+                                   remap(pt.triad_c))
+            pr_a, pr_b = remap(pt.pair_a), remap(pt.pair_b)
+            # the step's plans in sorted space: a particle target's row is
+            # its original lane's; a particle contribution is renamed
+            s2o_l = s2o.long()
+            plans = {k: SegmentPlan(p.lanes[s2o_l], p.n)
+                     for k, p in plan0.items() if k != "g"}
+            if cfg.has_rigid:
+                sorted_of = torch.cat([inv_order.long(),
+                                       s2o_l.new_full((1,), n)])
+                plan_g = SegmentPlan(sorted_of[plan0["g"].lanes], n)
+
+        # ---- neighbour contacts (ref UpdateContacts) ----
+        if use_kernel:
+            zcol = torch.zeros(n, dtype=torch.float32, device=dev)
+            w_pairs = pk.window_pass(pos_c, skey, alive, zcol, zcol, scal_k,
+                                     pk.PH_WEIGHT)[:, 0]
+            c_over = None      # K3 never truncates
+        else:
+            pw, c_over = _find_contacts_sorted(pos_c, alive, skey, diameter,
+                                               cfg)
+        if need_flat:
+            # the flat sorted-space pair view of the gated passes
+            # (:880-893): lane (i, k) pairs sorted lane ia = i with ib
+            idx_same = (lanes[:, None]
+                        + torch.arange(1, ks + 1, device=dev)[None, :]
+                        ).clamp(0, n - 1)
+            cand = torch.cat([idx_same, pw.cand_up], dim=1)
+            ia = lanes[:, None].expand(cand.shape).reshape(-1)
+            ib = cand.reshape(-1)
+            c_ok = torch.cat([pw.v_same, pw.v_up], dim=1).reshape(-1)
+            c_n = torch.cat([pw.n_same, pw.n_up], dim=1).reshape(-1, 2)
+            c_w = torch.cat([pw.w_same, pw.w_up], dim=1).reshape(-1)
+            c_flags = torch.where(c_ok, flags[ia] | flags[ib], 0)
         # ---- body contacts (ref UpdateBodyContacts): dense over Sb, or
         # each block's K culled shapes ----
         if use_cull:
             cull = _block_shapes(pos, alive, s_fatbox, bs_valid, shape_tab,
                                  p_body, cfg.block_shape_slots, nb)
             bdist, bnrm = (cull.flat(x) for x in torch.vmap(
-                _point_shape_distance_batched)(
+                functools.partial(_point_shape_distance_batched, sqrt=root))(
                     cull.posp, cull.origin, cull.rot, cull.verts,
                     cull.normals, cull.count, cull.radius))
             bc_valid = cull.expand(cull.ok)
@@ -829,14 +1347,76 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                                   cull.expand(cull.v), cull.expand(cull.w))
             e_invm, e_invI = cull.expand(cull.invm), cull.expand(cull.invI)
             e_dyn = cull.expand(cull.dyn)
-            cull_over = torch.maximum(cull_over, cull.over)
+            c_over = cull.over if c_over is None else c_over + cull.over
         else:
             cull = None
             bdist, bnrm = _point_shape_distance_batched(
-                pos, s_origin, s_rot, s_verts, s_normals, s_count, s_radius)
+                pos, s_origin, s_rot, s_verts, s_normals, s_count, s_radius,
+                root)
             bc_valid = bs_valid[None, :]
             e_center, e_v, e_w = s_center[None, :, :], s_v[None], s_w[None]
             e_invm, e_invI, e_dyn = s_invm[None], s_invI[None], s_dyn[None]
+
+        if exact:
+            # the SegmentPlans of the row-above partners, of the flat
+            # view's partners and of the culled slots' bodies, one read for
+            # all a sub-iteration
+            fans = [(pw.cand_up, n, pw.v_up)]
+            if need_flat:
+                fans.append((ib, n, c_ok))
+            if cull is not None:
+                fans.append((cull.body, nb, cull.ok))
+            fans = [(idx, ok, _fan_in(idx, t, ok)) for idx, t, ok in fans]
+            sub = [_segment_plan(idx, cnt, w, ok) for (idx, ok, cnt), w in
+                   zip(fans, stats.read(*(c.max() for _, _, c in fans)))]
+            plan_up = sub[0]
+            if need_flat:
+                plan_ib = sub[1]
+            if cull is not None:
+                plan_body = sub[-1]
+        if need_flat:
+            def pair_add(x, fa, fb):
+                """x.at[ia].add(fa).at[ib].add(fb): each row's own lanes
+                summed by _tree_sum, the partners' through plan_ib."""
+                own = _tree_sum(fa.reshape((n, ks + ku) + tuple(x.shape[1:])))
+                return _segment_add(x + own, plan_ib, fb)
+
+        def body_vel_at():
+            """Body surface velocity at the particles, (n, C, 2)."""
+            return e_v + m.cross_sv(e_w, pos[:, None, :] - e_center)
+
+        def apply_body_impulse(dv, dw, impulse, active):
+            """Sum the (n, C, 2) per-contact impulses per shape (dense, C =
+            Sb) or per (block, slot) (culled, C = K), then add them to the
+            shapes' bodies (box2d_tpu/particles.py:977-1000). The culled
+            rows are this sub-iteration's `cull`, never a rebound name.
+            Off the K3 path both sums take _tree_sum and the bodies'
+            plan_body; empty slots add nothing (JAX mode="drop")."""
+            imp = torch.where((active & e_dyn)[..., None], impulse, 0.0)
+            ang = m.cross(pos[:, None, :] - e_center, imp)
+            if cull is None:
+                if exact:
+                    return (_segment_add(dv, plan_body, _tree_sum(
+                                imp.transpose(0, 1)) * s_invm[:, None]),
+                            _segment_add(dw, plan_body, s_invI * _tree_sum(
+                                ang.transpose(0, 1))))
+                dv = dv.index_add(0, p_body, imp.sum(dim=0) * s_invm[:, None])
+                dw = dw.index_add(0, p_body, s_invI * ang.sum(dim=0))
+                return dv, dw
+            if exact:
+                return (_segment_add(dv, plan_body, cull.block_sum(imp, True)
+                                     * cull.invm[..., None]),
+                        _segment_add(dw, plan_body,
+                                     cull.invI * cull.block_sum(ang, True)))
+            # empty slots add into a spare row nb
+            tgt = cull.body.reshape(-1)
+            dv = torch.cat([dv, dv[:1]]).index_add(
+                0, tgt, (cull.block_sum(imp) * cull.invm[..., None]).reshape(
+                    -1, 2))[:nb]
+            dw = torch.cat([dw, dw[:1]]).index_add(
+                0, tgt, (cull.invI * cull.block_sum(ang)).reshape(-1))[:nb]
+            return dv, dw
+
         bc_ok = (bdist < prm.radius) & alive[:, None] & bc_valid
         bc_n = -bnrm
         bc_w = torch.where(bc_ok, 1.0 - bdist * inv_diameter * 2.0, 0.0)
@@ -848,18 +1428,120 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             inv_m_c > 0, 1.0 / torch.where(inv_m_c > 0, inv_m_c, 1.0), 0.0)
         bc_mass = torch.where(bc_ok, bc_mass, 0.0)
 
-        # ---- weight (ref ComputeWeight) ----
-        weight = w_pairs + bc_w.sum(dim=1)
+        # ---- weight (ref ComputeWeight, :1016-1019) ----
+        if use_kernel:
+            weight = w_pairs + bc_w.sum(dim=1)
+        else:
+            weight = _pair_accum(pw.w_same, pw.w_up, pw.w_same, pw.w_up,
+                                 pw.cand_up, n, plan_up) + _tree_sum(bc_w)
+
+        if cfg.has_solid:
+            # ---- depth relaxation (ref ComputeDepth :1002-1062; :1021-
+            # 1062): groups flagged G_NEEDS_DEPTH seed their surface
+            # (contact weight < 0.8) at depth 0 and relax inner depths
+            # over same-group contacts, then clear the flag; skipped when
+            # no group is flagged (one read, the JAX lax.cond)
+            needs = (gflags & G_NEEDS_DEPTH) != 0
+            (any_needs,) = stats.read(needs.any())
+            if any_needs:
+                ga, gb = group[ia], group[ib]
+                same = (c_ok & (ga == gb) & (ga >= 0)
+                        & needs[ga.clamp(min=0).long()])
+                cw_same = torch.where(same, c_w, 0.0)
+                w_acc = pair_add(torch.zeros(n, dtype=torch.float32,
+                                             device=dev), cw_same, cw_same)
+                upd = (alive & (group >= 0)
+                       & needs[group.clamp(min=0).long()])
+                big_d = 1e9
+                d = _relax_depth(
+                    torch.where(w_acc < 0.8, 0.0, big_d), ia, ib, same,
+                    torch.where(same, 1.0 - c_w, big_d), big_d,
+                    cfg.depth_iterations, stats)
+                d = torch.where(d < big_d, d * diameter, 0.0)
+                depth = torch.where(upd, d, depth)
+                gflags = gflags & ~(needs.to(torch.int32) * G_NEEDS_DEPTH)
 
         # ---- force (user forces, ref SolveForce) ----
         vel = vel + dt * inv_mass * force
+
+        if cfg.has_viscous:
+            # ---- viscous (ref SolveViscous, :1067-1080) ----
+            visc = (c_flags & P_VISCOUS) != 0
+            f = prm.viscous_strength * c_w[:, None] * (vel[ib] - vel[ia])
+            f = torch.where(visc[:, None], f, 0.0)
+            vel = pair_add(vel, f, -f)
+            bvisc = bc_ok & ((flags & P_VISCOUS) != 0)[:, None]
+            fb = (prm.viscous_strength * bc_mass * bc_w)[..., None] * (
+                body_vel_at() - vel[:, None, :])
+            fb = torch.where(bvisc[..., None], fb, 0.0)
+            vel = vel + inv_mass * rsum(fb)
+            body_dv, body_dw = apply_body_impulse(body_dv, body_dw, -fb,
+                                                  bvisc)
+
+        if cfg.has_repulsive:
+            # ---- repulsive (ref SolveRepulsive, :1082-1087) ----
+            rep = (((c_flags & P_REPULSIVE) != 0)
+                   & (group[ia] != group[ib]))
+            f = (prm.repulsive_strength * crit_v * c_w)[:, None] * c_n
+            f = torch.where(rep[:, None], f, 0.0)
+            vel = pair_add(vel, -f, f)
+
+        if cfg.has_powder:
+            # ---- powder (ref SolvePowder, :1089-1095) ----
+            min_w = 1.0 - PARTICLE_STRIDE
+            pow_ = ((c_flags & P_POWDER) != 0) & (c_w > min_w)
+            f = (prm.powder_strength * crit_v * (c_w - min_w))[:, None] * c_n
+            f = torch.where(pow_[:, None], f, 0.0)
+            vel = pair_add(vel, -f, f)
+
+        if cfg.has_tensile:
+            # ---- tensile (ref SolveTensile, :1097-1111) ----
+            tens = (c_flags & P_TENSILE) != 0
+            wn = ((1.0 - c_w) * c_w)[:, None] * c_n
+            wn = torch.where(tens[:, None], wn, 0.0)
+            acc2 = pair_add(torch.zeros((n, 2), dtype=torch.float32,
+                                        device=dev), -wn, wn)
+            p_s = prm.surface_tension_pressure * crit_v
+            n_s = prm.surface_tension_normal * crit_v
+            max_var = MAX_PARTICLE_FORCE * crit_v
+            fh = torch.minimum(
+                p_s * (weight[ia] + weight[ib] - 2.0)
+                + n_s * m.dot(acc2[ib] - acc2[ia], c_n), max_var) * c_w
+            f = torch.where(tens, fh, 0.0)[:, None] * c_n
+            vel = pair_add(vel, -f, f)
+
+        if cfg.has_solid:
+            # ---- solid ejection (ref SolveSolid :2200; :1113-1119) ----
+            sol = (group[ia] != group[ib]) & c_ok
+            ej = (prm.ejection_strength * inv_dt
+                  * (depth[ia] + depth[ib]) * c_w)
+            f = torch.where(sol, ej, 0.0)[:, None] * c_n
+            vel = pair_add(vel, -f, f)
 
         # ---- gravity (ref SolveGravity) ----
         g_ = dt * prm.gravity_scale * state.tuning.gravity
         vel = vel + torch.where(alive[:, None], g_[None, :], 0.0)
 
-        # ---- pressure (ref SolvePressure) ----
         sp_mask = (flags & P_STATIC_PRESSURE) != 0
+        if cfg.has_static_pressure:
+            # ---- static pressure (ref SolveStaticPressure, :1127-1145):
+            # a fixed number of relaxation rounds ----
+            pp_w = prm.static_pressure_strength * crit_p
+            max_p = MAX_PARTICLE_PRESSURE * crit_p
+            relax = prm.static_pressure_relaxation
+            cw_sp = torch.where((c_flags & P_STATIC_PRESSURE) != 0, c_w, 0.0)
+            for _ in range(cfg.static_pressure_iterations):
+                acc = pair_add(torch.zeros(n, dtype=torch.float32,
+                                           device=dev),
+                               cw_sp * static_pressure[ib],
+                               cw_sp * static_pressure[ia])
+                spb = torch.clamp(
+                    (acc + pp_w * (weight - MIN_PARTICLE_WEIGHT))
+                    / (weight + relax), min=0.0)
+                spb = torch.minimum(spb, max_p)
+                static_pressure = torch.where(sp_mask, spb, 0.0)
+
+        # ---- pressure (ref SolvePressure, :1147-1175) ----
         ppw = prm.pressure_strength * crit_p
         maxp = MAX_PARTICLE_PRESSURE * crit_p
         accum = torch.minimum(
@@ -869,34 +1551,126 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         fb = (vel_per_p * bc_w * bc_mass
               * (accum[:, None] + ppw * bc_w))[..., None] * bc_n
         fb = torch.where(bc_ok[..., None], fb, 0.0)
-        vel = vel - inv_mass * fb.sum(dim=1)
-        body_dv, body_dw = apply_body_impulse(body_dv, body_dw, fb, bc_ok,
-                                              cull, e_dyn, e_center)
-        vel = vel + pk.window_pass(pos_c, skey, alive, accum.contiguous(),
-                                   zcol, scal_k, pk.PH_PRESSURE)
+        vel = vel - inv_mass * rsum(fb)
+        body_dv, body_dw = apply_body_impulse(body_dv, body_dw, fb, bc_ok)
+        if use_kernel:
+            vel = vel + pk.window_pass(pos_c, skey, alive,
+                                       accum.contiguous(), zcol, scal_k,
+                                       pk.PH_PRESSURE)
+        else:
+            # window form: a-side broadcasts, same-row partners by shifts,
+            # row-above partners by one gather
+            acc_b_s = _partner_same(accum, ks)
+            acc_b_u = accum[pw.cand_up]
+            f_s = (vel_per_p * pw.w_same
+                   * (accum[:, None] + acc_b_s))[..., None] * pw.n_same
+            f_u = (vel_per_p * pw.w_up
+                   * (accum[:, None] + acc_b_u))[..., None] * pw.n_up
+            vel = vel + _pair_accum(-f_s, -f_u, f_s, f_u, pw.cand_up, n,
+                                    plan_up)
 
-        # ---- damping (ref SolveDamping) ----
-        vrel = e_v + m.cross_sv(e_w, pos[:, None, :] - e_center)
-        vn = m.dot(vrel - vel[:, None, :], bc_n)
+        # ---- damping (ref SolveDamping, :1177-1205) ----
+        vn = m.dot(body_vel_at() - vel[:, None, :], bc_n)
         damp = torch.maximum(lin_d * bc_w,
                              torch.clamp(-quad_d * vn, max=0.5))
         fb = (damp * bc_mass * vn)[..., None] * bc_n
         approach = bc_ok & (vn < 0)
         fb = torch.where(approach[..., None], fb, 0.0)
-        vel = vel + inv_mass * fb.sum(dim=1)
+        vel = vel + inv_mass * rsum(fb)
         body_dv, body_dw = apply_body_impulse(body_dv, body_dw, -fb,
-                                              approach, cull, e_dyn,
-                                              e_center)
-        vel = vel + pk.window_pass(pos_c, skey, alive,
-                                   vel[:, 0].contiguous(),
-                                   vel[:, 1].contiguous(), scal_k,
-                                   pk.PH_DAMPING)
+                                              approach)
+        if use_kernel:
+            vel = vel + pk.window_pass(pos_c, skey, alive,
+                                       vel[:, 0].contiguous(),
+                                       vel[:, 1].contiguous(), scal_k,
+                                       pk.PH_DAMPING)
+        else:
+            vb_s = _partner_same(vel, ks)
+            vb_u = vel[pw.cand_up]
+            vn_s = m.dot(vb_s - vel[:, None, :], pw.n_same)
+            vn_u = m.dot(vb_u - vel[:, None, :], pw.n_up)
+            damp_s = torch.maximum(lin_d * pw.w_same,
+                                   torch.clamp(-quad_d * vn_s, max=0.5))
+            damp_u = torch.maximum(lin_d * pw.w_up,
+                                   torch.clamp(-quad_d * vn_u, max=0.5))
+            f_ds = torch.where((pw.v_same & (vn_s < 0))[..., None],
+                               (damp_s * vn_s)[..., None] * pw.n_same, 0.0)
+            f_du = torch.where((pw.v_up & (vn_u < 0))[..., None],
+                               (damp_u * vn_u)[..., None] * pw.n_up, 0.0)
+            vel = vel + _pair_accum(f_ds, f_du, -f_ds, -f_du, pw.cand_up, n,
+                                    plan_up)
+
+        if cfg.has_static_pressure:
+            # ---- extra damping of static-pressure particles (ref :1978;
+            # :1207-1217) ----
+            ed = bc_ok & sp_mask[:, None]
+            vn = m.dot(body_vel_at() - vel[:, None, :], bc_n)
+            fb = (0.5 * bc_mass * vn)[..., None] * bc_n
+            fb = torch.where((ed & (vn < 0))[..., None], fb, 0.0)
+            vel = vel + inv_mass * rsum(fb)
+            body_dv, body_dw = apply_body_impulse(body_dv, body_dw, -fb,
+                                                  ed & (vn < 0))
+
+        if cfg.has_elastic:
+            # ---- elastic triads (ref SolveElastic, :1219-1241); a dead
+            # member severs its triad (ref SolveZombie :2873-2906) ----
+            ta, tb, tc = tri_a.long(), tri_b.long(), tri_c.long()
+            el = (((pt.triad_flags & P_ELASTIC) != 0)
+                  & alive[ta] & alive[tb] & alive[tc])
+            pa_ = pos[ta] + dt * vel[ta]
+            pb_ = pos[tb] + dt * vel[tb]
+            pc_ = pos[tc] + dt * vel[tc]
+            # a divisor on the device: CUDA divides by a host scalar as a
+            # product with its reciprocal, an ulp off the CPU's quotient
+            midp = (pa_ + pb_ + pc_) / torch.full((), 3.0, device=dev)
+            pa_, pb_, pc_ = pa_ - midp, pb_ - midp, pc_ - midp
+            rc = (m.dot(pt.triad_pa, pa_) + m.dot(pt.triad_pb, pb_)
+                  + m.dot(pt.triad_pc, pc_))
+            rs = (m.cross(pt.triad_pa, pa_) + m.cross(pt.triad_pb, pb_)
+                  + m.cross(pt.triad_pc, pc_))
+            r = _rot_normalize(torch.stack([rc, rs], dim=-1))
+            strength = prm.elastic_strength * inv_dt * pt.triad_strength
+            strength = torch.where(el, strength, 0.0)[:, None]
+            fa = strength * (m.rot_vec(r, pt.triad_pa) - pa_)
+            fbv = strength * (m.rot_vec(r, pt.triad_pb) - pb_)
+            fc = strength * (m.rot_vec(r, pt.triad_pc) - pc_)
+            for idx, name, f in ((ta, "ta", fa), (tb, "tb", fbv),
+                                 (tc, "tc", fc)):
+                vel = _segment_add(vel, plans[name], f)
+
+        if cfg.has_spring:
+            # ---- springs (ref SolveSpring, :1243-1253) ----
+            sa, sb_ = pr_a.long(), pr_b.long()
+            spr = (((pt.pair_flags & P_SPRING) != 0)
+                   & alive[sa] & alive[sb_])
+            dvec = (pos[sb_] + dt * vel[sb_]) - (pos[sa] + dt * vel[sa])
+            r1 = _sqrt(m.dot(dvec, dvec))
+            fs = (prm.spring_strength * inv_dt * pt.pair_strength
+                  * _safe_div(pt.pair_distance - r1, r1))[:, None] * dvec
+            fs = torch.where(spr[:, None], fs, 0.0)
+            vel = _segment_add(vel, plans["sa"], -fs)
+            vel = _segment_add(vel, plans["sb"], fs)
 
         # ---- limit velocity (ref LimitVelocity) ----
         v2 = m.dot(vel, vel)
         vel = torch.where((v2 > crit_v2)[:, None],
-                          vel * torch.sqrt(_safe_div(crit_v2, v2))[:, None],
+                          vel * root(_safe_div(crit_v2, v2))[:, None],
                           vel)
+
+        if cfg.has_rigid:
+            vel, body_dv, body_dw = _rigid_damping(
+                group, gflags, alive, flags, pos, vel, mass, inv_mass,
+                prm.damping_strength, body_vel_at(), bc_ok, bc_n, bc_w,
+                e_center, e_invm, e_invI, ia, ib, c_ok, c_n, c_w,
+                apply_body_impulse, body_dv, body_dw, plan_g, plan_ib)
+
+        if cfg.has_wall:
+            # ---- wall particles stay put (ref SolveWall, :1341-1344) ----
+            vel = torch.where(wall[:, None], 0.0, vel)
+
+        if cfg.has_rigid:
+            # ---- rigid groups move as rigid bodies (ref SolveRigid) ----
+            vel = _solve_rigid(group, gflags, alive, pos, vel, mass, plan_g)
 
         # ---- collision anti-tunnelling (ref SolveCollision) ----
         if polygons_only:
@@ -909,6 +1683,19 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                                    s_verts, s_normals, s_count, s_radius,
                                    cfg.geom_types)
 
+        # ---- barrier segments block crossing (ref SolveBarrier) ----
+        if cfg.has_barrier and bar_lanes.numel():
+            vel = _solve_barrier(pr_a[bar_lanes], pr_b[bar_lanes],
+                                 pt.pair_flags[bar_lanes], group, alive,
+                                 prm.radius, pos, vel, dt)
+
+        if cfg.has_colormix:
+            # ---- colour mixing (ref SolveColorMixing :2243; :1359-1365) -
+            mix = ((c_flags & P_COLOR_MIXING) != 0) & c_ok
+            dcol = 0.5 * prm.color_mixing_strength * (col[ib] - col[ia])
+            dcol = torch.where(mix[:, None], dcol, 0.0)
+            col = pair_add(col, dcol, -dcol)
+
         # ---- lifetimes (ref SolveLifetimes :1516) ----
         expiring = expiration > 0.0
         new_exp = torch.where(expiring, expiration - dt, expiration)
@@ -920,15 +1707,40 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         cur_pos, cur_vel, cur_force = pos, vel, force
         cur_exp, cur_sp = new_exp, static_pressure
         cur_flags, cur_group, cur_alive = flags, group, new_alive
+        if cfg.has_solid:
+            cur_depth = depth
+        if cfg.has_colormix:
+            cur_color = col
         skey_prev = skey
         bc_cnt = bc_ok.sum(dim=1).to(torch.int32)
+        if c_over is not None:
+            iter_over = torch.maximum(iter_over, c_over)
 
-    # ---- un-sort once: the mutated fields back to original lanes ----
-    fback = _scatter_rows(torch.cat([cur_pos, cur_vel, cur_exp[:, None]],
-                                    dim=1), s2o)
+    # ---- un-sort once: the mutated fields back to original lanes
+    # (:1407-1439) ----
+    fcols = [cur_pos, cur_vel, cur_exp[:, None]]
+    if cfg.has_static_pressure:
+        fcols.append(cur_sp[:, None])
+    if cfg.has_colormix:
+        fcols.append(cur_color.reshape(n, -1))
+    if cfg.has_solid:
+        fcols.append(cur_depth[:, None])
+    fback = _scatter_rows(torch.cat(fcols, dim=1), s2o)
     iback = _scatter_rows(torch.stack([cur_alive.to(torch.int32), bc_cnt],
                                       dim=1), s2o)
     alive_o = iback[:, 0] > 0
+    extra = {}
+    c = 5
+    if cfg.has_static_pressure:
+        extra["static_pressure"] = fback[:, c].contiguous()
+        c += 1
+    if cfg.has_colormix:
+        nc = pt.color.shape[1]
+        extra["color"] = fback[:, c:c + nc].contiguous()
+        c += nc
+    if cfg.has_solid:
+        extra["depth"] = fback[:, c].contiguous()
+        extra["group_flags"] = gflags
     # stuck detection (ref DetectStuckParticle :1520-1541)
     stuck_now = alive_o & (iback[:, 1] >= 2)
     out = dataclasses.replace(
@@ -936,5 +1748,104 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         expiration=fback[:, 4].contiguous(), alive=alive_o,
         force=torch.zeros_like(pt.force),
         consecutive_contact_steps=torch.where(
-            stuck_now, pt.consecutive_contact_steps + 1, 0).to(torch.int32))
-    return out, body_dv, body_dw, shape_overflow + cull_over
+            stuck_now, pt.consecutive_contact_steps + 1, 0).to(torch.int32),
+        **extra)
+    return out, body_dv, body_dw, shape_overflow + iter_over
+
+
+def _rigid_damping(group, gflags, alive, flags, pos, vel, mass, inv_mass,
+                   damping, body_v, bc_ok, bc_n, bc_w, e_center, e_invm,
+                   e_invI, ia, ib, c_ok, c_n, c_w, apply_body_impulse,
+                   body_dv, body_dw, plan_g, plan_ib):
+    """Rigid-group damping (ref SolveRigidDamping :1916-1977;
+    box2d_tpu/particles.py:1261-1339): the impulses of (a) rigid-group
+    against body contacts and (b) contacts across groups where either side
+    is rigid, summed per group Jacobi-style and applied once to the members
+    as a rigid-motion velocity. The group statistics have names of their
+    own: the body rows (e_*) and the impulse sum keep theirs. A group's
+    sum is taken per particle first (its own lanes by _tree_sum, its
+    partners' through plan_ib), then per group through plan_g (the
+    SegmentPlan of the particles' groups); lanes of a side that is not
+    rigid add zeros, where the reference sends them to the last group.
+    Returns (vel, body_dv, body_dw)."""
+    (in_rigid, ngrp, g_center, g_linvel, g_omega, g_invm,
+     g_invI) = _rigid_group_stats(group, gflags, alive, pos, vel, mass,
+                                  plan_g)
+    gp = group.clamp(min=0).long()
+    n = pos.shape[0]
+    dev = pos.device
+    glin_d = torch.zeros((ngrp, 2), dtype=torch.float32, device=dev)
+    gw_d = torch.zeros(ngrp, dtype=torch.float32, device=dev)
+
+    def rows(x):
+        """Per particle: the sum of its own lanes of the flat pair view."""
+        return _tree_sum(x.reshape((n, -1) + tuple(x.shape[1:])))
+
+    def partners(x):
+        """Per particle: the sum of the flat lanes it is the partner of."""
+        return _segment_add(x.new_zeros((n,) + tuple(x.shape[1:])), plan_ib,
+                            x)
+
+    # (a) rigid group <-> rigid body contacts
+    rel_g = pos[:, None, :] - g_center[gp][:, None, :]
+    pgv = g_linvel[gp][:, None, :] + m.cross_sv(g_omega[gp][:, None], rel_g)
+    vn = m.dot(body_v - pgv, bc_n)
+    act = in_rigid[:, None] & bc_ok & (vn < 0)
+    td_a = m.cross(rel_g, bc_n)
+    td_b = m.cross(pos[:, None, :] - e_center, bc_n)
+    ksum = (g_invm[gp][:, None] + g_invI[gp][:, None] * td_a * td_a
+            + e_invm + e_invI * td_b * td_b)
+    f = damping * torch.clamp(bc_w, max=1.0) * _safe_div(vn, ksum)
+    f = torch.where(act & (ksum > 0), f, 0.0)
+    glin_d = _segment_add(glin_d, plan_g, _tree_sum(
+        (f * g_invm[gp][:, None])[..., None] * bc_n))
+    gw_d = _segment_add(gw_d, plan_g,
+                        _tree_sum(f * td_a * g_invI[gp][:, None]))
+    body_dv, body_dw = apply_body_impulse(body_dv, body_dw,
+                                          -f[..., None] * bc_n, act)
+
+    # (b) particle contacts across groups where either side is rigid
+    ga = group[ia]
+    gb = group[ib]
+    ga_g = ga.clamp(min=0).long()
+    gb_g = gb.clamp(min=0).long()
+    a_r = in_rigid[ia]
+    b_r = in_rigid[ib]
+    pmid = 0.5 * (pos[ia] + pos[ib])
+    pw_inv = torch.where((flags & P_WALL) != 0, 0.0, inv_mass)
+
+    def side(gsel, rsel, pidx):
+        relm = pmid - g_center[gsel]
+        vl = torch.where(rsel[:, None],
+                         g_linvel[gsel] + m.cross_sv(g_omega[gsel], relm),
+                         vel[pidx])
+        inv_m_s = torch.where(rsel, g_invm[gsel], pw_inv[pidx])
+        inv_i_s = torch.where(rsel, g_invI[gsel], 0.0)
+        td = torch.where(rsel, m.cross(relm, c_n), 0.0)
+        return vl, inv_m_s, inv_i_s, td
+
+    va_l, ima, iia, tda = side(ga_g, a_r, ia)
+    vb_l, imb, iib, tdb = side(gb_g, b_r, ib)
+    vn_p = m.dot(vb_l - va_l, c_n)
+    actp = c_ok & (ga != gb) & (a_r | b_r) & (vn_p < 0)
+    ksum_p = ima + iia * tda * tda + imb + iib * tdb * tdb
+    fp = damping * c_w * _safe_div(vn_p, ksum_p)
+    fp = torch.where(actp & (ksum_p > 0), fp, 0.0)
+    # side A gets +fp, side B gets -fp (ref ApplyDamping)
+    glin_d = _segment_add(glin_d, plan_g, rows(
+        torch.where(a_r, fp * ima, 0.0)[:, None] * c_n))
+    gw_d = _segment_add(gw_d, plan_g,
+                        rows(torch.where(a_r, fp * tda * iia, 0.0)))
+    vel = vel + rows(torch.where(~a_r, fp * ima, 0.0)[:, None] * c_n)
+    glin_d = _segment_add(glin_d, plan_g, partners(
+        torch.where(b_r, -fp * imb, 0.0)[:, None] * c_n))
+    gw_d = _segment_add(gw_d, plan_g,
+                        partners(torch.where(b_r, -fp * tdb * iib, 0.0)))
+    vel = _segment_add(vel, plan_ib,
+                       torch.where(~b_r, -fp * imb, 0.0)[:, None] * c_n)
+
+    # the accumulated rigid-motion deltas, applied to the members
+    vel = vel + torch.where(
+        in_rigid[:, None],
+        glin_d[gp] + m.cross_sv(gw_d[gp], pos - g_center[gp]), 0.0)
+    return vel, body_dv, body_dw

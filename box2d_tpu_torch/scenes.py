@@ -214,13 +214,15 @@ def replicate(base: World, n: int, spacing: float | None = None) -> World:
             out.builder._joints.append(nj)
 
     # the particles tile the same way, one sorted particle table serving
-    # every copy (pairs and triads are not ported: the builder refuses them)
+    # every copy; each copy's pairs and triads shift with its particles
     if pb is not None:
         opb = out.builder.create_particle_system(pb.radius, pb.density)
+        npart = len(pb.pos)
         ngrp = len(pb.group_flags)
         for k in range(n):
             dxy = np.array([(k % cols) * spacing,
                             (k // cols) * spacing_y], np.float32)
+            off_p = k * npart
             off_g = k * ngrp
             for i in range(len(pb.pos)):
                 opb.pos.append(pb.pos[i] + dxy)
@@ -232,4 +234,9 @@ def replicate(base: World, n: int, spacing: float | None = None) -> World:
                 opb.color.append(pb.color[i])
             opb.group_flags.extend(pb.group_flags)
             opb.group_strength.extend(pb.group_strength)
+            for (pa, pb_, fl, st, dist) in pb.pairs:
+                opb.pairs.append((pa + off_p, pb_ + off_p, fl, st, dist))
+            for tr in pb.triads:
+                opb.triads.append((tr[0] + off_p, tr[1] + off_p,
+                                   tr[2] + off_p) + tuple(tr[3:]))
     return out

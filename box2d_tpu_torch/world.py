@@ -1,5 +1,5 @@
 """World step: one rigid world of circles, capsules and polygons, with
-joints, and a plain-water particle system.
+joints, and a LiquidFun particle system.
 
 Torch port of box2d_tpu/world.py: `make_step`, `_step` with the idle gate
 (:137-159), `_step_work` along the kernel branch (layout scatter :383-496,
@@ -58,9 +58,10 @@ class StepStats:
     sort. Each read blocks the host until the device has caught up;
     `syncs` counts them. `rounds` counts the rounds of the masked loops
     of box2d_tpu_torch.distance (GJK, cast, TOI outer, push-back, root
-    finder) and their device reads."""
+    finder) and of the solid groups' depth relaxation
+    (particles._relax_depth), and their device reads."""
 
-    LOOPS = ("gjk", "cast", "toi", "push", "root")
+    LOOPS = ("gjk", "cast", "toi", "push", "root", "depth")
 
     def __init__(self):
         self.steps = 0

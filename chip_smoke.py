@@ -74,6 +74,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    K3 and K4 with per-block shape culling (a culled step held to the
    CPU's, overflow count included; at 64 x dam_break(500) the culled
    coupling held to the dense one with slots enough for every block).
+7. particle groups (the gated particle path: the windowed neighbour
+   pipeline and every flag-gated pass, no K3 or K4; the tank's boxes
+   through the solver kernel): (a) groups_tank(100000), BASELINE.json
+   config 5 (water, viscous and elastic groups, ten boxes on top), 120
+   steps from spawn through World.compile() and World.run(120) after one
+   warm run: particle-steps/s, reads, launches and device time a step,
+   overflow, pairs and triads, the elastic group's mean triad shape
+   error, no particle more than a diameter below the ground's top and no
+   box through it, and one step from spawn, one after 30 and one after
+   120 steps held to a CPU World within 1e-4 (particles and bodies), the
+   particle step alone from the same states equal bit for bit (its body
+   impulses, overflow, positions and velocities); (b) every_gate_tank(4096)
+   (every particle flag, spring, elastic and barrier groups, a solid and
+   a rigid group) 20 steps on the card against the CPU in lockstep
+   within 1e-4 (particles and bodies), the particle step alone from each
+   lockstep state equal bit for bit, the free-running gap printed; (c)
+   the six particle methods of World on that tank, card against CPU
+   (discrete results exact, floats 1e-5); (d) repeatability: the world
+   step run twice from one state on the card, the distance between the
+   two results, particles and the rest of the state, required 0.
 It then prints one JSON line describing the kernels (times beside their
 roofline bound), and as its last line {"ok": true, "device": {...}}. There
 is no CPU path: without a CUDA device it fails.
@@ -89,10 +109,11 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from port_fixtures import (all_types_scene, api_sequence,
-                           chain_sensor_scene, hub_scene, k3_table,
-                           library_rank, median_ms, move_buckets_to_tail,
-                           obstacle_tank, perturbed_leaves, rank_table,
+from port_fixtures import (PARTICLE_API, all_types_scene, api_sequence,
+                           chain_sensor_scene, every_gate_tank, groups_tank,
+                           hub_scene, k3_table, library_rank, median_ms,
+                           move_buckets_to_tail, obstacle_tank,
+                           particle_api_case, perturbed_leaves, rank_table,
                            record_particle_calls)
 
 MAIN_STEPS = 120        # joint_farm(1000)
@@ -147,6 +168,9 @@ FIRST_WALL_FAR_FACE = 20.05
 DRUM_AXIS_Y = 10.0
 DRUM_INNER = 9.5
 SMALL_STEPS = 20
+# the leaves phase 7 holds to the CPU after one world step
+ONE_STEP_FIELDS = ("particles.pos", "particles.vel", "bodies.center",
+                   "bodies.rot", "bodies.v", "bodies.w")
 PARTICLE_TANK = 4096
 # batching: bench.py's vmapped batch (measure_batch, :116-171) and flat
 # batches (:174-205, :236-243), and the RL loop of tests/test_rl_demo.py
@@ -190,12 +214,17 @@ def phase_build():
     from box2d_tpu_torch import contact_solver as cs
     from box2d_tpu_torch import particles_kernels as pk
 
-    # one nvcc per source, started together
+    from box2d_tpu_torch import native
+
+    # one nvcc per source and the g++ of the host builders, started
+    # together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        jobs = [ex.submit(cs.build), ex.submit(pk.build)]
-        lib, plib = (j.result() for j in jobs)
-    print(f"[build] both sources in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(3) as ex:
+        jobs = [ex.submit(cs.build), ex.submit(pk.build),
+                ex.submit(native.load)]
+        lib, plib, _ = (j.result() for j in jobs)
+    print(f"[build] both sources and {native.SOURCE} (g++) in "
+          f"{time.perf_counter() - t0:.2f} s")
     print(f"[build] nvcc sm_90a {cs.SOURCE} (+ {cs.JOINT_SOURCE}): "
           f"{cs.BUILD_SECONDS:.2f} s")
     for line in lib.ptxas_log.splitlines():
@@ -1441,14 +1470,16 @@ def _joint_setters():
     return launches
 
 
-def _lockstep(tag, wc, wp, fields):
+def _lockstep(tag, wc, wp, fields, each=None):
     """SMALL_STEPS steps of a world on the card (wc) and its twin on the
     CPU (wp), each step from the same state: the card's state is copied to
     the CPU before it. Every step's fields must agree within 1e-4 and its
-    event counts exactly. Then the CPU world runs the same steps from the
-    same start without the copies, and the free-running divergence is
-    printed: last-bit differences between the two devices' math (sin,
-    cos, reductions) grow chaotically in a scattered pile. The CPU world
+    event counts exactly; `each(state)`, where given, checks more of the
+    step from the card's state before it. Then the CPU world runs the
+    same steps from the same start without the copies, and the
+    free-running divergence is printed: last-bit differences between the
+    two devices' math (sin, cos, reductions) grow chaotically in a
+    scattered pile. The CPU world
     is left at its last lockstep state. Returns the card world's events,
     one per step."""
     from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
@@ -1457,6 +1488,8 @@ def _lockstep(tag, wc, wp, fields):
     worst = {f: 0.0 for f in fields}
     frames = []
     for i in range(SMALL_STEPS):
+        if each is not None:
+            each(wc.state)
         wp.state = state_from_numpy(state_to_numpy(wc.state), "cpu")
         _, evc = wc.run(1, collect_events=True)
         _, evp = wp.run(1, collect_events=True)
@@ -2081,6 +2114,322 @@ def _flat_particle_batches():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: particle groups
+# ---------------------------------------------------------------------------
+
+GROUP_PARTICLES = 100000
+GROUP_STEPS = 120
+GROUP_CHECK_AT = 30     # the second card-against-CPU step of groups_tank
+#                         (the third is from the end of the run)
+GATE_PARTICLES = 4096
+
+
+def phase_particle_groups():
+    """The gated particle path at full scale and every gate on a small
+    tank, on the card against the CPU. Returns its kernel launches."""
+    t0 = time.perf_counter()
+    launches = _groups_tank()
+    launches.update(_every_gate_tank())
+    print(f"[groups] phase 7 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _triad_shape_error(pt):
+    """Mean over the live elastic triads and their corners of |R p_rest -
+    p| (m): p a corner's offset from its triad's midpoint, R the rotation
+    that best fits the rest offsets to them (SolveElastic's)."""
+    from box2d_tpu_torch import math2d as m2
+    from box2d_tpu_torch.particles import P_ELASTIC
+
+    ta, tb, tc = (x.long() for x in (pt.triad_a, pt.triad_b, pt.triad_c))
+    live = (((pt.triad_flags & P_ELASTIC) != 0) & pt.alive[ta]
+            & pt.alive[tb] & pt.alive[tc])
+    p = [pt.pos[i] for i in (ta, tb, tc)]
+    mid = (p[0] + p[1] + p[2]) / 3.0
+    p = [x - mid for x in p]
+    rest = (pt.triad_pa, pt.triad_pb, pt.triad_pc)
+    rc = sum(m2.dot(r, x) for r, x in zip(rest, p))
+    rs = sum(m2.cross(r, x) for r, x in zip(rest, p))
+    rot = m2.rot_normalize(torch.stack([rc, rs], dim=-1))
+    err = sum(m2.length(m2.rot_vec(rot, r) - x)
+              for r, x in zip(rest, p)) / 3.0
+    return float(err[live].mean())
+
+
+def _particle_step_against_cpu(tag, wc, wp, state):
+    """One particle_step, each world's own configuration, from `state` on
+    the card and from its copy on the CPU. The body impulses it returns,
+    its overflow and the particle leaves it moves must be equal bit for
+    bit (the gated path sums in a fixed order on both devices). Returns
+    the number of bodies the particles pushed."""
+    from box2d_tpu_torch.particles import particle_step
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    cpu = state_from_numpy(state_to_numpy(state), "cpu")
+    pc, dvc, dwc, ovc = particle_step(state.particles, state, 1 / 60,
+                                      wc._step.particle_cfg)
+    pp, dvp, dwp, ovp = particle_step(cpu.particles, cpu, 1 / 60,
+                                      wp._step.particle_cfg)
+    for name, a, b in (("body_dv", dvc, dvp), ("body_dw", dwc, dwp),
+                       ("overflow", ovc, ovp), ("pos", pc.pos, pp.pos),
+                       ("vel", pc.vel, pp.vel)):
+        _close(f"{tag} particle_step {name}", a, b, exact=True)
+    return int(((dvp != 0).any(dim=1) | (dwp != 0)).sum())
+
+
+def _repeat_distance(w, start):
+    """The world's step run twice from `start` on the card. Returns the
+    largest difference between the two results over the float leaves of
+    the particles and over those of the rest of the state, and whether
+    every other particle leaf is equal. The particle step reads only the
+    step's start, so its leaves repeat bit for bit when its sums do."""
+    from box2d_tpu_torch.state import state_to_numpy
+
+    out = []
+    for _ in range(2):
+        w.state = start
+        w.step()
+        out.append(state_to_numpy(w.state))
+    d_part, d_rest, same = 0.0, 0.0, True
+    for k, a in out[0].items():
+        b = out[1][k]
+        if a.dtype.kind == "f":
+            d = float(np.abs(a - b).max()) if a.size else 0.0
+            if k.startswith("particles."):
+                d_part = max(d_part, d)
+            else:
+                d_rest = max(d_rest, d)
+        elif k.startswith("particles."):
+            same &= bool(np.array_equal(a, b))
+    return d_part, d_rest, same
+
+
+def _groups_tank():
+    """Phase 7 (a) and (d): groups_tank(GROUP_PARTICLES) from spawn."""
+    from box2d_tpu_torch import api
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import geometry as g
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import types as t
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    tag = f"groups_tank-{GROUP_PARTICLES}"
+    t0 = time.perf_counter()
+    w = groups_tank(api.World, t, g, particles=GROUP_PARTICLES,
+                    device="cuda")
+    w.compile()
+    t_build = time.perf_counter() - t0
+    cfg = w._step.particle_cfg
+    assert cfg.has_viscous and cfg.has_elastic and not cfg.has_spring
+    state0 = w.state
+    pt0 = state0.particles
+    n_live = int(pt0.alive.sum())
+    n_pairs = int((pt0.pair_flags != 0).sum())
+    n_triads = int((pt0.triad_flags != 0).sum())
+    err0 = _triad_shape_error(pt0)
+    # the warm run; its state after GROUP_CHECK_AT steps is kept for the
+    # card-against-CPU check
+    w.run(GROUP_CHECK_AT)
+    at_check = w.state
+    w.run(GROUP_STEPS - GROUP_CHECK_AT)
+    torch.cuda.synchronize()
+    w.state = state0
+    w.reset_stats()
+    cs.LAUNCHES = 0
+    pk.K3_LAUNCHES = 0
+    pk.K4_LAUNCHES = 0
+    t0 = time.perf_counter()
+    w.run(GROUP_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = w.stats
+    n_solve, k3, k4 = cs.LAUNCHES, pk.K3_LAUNCHES, pk.K4_LAUNCHES
+    leaves, prof = _check_state(w, tag)
+    rigid = st.steps - st.idle_steps
+    assert k3 == 0 and k4 == 0, (
+        f"{tag}: K3 {k3} / K4 {k4} launches on the gated path")
+    assert n_solve == rigid > 0, f"{tag}: {n_solve} solver launches"
+    assert st.full_sorts == 4 * GROUP_STEPS and st.rank_repairs == 0
+    alive = leaves["particles.alive"]
+    assert alive.sum() == n_live, f"{tag}: particles died"
+    pos = leaves["particles.pos"][alive]
+    diameter = 2 * float(leaves["particles.params.radius"])
+    low = float(pos[:, 1].min())
+    assert low > -diameter, (
+        f"{tag}: a particle ended at y = {low}, more than a diameter below "
+        f"the ground's top")
+    dyn = leaves["bodies.type"] == 2
+    box_low = float(leaves["bodies.center"][dyn, 1].min())
+    assert box_low > 0.0, f"{tag}: a box fell through the ground"
+    err = _triad_shape_error(w.state.particles)
+    end = w.state
+    n_kern, dev_ms = _device_work(w.step)
+    ms = wall / GROUP_STEPS * 1e3
+    idle = ("not measured" if dev_ms is None
+            else f"{100 * (1 - dev_ms / ms):.1f}%")
+    sps = GROUP_STEPS / wall
+    print(f"[groups] {tag}: {n_live} live particles (water, viscous, "
+          f"elastic), {n_pairs} pairs, {n_triads} triads, "
+          f"{int(dyn.sum())} boxes; built in {t_build:.1f} s; "
+          f"{GROUP_STEPS} steps from spawn in {wall:.3f} s: {sps:.2f} "
+          f"steps/s, {sps * n_live:.1f} particle-steps/s, {ms:.2f} ms a "
+          f"step; reads/step {st.syncs / st.steps:.2f}; device work of one "
+          f"step (torch.profiler): {n_kern} kernels, {dev_ms} ms, idle "
+          f"{idle}; K3 0, K4 0, full sorts {st.full_sorts}; solver "
+          f"launches {n_solve} (rigid steps {rigid}); overflow_particles "
+          f"{prof['overflow_particles']} (max_body_shapes "
+          f"{cfg.max_body_shapes}, block_shape_slots "
+          f"{cfg.block_shape_slots}); elastic triad shape error "
+          f"{err0:.3e} m at spawn, {err:.3e} m after {GROUP_STEPS} steps; "
+          f"lowest particle y {low:.4f}, lowest box centre y "
+          f"{box_low:.4f}")
+
+    # one step from spawn, one after GROUP_CHECK_AT and one after
+    # GROUP_STEPS steps against a CPU
+    # World from the same state
+    wp = groups_tank(api.World, t, g, particles=GROUP_PARTICLES,
+                     device="cpu")
+    wp.compile()
+    notes = []
+    total_pushed = 0
+    for label, start in (("spawn", state0),
+                         (f"{GROUP_CHECK_AT} steps", at_check),
+                         (f"{GROUP_STEPS} steps", end)):
+        w.state = start
+        wp.state = state_from_numpy(state_to_numpy(start), "cpu")
+        t0 = time.perf_counter()
+        wp.step()
+        t_cpu = time.perf_counter() - t0
+        w.step()
+        assert torch.equal(w.state.particles.alive.cpu(),
+                           wp.state.particles.alive), f"{tag}: alive"
+        d = [_close(f"{tag} one step from {label} {f}",
+                    getattr(getattr(w.state, f.split(".")[0]),
+                            f.split(".")[1]),
+                    getattr(getattr(wp.state, f.split(".")[0]),
+                            f.split(".")[1]), atol=1e-4, rtol=0.0)
+             for f in ONE_STEP_FIELDS]
+        pushed = _particle_step_against_cpu(f"{tag} from {label}", w, wp,
+                                            start)
+        notes.append(f"from {label}: max |d| " + ", ".join(
+            f"{f} {x:.3e}" for f, x in zip(ONE_STEP_FIELDS, d))
+            + f"; particle_step alone equal bit for bit, body impulses on "
+            f"{pushed} bodies (CPU step {t_cpu:.1f} s)")
+        total_pushed += pushed
+    assert total_pushed > 0, f"{tag}: no body took a particle impulse"
+    print(f"[groups] {tag} card against CPU, one step (bound 1e-4): "
+          + "; ".join(notes))
+
+    # (d) repeatability: the scatter-adds run in lane order on the card
+    d_part, d_rest, same = _repeat_distance(w, end)
+    print(f"[groups] {tag} repeatability: one step twice from the state "
+          f"after {GROUP_STEPS} steps, max |d| particles {d_part:.3e} "
+          f"(other particle leaves equal: {same}), the rest of the state "
+          f"{d_rest:.3e}")
+    assert d_part == 0.0 and same and d_rest == 0.0, (
+        f"{tag}: the step differs")
+    return {f"{tag} solver": n_solve, f"{tag} K3": k3, f"{tag} K4": k4}
+
+
+def _every_gate_tank():
+    """Phase 7 (b), (c), (d): every_gate_tank(GATE_PARTICLES)."""
+    from box2d_tpu_torch import api
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch import geometry as g
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import types as t
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    ws = {}
+    for dev in ("cuda", "cpu"):
+        ws[dev] = every_gate_tank(api.World, t, g, particles=GATE_PARTICLES,
+                                  device=dev)
+        ws[dev].compile()
+    wc, wp = ws["cuda"], ws["cpu"]
+    cfg = wc._step.particle_cfg
+    assert all(getattr(cfg, f) for f in cfg._fields if f.startswith("has_"))
+    pt = wc.state.particles
+    n = int(pt.alive.sum())
+    tag = f"every_gate_tank-{n}"
+    start = state_to_numpy(wc.state)
+    cs.LAUNCHES = 0
+    pk.K3_LAUNCHES = 0
+    pk.K4_LAUNCHES = 0
+    pushed = []
+    _lockstep(f"{tag} (every flag, solid and rigid groups)", wc, wp,
+              ("particles.pos", "particles.vel") + ONE_STEP_FIELDS[2:],
+              each=lambda st: pushed.append(_particle_step_against_cpu(
+                  tag, wc, wp, st)))
+    assert sum(pushed) > 0, f"{tag}: no body took a particle impulse"
+    print(f"[groups] {tag}: particle_step alone, card against CPU from "
+          f"each lockstep state: equal bit for bit (body impulses, "
+          f"overflow, positions, velocities); bodies pushed a step "
+          f"{pushed}")
+    n_solve, k3, k4 = cs.LAUNCHES, pk.K3_LAUNCHES, pk.K4_LAUNCHES
+    assert k3 == 0 and k4 == 0 and n_solve > 0, (n_solve, k3, k4)
+    st = wc.stats
+    assert st.rounds["depth"] > 0, f"{tag}: no depth relaxation"
+    print(f"[groups] {tag}: {int((pt.pair_flags != 0).sum())} pairs, "
+          f"{int((pt.triad_flags != 0).sum())} triads; solver launches "
+          f"{n_solve}, K3 0, K4 0; depth relaxation rounds "
+          f"{st.rounds['depth']}, its reads {st.rounds['reads']}; "
+          f"reads/step {st.syncs / st.steps:.2f}")
+
+    # (c) the six particle methods, card against CPU, then one step
+    after = state_to_numpy(wc.state)
+    got = {}
+    for dev, w in ws.items():
+        w.state = state_from_numpy(after, w.device)
+
+        def put(a, w=w):
+            return torch.as_tensor(a, device=w.device)
+
+        got[dev] = [particle_api_case(w, name, lambda x: x.cpu().numpy(),
+                                      put)
+                    for name in PARTICLE_API]
+    for name, a, b in zip(PARTICLE_API, got["cuda"], got["cpu"]):
+        if name == "stuck_particles":
+            assert all(np.array_equal(x, y) for x, y in zip(a, b)), name
+        else:
+            assert a == b, f"{name}: {a} against {b}"
+    la, lb = state_to_numpy(wc.state), state_to_numpy(wp.state)
+    worst = 0.0
+    for k in (k for k in la if k.startswith("particles.")):
+        assert la[k].shape == lb[k].shape, k
+        if la[k].dtype.kind == "f":
+            np.testing.assert_allclose(la[k], lb[k], rtol=0, atol=1e-5,
+                                       err_msg=k)
+            worst = max(worst, float(np.abs(la[k] - lb[k]).max()))
+        else:
+            assert np.array_equal(la[k], lb[k]), k
+    joined = la["particles.pair_a"].shape[0], la["particles.triad_a"].shape[0]
+    for w in ws.values():
+        w.step()
+    d = [_close(f"{tag} step after the API calls particles.{f}",
+                getattr(wc.state.particles, f),
+                getattr(wp.state.particles, f), atol=1e-4, rtol=0.0)
+         for f in ("pos", "vel")]
+    shown = {name: ([len(x) for x in r] if name == "stuck_particles"
+                    else r)
+             for name, r in zip(PARTICLE_API, got["cuda"])}
+    print(f"[groups] {tag} particle API card against CPU: results "
+          f"{shown} (stuck_particles: counts), particle leaves max |d| "
+          f"{worst:.3e} (bound 1e-5), pairs / "
+          f"triads after the join {joined}; one step after: max |d| pos "
+          f"{d[0]:.3e}, vel {d[1]:.3e} (bound 1e-4)")
+
+    # (d) repeatability of the every-gate step on the card
+    d_part, d_rest, same = _repeat_distance(
+        wc, state_from_numpy(start, wc.device))
+    print(f"[groups] {tag} repeatability: one step twice from spawn, max "
+          f"|d| particles {d_part:.3e} (other particle leaves equal: "
+          f"{same}), the rest of the state {d_rest:.3e}")
+    assert d_part == 0.0 and same and d_rest == 0.0, (
+        f"{tag}: the step differs")
+    return {f"{tag} solver": n_solve, f"{tag} K3": k3, f"{tag} K4": k4}
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -2099,6 +2448,9 @@ def main():
     batched, batch_launches = phase_batching()
     print(f"[main] kernel launches on the batching paths: {batch_launches}; "
           f"phase 6 in {time.perf_counter() - t6:.1f} s")
+    group_launches = phase_particle_groups()
+    print(f"[main] kernel launches on the particle-group paths: "
+          f"{group_launches}")
     big = kern[(140, WARM_STEPS)]
     small = kern[(20, WARM_STEPS)]
     farm = jkern["joint_farm-1000"]

@@ -4,8 +4,11 @@
 - Scenes built in either package through the modules they are given:
   `all_types_scene` (every joint type the solver sweeps), `hub_scene`
   (joint colors that overflow), `ccd_scene` (fast bodies against thin
-  targets) and `chain_sensor_scene` (a chain-loop ground, a sensor box,
-  and circles, capsules and boxes falling through it).
+  targets), `chain_sensor_scene` (a chain-loop ground, a sensor box,
+  and circles, capsules and boxes falling through it), and the particle
+  tanks `groups_tank` (the 100k-particle dam break of water, viscous and
+  elastic groups with boxes on top) and `every_gate_tank` (a small group
+  for every particle flag, a solid and a rigid group).
 - Inputs made to reach a kernel's edge cases: `move_buckets_to_tail` (an
   overflow tail of several Jacobi windows), `k3_table` (K3 blocks on their
   global-memory path) and `rank_table` (K4 stress tables).
@@ -20,6 +23,7 @@ It imports torch and numpy, and box2d_tpu_torch only inside the helpers
 that need it.
 """
 
+import dataclasses
 import math
 import statistics
 
@@ -561,6 +565,152 @@ def api_sequence(w, t, g):
     w.set_filter(11, t.Filter(group_index=-2))
     w.explode((0.0, 0.5), 3.0, 2.0)
     return h
+
+
+# LiquidFun's particle and group flag bits (ref: particle/Particle.cs,
+# ParticleGroup.cs), the same in both packages
+P_WALL, P_SPRING, P_ELASTIC, P_VISCOUS = 1 << 2, 1 << 3, 1 << 4, 1 << 5
+P_POWDER, P_TENSILE, P_COLOR_MIXING = 1 << 6, 1 << 7, 1 << 8
+P_BARRIER, P_STATIC_PRESSURE, P_REPULSIVE = 1 << 9, 1 << 10, 1 << 12
+G_SOLID, G_RIGID = 1 << 0, 1 << 1
+
+
+def groups_tank(World, t, g, particles=100000, boxes=10, **kw):
+    """BASELINE.json config 5 at full size: a dam break of about
+    `particles` particles of radius 0.05 m (dam_break's) in three equal
+    groups side by side against the left wall of a static tank 48 m wide
+    with 28 m walls: plain water (the pressure group), P_VISCOUS and
+    P_ELASTIC (Voronoi triads). At 100k each group is a box 7.5 m wide
+    and 25 m tall; smaller counts keep the 3:10 aspect. `boxes` dynamic 1
+    m boxes (density 0.5) rest on top of the column, the rigid-body
+    coupling. The ground's top is y = 0 and every particle spawns above
+    it. Built through the modules it is given, so both packages build
+    it."""
+    w = World(t.WorldDef(enable_continuous=False), **kw)
+    tank = w.create_body(t.BodyDef(type=0))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(24.5, 0.25, center=(0.0, -0.25)))
+    for x in (-24.25, 24.25):
+        w.create_polygon_shape(tank, t.ShapeDef(),
+                               g.box(0.25, 14.0, center=(x, 14.0)))
+    radius = 0.05
+    ps = w.create_particle_system(radius=radius)
+    # three boxes of width x 10/3 width, 0.75 diameters between rows
+    width = math.sqrt(particles / 3 * 0.3) * 0.75 * 2 * radius
+    height = width * 10.0 / 3.0
+    x0 = -24.0 + 0.05
+    for i, flags in enumerate((0, P_VISCOUS, P_ELASTIC)):
+        ps.create_group_box(center=(x0 + width * (i + 0.5),
+                                    0.05 + height / 2),
+                            half_w=width / 2, half_h=height / 2,
+                            flags=flags)
+    span = 3 * width / boxes
+    for i in range(boxes):
+        box = w.create_body(t.BodyDef(
+            type=2, position=(x0 + span * (i + 0.5), height + 0.65)))
+        w.create_polygon_shape(box, t.ShapeDef(density=0.5),
+                               g.box(0.5, 0.5))
+    return w
+
+
+def every_gate_tank(World, t, g, particles=700, **kw):
+    """A small group for every particle flag that gates a pass (viscous,
+    repulsive, powder, tensile, static pressure, colour mixing, elastic,
+    spring), a solid group and a rigid group, in two tiers of five square
+    boxes, and between the tiers a one-particle line flagged P_BARRIER |
+    P_WALL (barrier segments that do not move) on which the upper tier
+    rests; a light dynamic box on the rigid group. About `particles`
+    particles of radius 0.05 m, all above the ground's top (y = 0); each
+    group has its own colour. Built through the modules it is given."""
+    w = World(t.WorldDef(enable_continuous=False), **kw)
+    radius = 0.05
+    stride = 0.75 * 2 * radius
+    side_n = max(2, round(math.sqrt(particles * 0.94 / 10)))
+    side = side_n * stride
+    gap = 2 * stride
+    width = 5 * side + 4 * gap
+    tank = w.create_body(t.BodyDef(type=0))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(width / 2 + 1.0, 0.25, center=(0, -0.25)))
+    for x in (-(width / 2 + 0.75), width / 2 + 0.75):
+        w.create_polygon_shape(tank, t.ShapeDef(),
+                               g.box(0.25, 3 * side, center=(x, 3 * side)))
+    ps = w.create_particle_system(radius=radius)
+    groups = ((P_VISCOUS, 0), (P_REPULSIVE, 0), (P_POWDER, 0),
+              (P_TENSILE, 0), (P_STATIC_PRESSURE, 0),
+              (P_COLOR_MIXING, 0), (P_ELASTIC, 0), (P_SPRING, 0),
+              (0, G_SOLID), (0, G_RIGID))
+    line_y = 0.05 + side + stride
+    for i, (flags, gflags) in enumerate(groups):
+        tier, col = divmod(i, 5)
+        cx = -width / 2 + side / 2 + col * (side + gap)
+        cy = (0.05 + side / 2 if tier == 0
+              else line_y + stride + side / 2)
+        shade = (i + 1) / (len(groups) + 1)
+        ps.create_group_box(center=(cx, cy), half_w=side / 2,
+                            half_h=side / 2, flags=flags,
+                            group_flags=gflags,
+                            color=(shade, 1.0 - shade, 0.5, 1.0))
+    ps.create_group_box(center=(0.0, line_y), half_w=width / 2,
+                        half_h=stride / 2, flags=P_BARRIER | P_WALL,
+                        color=(0.0, 0.0, 0.0, 1.0))
+    # the box's bottom 0.02 m above the centres of the rigid group's top
+    # row, within a particle radius: it couples from the first step on
+    rigid_x = -width / 2 + side / 2 + 4 * (side + gap)
+    top = line_y + stride + side - stride / 2
+    box = w.create_body(t.BodyDef(type=2,
+                                  position=(rigid_x, top + 0.02 + 0.15)))
+    w.create_polygon_shape(box, t.ShapeDef(density=0.2), g.box(0.15, 0.15))
+    return w
+
+
+PARTICLE_API = ("destroy_particle", "destroy_particles_in_aabb",
+                "apply_particle_force", "join_particle_groups",
+                "split_particle_group", "stuck_particles")
+
+
+def _replace_particles(w, **cols):
+    w.state = dataclasses.replace(w.state, particles=dataclasses.replace(
+        w.state.particles, **cols))
+
+
+def particle_api_case(w, name, numpy_of, put, seed=9):
+    """One particle method of World (a short sequence of its calls) on an
+    every_gate_tank world of either package; numpy_of / put move a leaf
+    to numpy and back. Returns what the calls returned.
+    - join_particle_groups: the spring group (7) is first moved against
+      the elastic group (6), so the seam gets springs and triads;
+    - split_particle_group: a strip through group 0 is destroyed first,
+      leaving two components;
+    - stuck_particles: reads consecutive_contact_steps set from a numpy
+      seed (one of the stuck particles destroyed)."""
+    if name == "destroy_particle":
+        w.destroy_particle(5)
+        return w.destroy_particle(400)
+    if name == "destroy_particles_in_aabb":
+        return w.destroy_particles_in_aabb((-1.0, 0.0), (0.2, 0.4))
+    if name == "apply_particle_force":
+        w.apply_particle_force(7, (1.5, -2.0))
+        w.apply_particle_force(7, (0.25, 0.5))
+        return w.apply_particle_force(300, (3.0, 0.0))
+    pt = w.state.particles
+    group = numpy_of(pt.group)
+    if name == "join_particle_groups":
+        pos = numpy_of(pt.pos).copy()
+        pos[group == 7, 0] -= np.float32(0.15)
+        _replace_particles(w, pos=put(pos))
+        return w.join_particle_groups(6, 7)
+    if name == "split_particle_group":
+        mid = float(np.median(numpy_of(pt.pos)[group == 0, 0]))
+        w.destroy_particles_in_aabb((mid - 0.06, -1.0), (mid + 0.06, 9.0))
+        return w.split_particle_group(0)
+    if name == "stuck_particles":
+        rng = np.random.default_rng(seed)
+        cons = rng.integers(0, 9, group.shape[0]).astype(np.int32)
+        _replace_particles(w, consecutive_contact_steps=put(cons))
+        w.destroy_particle(int(np.argmax(cons)))
+        return [w.stuck_particles(), w.stuck_particles(threshold=7)]
+    raise KeyError(name)
 
 
 def perturbed_leaves(leaves, n_worlds, seed=0, jitter=0.01, kick=None,

@@ -3,7 +3,7 @@
 
     python3 profile_port.py [joint_farm-1000 | pyramid-140 | pyramid-20 |
                              dam_break-100000 | tumbler-2000 |
-                             bullet_barrage-100]...
+                             bullet_barrage-100 | groups_tank-100000]...
 
 For each scene: steps it 100 times from spawn (warm), times 20 unprofiled
 steps on the host clock (ended by torch.cuda.synchronize()), then traces 10
@@ -47,6 +47,13 @@ def make(name):
         return scenes.tumbler(int(size))
     if kind == "bullet_barrage":
         return scenes.bullet_barrage(int(size))
+    if kind == "groups_tank":
+        # the gated particle path: water, viscous and elastic groups with
+        # ten boxes on top (port_fixtures.groups_tank)
+        from box2d_tpu_torch import api, geometry, types
+        from port_fixtures import groups_tank
+
+        return groups_tank(api.World, types, geometry, particles=int(size))
     raise SystemExit(f"unknown scene {name}")
 
 

@@ -14,8 +14,9 @@ port's queries module (tests/test_torch_queries.py holds it to the JAX package);
 `run(collect_events=True)` to the port's own step phases on pyramid-5
 (tests/test_torch_phases.py holds those to the JAX package). Also: a state
 that an earlier step returned is unchanged by later setters, every public
-method of box2d_tpu.api.World but the six particle methods of ROADMAP.md
-queue 13 exists on the port's World, and the host-side particle queries.
+method of box2d_tpu.api.World exists on the port's World (the particle
+methods are held to the JAX World in tests/test_torch_particle_groups.py),
+and the host-side particle queries.
 """
 
 import copy
@@ -45,9 +46,8 @@ from test_torch_phases import to_jax_state
 torch.set_num_threads(1)
 
 ATOL = 1e-5
-DEFERRED = {"destroy_particle", "destroy_particles_in_aabb",
-            "apply_particle_force", "join_particle_groups",
-            "split_particle_group", "stuck_particles"}
+# public methods of box2d_tpu.api.World the port leaves out: none
+DEFERRED: set = set()
 
 # handles of api_scene: bodies, shapes and joints in creation order
 CHASSIS, WHEEL, PUCK, BALL, PYR = 3, 4, 5, 6, 20
@@ -345,7 +345,7 @@ def test_a_returned_state_is_never_changed():
 
 def test_the_surface_matches_jax():
     """Every public method and property of box2d_tpu.api.World exists on
-    the port's World, but the particle methods of ROADMAP.md queue 13."""
+    the port's World."""
     def public(cls):
         return {n for n, _ in inspect.getmembers(cls)
                 if not n.startswith("_")}

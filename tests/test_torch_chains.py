@@ -222,12 +222,12 @@ def test_create_chain_lanes_match_jax(loop):
 
 @pytest.fixture(scope="module")
 def chain_world():
-    """chain_sensor_scene after 90 port steps: the shapes at rest on the
+    """chain_sensor_scene after 80 port steps: the shapes at rest on the
     chain's floor and bump; the state and candidate pairs of the next
     step's narrow phase."""
     tw = chain_sensor_scene(tapi.World, tt, tg, device="cpu")
     tw.compile()
-    tw.run(90)
+    tw.run(80)
     pairs, cache = _step_work(tw.state, 1 / 60, tw.capacity, tw._step.classes,
                               4, True, StepStats(), until="pairs")
     jw = chain_sensor_scene(japi.World, jt, jg)

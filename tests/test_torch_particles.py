@@ -12,7 +12,11 @@ and deaths; the JAX particle step alone does not move the box, so the
 particles leave it within a few steps). The port's World is
 stepped from spawn against the same JAX trajectory (the tank is static, so
 the rigid pass moves nothing), and the 50-particle column is held against
-the scalar oracle of tests/oracle_particles.py.
+the scalar oracle of tests/oracle_particles.py. Each flag-gated pass alone,
+and the windowed neighbour pipeline, is held to the JAX package on
+port_fixtures.every_gate_tank with every other flag masked off
+(test_particle_paths_match_jax), and each pair or triad builder to the JAX
+builder.
 """
 
 import dataclasses
@@ -220,6 +224,14 @@ def test_builder_leaves_bit_identical_with_group_options():
 
 GATES = ["viscous", "repulsive", "powder", "tensile", "static_pressure",
          "colormix", "elastic", "spring", "barrier", "solid", "rigid", "wall"]
+# the particle flag (or group flag) each gate's pass reads
+GATE_BITS = {"viscous": tpart.P_VISCOUS, "repulsive": tpart.P_REPULSIVE,
+             "powder": tpart.P_POWDER, "tensile": tpart.P_TENSILE,
+             "static_pressure": tpart.P_STATIC_PRESSURE,
+             "colormix": tpart.P_COLOR_MIXING, "elastic": tpart.P_ELASTIC,
+             "spring": tpart.P_SPRING, "barrier": tpart.P_BARRIER,
+             "wall": tpart.P_WALL, "solid": tpart.G_SOLID,
+             "rigid": tpart.G_RIGID}
 
 
 @pytest.fixture(scope="module")
@@ -229,19 +241,67 @@ def small_world():
     return tw
 
 
+@pytest.fixture(scope="module")
+def gate_tank():
+    """port_fixtures.every_gate_tank: the JAX state, the JAX particle step
+    with every gate on (one jit, at the shapes of
+    tests/test_torch_particle_groups.py) and its particles after 3 steps,
+    and the port's config with every gate off."""
+    from port_fixtures import every_gate_tank
+
+    jstate, _ = every_gate_tank(japi.World, jtypes, jgeo).builder.build()
+    tw = every_gate_tank(tapi.World, ttypes, tgeo, device="cpu")
+    tw.compile()
+    tcfg = tw._step.particle_cfg
+    jcfg = jpart.ParticleConfig(**tcfg._asdict())
+    jstep = jax.jit(jpart.particle_step, static_argnums=(3,))
+    pt = jstate.particles
+    for _ in range(3):
+        pt = jstep(pt, jstate, jnp.float32(DT), jcfg)[0]
+    plain = tcfg._replace(**{f: False for f in tcfg._fields
+                             if f.startswith("has_")})
+    return dict(jstate=jstate, pt=pt, jcfg=jcfg, plain=plain,
+                step=lambda p: jstep(p, jstate, jnp.float32(DT), jcfg))
+
+
+def _only(pt, what):
+    """The JAX particles with every flag but the gate's masked off (the
+    same shapes; "windowed": none left). A solid group is flagged to
+    derive its depth again. The barrier line keeps its P_WALL: a moving
+    barrier takes the reference's cancelling quadratic root, where one
+    rounding stops a particle far from the segment (ROADMAP.md section
+    3)."""
+    bit = GATE_BITS.get(what, 0)
+    if what == "barrier":
+        bit |= tpart.P_WALL
+    keep = 0 if what in ("solid", "rigid") else bit
+    gkeep = bit if what in ("solid", "rigid") else 0
+    gflags = np.asarray(pt.group_flags) & gkeep
+    if what == "solid":
+        gflags = np.where(gflags != 0, gflags | tpart.G_NEEDS_DEPTH, 0)
+    return dataclasses.replace(
+        pt, flags=pt.flags & keep, pair_flags=pt.pair_flags & keep,
+        triad_flags=pt.triad_flags & keep,
+        group_flags=jnp.asarray(gflags.astype(np.int32)))
+
+
 @pytest.mark.parametrize("what", GATES + ["windowed", "culling",
                                           "non_polygon"])
-def test_unported_paths_raise(small_world, what):
-    """The unported particle paths raise, naming their ROADMAP.md queue.
-    The anti-tunnel ray against non-polygon shapes is ported (queue 10b):
-    forced on this polygon tank, its branch (queries.ray_shape_analytic)
-    gives what the polygon branch gives. Per-block shape culling is ported
-    (queue 12): with two slots a block for the tank's three shapes, the
-    culled step gives what the dense one gives, to the bound of
+def test_particle_paths_match_jax(gate_tank, small_world, what):
+    """Each gated pass alone, and the windowed neighbour pipeline
+    (use_window_kernel=False), against the JAX package: every_gate_tank
+    after 3 JAX steps with every flag but the gate's masked off, one step
+    through the JAX all-gates trace (its windowed pipeline) and through
+    the port with only that gate on; tests/test_torch_particle_groups.py's
+    bounds. The anti-tunnel ray against non-polygon shapes (queue 10b):
+    forced on the polygon dam_break, its branch (queries.ray_shape_analytic)
+    gives what the polygon branch gives. Per-block shape culling (queue
+    12): with two slots a block for the tank's three shapes, the culled
+    step gives what the dense one gives, to the bound of
     tests/test_particles.py:304-332."""
-    cfg = small_world._step.particle_cfg
-    state = small_world.state
     if what in ("non_polygon", "culling"):
+        cfg = small_world._step.particle_cfg
+        state = small_world.state
         other = (cfg._replace(geom_types=frozenset({0, 3}))
                  if what == "non_polygon" else
                  cfg._replace(block_shape_slots=2))
@@ -256,28 +316,61 @@ def test_unported_paths_raise(small_world, what):
             torch.testing.assert_close(a[1], b[1], **tol)
             assert int(a[3]) == int(b[3]) == 0
         return
-    if what in GATES:
-        cfg, item = cfg._replace(**{"has_" + what: True}), "queue 13"
-    else:
-        cfg, item = cfg._replace(use_window_kernel=False), "queue 13"
-    with pytest.raises(NotImplementedError, match=item):
-        tpart.particle_step(state.particles, state, DT, cfg)
+    from test_torch_particle_groups import check_step
+
+    start_j = _only(gate_tank["pt"], what)
+    want, want_dv, want_dw, want_ov = gate_tank["step"](start_j)
+    start = state_from_numpy(state_to_numpy(dataclasses.replace(
+        gate_tank["jstate"], particles=start_j)), "cpu")
+    cfg = (gate_tank["plain"]._replace(use_window_kernel=False)
+           if what == "windowed" else
+           gate_tank["plain"]._replace(**{"has_" + what: True}))
+    if what == "barrier":
+        cfg = cfg._replace(has_wall=True)
+    stats = tworld.StepStats()
+    got, dv, dw, ov = tpart.particle_step(start.particles, start, DT, cfg,
+                                          stats)
+    check_step(_leaves(got), _leaves(want), what, dv.numpy(), dw.numpy(),
+               np.asarray(want_dv), np.asarray(want_dw))
+    assert int(ov) == int(want_ov)
+    # K3 and K4 only where no gate needs the flat pair view or the remap
+    assert stats.full_sorts == cfg.iterations
+    if what == "solid":
+        assert stats.rounds["depth"] > 0 and got.depth.max() > 0
 
 
 @pytest.mark.parametrize("flags", [tpart.P_SPRING, tpart.P_ELASTIC,
                                    tpart.P_BARRIER])
-def test_pairs_and_triads_raise(flags):
-    ps = tpart.ParticleSystemBuilder(0.1)
-    with pytest.raises(NotImplementedError, match="queue 13"):
-        ps.create_group_box((0.0, 0.0), 0.3, 0.3, flags=flags)
+def test_pairs_and_triads_match_jax_builder(flags):
+    """A spring, elastic or barrier group box: the builder's particles,
+    pairs and triads bit for bit the JAX builder's (its native path)."""
+    from box2d_tpu import native as jnative
+
+    assert jnative._load() is not None, "the JAX builder took its fallback"
+    jps = jpart.ParticleSystemBuilder(0.1)
+    tps = tpart.ParticleSystemBuilder(0.1)
+    for ps in (jps, tps):
+        ps.create_group_box((0.0, 1.0), 0.3, 0.3, flags=flags, strength=0.8)
+    a = _leaves(jps.build())
+    b = _leaves(tps.build(device="cpu"))
+    for key, v in a.items():
+        assert b[key].dtype == v.dtype, key
+        np.testing.assert_array_equal(b[key], v, err_msg=key)
+    made = (b["triad_a"] if flags == tpart.P_ELASTIC else b["pair_a"])
+    assert made.shape[0] > 10
 
 
-def test_unported_flag_raises_at_compile():
+def test_gated_flag_compiles_and_steps():
+    """A World with a viscous group compiles (every gate passes compile)
+    and steps, taking the windowed pipeline."""
     w = tapi.World(device="cpu")
     ps = w.create_particle_system(radius=0.1)
     ps.create_group_box((0.0, 1.0), 0.3, 0.3, flags=tpart.P_VISCOUS)
-    with pytest.raises(NotImplementedError, match="viscous.*queue 13"):
-        w.compile()
+    w.compile()
+    assert w._step.particle_cfg.has_viscous
+    w.run(2)
+    assert torch.isfinite(w.state.particles.pos).all()
+    assert w.stats.full_sorts == 8 and w.stats.rank_repairs == 0
 
 
 def _oracle_run(boxes, pts, radius, steps):
