@@ -27,8 +27,17 @@ worst world's single-world step. The rare branches loop over the worlds
 that take them: the TOI sweep behind an open CCD gate calls the
 single-world pass on each such world (BatchStats.ccd_world_calls).
 
-Refused (NotImplementedError, each naming its ROADMAP.md item): joints,
-particles, sensor shapes and the custom filter and pre-solve hooks.
+Jointed worlds prepare their joints on the flat lanes, sort each world's
+joint rows into its own joint region (joints.layout_joint_rows_batched)
+and hand every region to the same launch (the solver's batched instance
+with the joint sweep); their colors and impulses are written back and
+their joint events compacted world by world. Sensor worlds run the sensor
+pass with a world axis (sensors.sensor_pass, n_worlds). The custom filter
+and pre-solve hooks see one world at a time, as under jax.vmap: each is
+mapped over the world axis with torch.func.vmap, on a view of the batch
+with a leading world axis and local ids (`_on_worlds`).
+
+Refused (NotImplementedError, naming its ROADMAP.md item): particles.
 """
 
 from __future__ import annotations
@@ -44,13 +53,17 @@ from .coloring import dense_remap, repair_colors_batched
 from .contact_solver import (NA, NF, contact_solve_batched, kernel_mode,
                              tail_window)
 from .continuous import _continuous_impl, gate_batched
+from .joints import (layout_joint_rows_batched, prepare_joints,
+                     solvable_joint_types, unpack_joint_acc)
 from .narrowphase import narrow_phase, update_cache
+from .sensors import sensor_pass
 from .sleep import wake_and_sleep_batched
 from .solver import (BodySolverState, finalize_bodies, pack_bodies,
                      pack_constraints_pairs, prepare_contacts, unpack_bodies)
 from .state import (DYNAMIC, JOINT_FILTER, Capacity, Profile, WorldState,
-                    auto_chunk, map_state, zero_events, zero_profile)
-from .world import (StepStats, _contact_hit_events, _f32_scalars,
+                    auto_chunk, map_state, zero_profile)
+from .world import (Hooks, StepStats, _contact_hit_events, _f32_scalars,
+                    _joint_events, _store_joint_impulses,
                     _zero_events_batched, color_layout, overflow_relax)
 
 # per-world fields of Bodies (0-d in a single world)
@@ -81,28 +94,32 @@ class BatchedStep:
     """The step of a batch of worlds of one static configuration: call it
     on a batched WorldState; world w of the result is what world.Step
     returns for world w. The overflow tail's windows are those of the
-    vmapped JAX step: chunk-wide where the mode-1 kernel takes the world,
-    else one window (the XLA path)."""
+    vmapped JAX step: a contact-only world's are chunk-wide where the
+    mode-1 kernel takes it, else one window (the XLA path); a jointed
+    world's are those of the single-world Step (kernel_mode and
+    tail_window of its joint types, the JAX World's path for it)."""
 
     def __init__(self, capacity: Capacity, classes_present: frozenset,
-                 substeps: int = 4, continuous: bool = True):
-        if capacity.bp_repair_cap > 0:
-            raise ValueError(
-                "make_batched_step: the batched broadphase runs the keep and "
-                "full tiers only; pass a Capacity with bp_repair_cap=0 (as "
-                "the JAX package's vmapped bench does)")
+                 substeps: int = 4, continuous: bool = True,
+                 joint_types: frozenset = frozenset(),
+                 sensor_ids: tuple = (), custom_filter=None,
+                 pre_solve=None):
         self.capacity = capacity
         self.classes = classes_present
         self.substeps = substeps
         self.continuous = continuous
+        self.joint_types = frozenset(joint_types)
+        self.sensor_ids = tuple(sensor_ids)
         self.stats = BatchStats()
-        mode = 1 if kernel_mode(capacity) == 1 else 0
-        self.tail_w = tail_window(capacity, frozenset(), mode)
+        if solvable_joint_types(self.joint_types):
+            mode = kernel_mode(capacity, self.joint_types)
+        else:
+            mode = 1 if kernel_mode(capacity) == 1 else 0
+        self.tail_w = tail_window(capacity, self.joint_types, mode)
+        self.hooks = Hooks(custom_filter, pre_solve, self.tail_w)
 
     def __call__(self, batch: WorldState, dt) -> WorldState:
-        return _batched_step(batch, dt, self.capacity, self.classes,
-                             self.substeps, self.continuous, self.stats,
-                             self.tail_w)
+        return _batched_step(batch, dt, self, self.stats)
 
 
 def make_batched_step(capacity: Capacity, classes_present: frozenset,
@@ -111,18 +128,39 @@ def make_batched_step(capacity: Capacity, classes_present: frozenset,
                       particle_cfg=None, sensor_ids: tuple = (),
                       custom_filter=None, pre_solve=None) -> BatchedStep:
     """The batched counterpart of world.make_step (jax.vmap of the JAX
-    step). Joints, particles, sensors and hooks are refused."""
-    if joint_types:
-        _refuse("joints", "ROADMAP.md queue 12a (vmapped jointed worlds)")
+    step), with the same arguments; custom_filter and pre_solve see one
+    world and its local shape ids at a time (world.Hooks). Particles are
+    refused."""
     if particle_cfg is not None:
         _refuse("particles", "ROADMAP.md queue 12b (vmapped particle worlds)")
-    if sensor_ids:
-        _refuse("sensor shapes",
-                "ROADMAP.md queue 12c (vmapped sensor worlds)")
-    if custom_filter is not None or pre_solve is not None:
-        _refuse("the custom filter and pre-solve hooks",
-                "ROADMAP.md queue 12d (hooks under make_batched_step)")
-    return BatchedStep(capacity, classes_present, substeps, continuous)
+    return BatchedStep(capacity, classes_present, substeps, continuous,
+                       joint_types, sensor_ids, custom_filter, pre_solve)
+
+
+def _on_worlds(hook, name: str, view: WorldState, *args):
+    """hook(state, *args) of each world, mapped over the world axis with
+    torch.func.vmap (PyTorch's counterpart of jax.vmap): `view` is the
+    batch with a leading world axis on every tensor and local ids, args
+    are (W, ...) tensors; the hook sees one world's state and its slices
+    of args. Returns its (W, ...) output as bool. The RuntimeError that
+    vmap raises for a hook it cannot map (a host read, a data-dependent
+    Python branch) is raised again naming the hook; any other error of
+    the hook passes through as it is."""
+    leaves = []
+    map_state(lambda x: leaves.append(x) or x, view)
+
+    def one(world_leaves, *a):
+        it = iter(world_leaves)
+        return hook(map_state(lambda _: next(it), view), *a)
+
+    try:
+        out = torch.func.vmap(one)(leaves, *args)
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"make_batched_step: the {name} hook failed under "
+            f"torch.func.vmap over the world axis (a hook that reads the "
+            f"host or branches on a tensor cannot be mapped): {e}") from e
+    return out.to(torch.bool)
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +230,9 @@ def _unflat(x, n_w):
 
 
 def _unflatten(flat: WorldState, batch: WorldState) -> WorldState:
-    """The flat state's bodies, contacts and broadphase back on the world
-    axis, ids local again; shapes and joints (which the step does not
-    write) are the batch's own."""
+    """The flat state's bodies, contacts, joints and broadphase back on the
+    world axis, ids local again; shapes (which the step does not write)
+    are the batch's own."""
     n_w = batch.bodies.center.shape[0]
     nb = batch.bodies.center.shape[1]
     S = batch.shapes.body.shape[1]
@@ -215,8 +253,12 @@ def _unflatten(flat: WorldState, batch: WorldState) -> WorldState:
     bpu = dataclasses.replace(
         bpu, shape_a=_shift(bpu.shape_a, S, -1, keep_negative=False),
         shape_b=_shift(bpu.shape_b, S, -1, keep_negative=False))
+    joints = map_state(lambda x: _unflat(x, n_w), flat.joints)
+    joints = dataclasses.replace(
+        joints, body_a=_shift(joints.body_a, nb, -1),
+        body_b=_shift(joints.body_b, nb, -1))
     return dataclasses.replace(flat, bodies=bodies, shapes=batch.shapes,
-                               contacts=contacts, joints=batch.joints,
+                               contacts=contacts, joints=joints,
                                broadphase=bpu)
 
 
@@ -256,38 +298,28 @@ def _tuning_per_lane(tuning, reps: int):
 # the step
 # ---------------------------------------------------------------------------
 
-def _batched_step(batch: WorldState, dt, cap: Capacity,
-                  classes_present: frozenset, substeps: int,
-                  continuous: bool, stats: BatchStats,
-                  tail_w: int) -> WorldState:
+def _batched_step(batch: WorldState, dt, step: BatchedStep,
+                  stats: BatchStats) -> WorldState:
     if batch.particles is not None:
         _refuse("particles", "ROADMAP.md queue 12b (vmapped particle worlds)")
     n_w = batch.bodies.center.shape[0]
     b0 = batch.bodies
-    jn = batch.joints
-    # the idle gate of each world (box2d_tpu/world.py:137-159); the
-    # refusals ride on the same read
+    cap = step.capacity
+    # the idle gate of each world (box2d_tpu/world.py:137-159)
     work = batch.broadphase.dirty | (
         b0.awake & (b0.type != 0) & b0.enabled).any(dim=1)
-    n_work, n_joints, n_sensors = stats.read(
-        work.sum(), (jn.enabled & (jn.type >= 0)).sum(),
-        batch.shapes.is_sensor.sum())
-    if n_joints:
-        _refuse("joints", "ROADMAP.md queue 12a (vmapped jointed worlds)")
-    if n_sensors:
-        _refuse("sensor shapes",
-                "ROADMAP.md queue 12c (vmapped sensor worlds)")
+    (n_work,) = stats.read(work.sum())
     stats.steps += 1
     stats.worlds = n_w
     if n_work == 0:
         stats.idle_steps += 1
         return _idle_output(batch, cap)
-    out = _unflatten(_batched_work(_flatten(batch), dt, cap, classes_present,
-                                   substeps, continuous, stats, tail_w,
-                                   n_w), batch)
+    out = _unflatten(_batched_work(_flatten(batch), dt, step, stats, batch),
+                     batch)
     if n_work < n_w:
-        # an idle world takes the idle branch's output, not the work's
-        keep = lambda i, o: torch.where(  # noqa: E731
+        # an idle world takes the idle branch's output, not the work's;
+        # what neither branch wrote (the shapes) is the batch's own
+        keep = lambda i, o: o if o is i else torch.where(  # noqa: E731
             work.reshape((n_w,) + (1,) * (o.dim() - 1)), o, i)
         out = map_state(keep, _idle_output(batch, cap), out)
     return out
@@ -308,19 +340,20 @@ def _idle_output(batch: WorldState, cap: Capacity) -> WorldState:
 def batched_kernel_args(batch: WorldState, dt, step: BatchedStep):
     """The arguments that `step` hands contact_solve_batched for this
     batch, without launching it (for checks of the kernel against single
-    launches and its twin)."""
-    return _batched_work(_flatten(batch), dt, step.capacity, step.classes,
-                         step.substeps, step.continuous, BatchStats(),
-                         step.tail_w, batch.bodies.center.shape[0],
+    launches and its twin): eleven, and a twelfth, the worlds' joint
+    regions, for a step with solvable joint types."""
+    return _batched_work(_flatten(batch), dt, step, BatchStats(), batch,
                          until="layout")
 
 
-def _batched_work(state: WorldState, dt, cap: Capacity,
-                  classes_present: frozenset, substeps: int,
-                  continuous: bool, stats: BatchStats, tail_w: int,
-                  n_w: int, until: str = "") -> WorldState:
-    """world._step_work of every world, on the flat state; until="layout"
-    returns the solver's arguments instead."""
+def _batched_work(state: WorldState, dt, step: BatchedStep,
+                  stats: BatchStats, batch: WorldState,
+                  until: str = "") -> WorldState:
+    """world._step_work of every world, on the flat state; `batch` is the
+    step's input (the hooks' view of the worlds); until="layout" returns
+    the solver's arguments instead."""
+    cap, substeps, hooks = step.capacity, step.substeps, step.hooks
+    n_w = batch.bodies.center.shape[0]
     dt, inv_dt, h, inv_h = _f32_scalars(dt, substeps)
     b = state.bodies
     NB = b.center.shape[0]
@@ -331,14 +364,35 @@ def _batched_work(state: WorldState, dt, cap: Capacity,
     tn = state.tuning
     tn_b = _tuning_per_lane(tn, nb)
     tn_p = _tuning_per_lane(tn, P)
+    # the pre-step poses, for the sensors' swept test
+    prev_pose = (b.origin, b.rot)
+    soff = (torch.arange(n_w, device=dev) * S)[:, None]
 
+    pair_filter = None
+    if hooks.custom_filter is not None:
+        # the hook sees each world's state at the step's start
+        pair_filter = lambda a, b_: _on_worlds(  # noqa: E731
+            hooks.custom_filter, "custom_filter", batch, a, b_)
     old_key_a = state.contacts.key_a
     old_key_b = state.contacts.key_b
     aabbs = compute_shape_aabbs(state, cap.max_verts)
     pairs, new_bp, cache, orphan_mask, store_drops, rebuild_kind = \
-        find_pairs_incremental_batched(state, cap, aabbs, n_w, stats)
+        find_pairs_incremental_batched(state, cap, aabbs, n_w, stats,
+                                       pair_filter)
     state = dataclasses.replace(state, broadphase=new_bp, contacts=cache)
-    data = narrow_phase(state, pairs, classes_present, cap.max_verts, stats)
+    data = narrow_phase(state, pairs, step.classes, cap.max_verts, stats)
+    if hooks.pre_solve is not None:
+        # a dropped lane's manifold is zeroed: not solved, not touching, no
+        # begin event (box2d_tpu/world.py:212-219), world by world
+        rw = lambda x: x.reshape((n_w, P) + tuple(x.shape[1:]))  # noqa
+        keep = _on_worlds(
+            hooks.pre_solve, "pre_solve", _unflatten(state, batch),
+            rw(data.shape_a) - soff.to(data.shape_a.dtype),
+            rw(data.shape_b) - soff.to(data.shape_b.dtype),
+            type(data.manifold)(*(rw(x) for x in data.manifold)))
+        data = data._replace(manifold=data.manifold._replace(
+            point_count=torch.where(keep.reshape(-1),
+                                    data.manifold.point_count, 0)))
     touching = data.manifold.point_count > 0
 
     # --- constraint graph coloring (contacts, then joint lanes) ----------
@@ -373,9 +427,13 @@ def _batched_work(state: WorldState, dt, cap: Capacity,
         all_active, cap.max_colors)
     contact_color = torch.where(contact_live.reshape(n_w, P),
                                 colors[:, :P], -1).reshape(-1)
+    joint_color = torch.where(joint_active, colors[:, P:].reshape(-1), -1)
     num_colors = torch.clamp(
         torch.where(all_active, colors, -1).max(dim=1).values + 1, min=0)
     contact_color_store = raw_colors[:, :P].reshape(-1)
+    state = dataclasses.replace(state, joints=dataclasses.replace(
+        jn, color=torch.where(joint_active, raw_colors[:, P:].reshape(-1),
+                              jn.color)))
 
     # the overflow color's mass splitting over the flat bodies, so a world
     # without overflow keeps 1.0
@@ -388,6 +446,11 @@ def _batched_work(state: WorldState, dt, cap: Capacity,
                          dq=m.rot_identity((NB,), device=dev))
     cc = prepare_contacts(dataclasses.replace(state, tuning=tn_p), data,
                           contact_color, h, inv_h)
+    # a world without solvable joints prepares none and emits no joint event
+    with_joints = bool(solvable_joint_types(step.joint_types))
+    jc = (prepare_joints(dataclasses.replace(
+        state, tuning=_tuning_per_lane(tn, J)), joint_color, h, inv_h)
+        if with_joints else None)
 
     # --- color-bucket layout of each world -------------------------------
     layout_idx, l0, layout_len = color_layout(
@@ -412,16 +475,27 @@ def _batched_work(state: WorldState, dt, cap: Capacity,
     bodyp, paramsp = pack_bodies(b, bs, tn_b, h, inv_dt)
     to_w = lambda x: x.reshape(x.shape[0], n_w, nb).transpose(  # noqa: E731
         0, 1).contiguous()
+    # each world's joint region: its live joints' rows sorted by (color,
+    # type), one segment per color (joints.layout_joint_rows_batched)
+    jrows = jpos = None
+    if with_joints:
+        jrows, jpos = layout_joint_rows_batched(
+            state.joints, jc, cap.max_colors, n_w, nb, overflow_colors > 0)
     kernel_args = (scalars.contiguous(), idxL.transpose(1, 2).contiguous(),
                    rowsL[..., :NF].transpose(1, 2).contiguous(),
                    rowsL[..., NF:NF + NA].transpose(1, 2).contiguous(),
                    to_w(bodyp), to_w(paramsp), substeps, chunk, l0,
-                   cap.max_colors, tail_w)
+                   cap.max_colors, step.tail_w) + (
+                       (jrows,) if with_joints else ())
     if until == "layout":
         return kernel_args
-    out_body, out_acc = contact_solve_batched(*kernel_args)
+    out = contact_solve_batched(*kernel_args)
     if dev.type == "cuda":
         stats.solver_launches += 1
+    out_body, out_acc = out[0], out[1]
+    if with_joints:
+        jacc = out[2].transpose(1, 2).reshape(n_w * J, -1)[jpos]
+        jc = unpack_joint_acc(jc, jacc, joint_color >= 0)
     bs = unpack_bodies(bs, out_body.transpose(0, 1).reshape(8, NB))
     pair_acc = torch.gather(
         out_acc.transpose(1, 2), 1,
@@ -438,15 +512,20 @@ def _batched_work(state: WorldState, dt, cap: Capacity,
 
     # --- the tail (world.py:706-805) -------------------------------------
     state = dataclasses.replace(
-        state, contacts=update_cache(data, contact_color_store))
+        state, contacts=update_cache(data, contact_color_store),
+        joints=_store_joint_impulses(state.joints, jc))
     events, ev_drop = _contact_hit_events(
         state, data, touching, cc.relative_velocity, tni, cap,
         tn_p.hit_event_threshold[:, None], (orphan_mask, old_key_a,
                                             old_key_b), n_w, stats)
+    if with_joints:
+        events, d_joint = _joint_events(state, jc, inv_h, events, cap,
+                                        n_w)
+        ev_drop = ev_drop + d_joint
 
     advance = None
     overflow_ccd = torch.zeros(n_w, dtype=torch.int32, device=dev)
-    if continuous:
+    if step.continuous:
         advance, overflow_ccd = _continuous_batched(
             state, bs, dt, cap, tn_b, n_w, stats)
     state = finalize_bodies(dataclasses.replace(state, tuning=tn_b), bs, dt,
@@ -466,6 +545,12 @@ def _batched_work(state: WorldState, dt, cap: Capacity,
         events, body_moved=moved, body_fell_asleep=fell,
         body_move_count=moved.sum(dim=1).to(torch.int32),
         body_fell_asleep_count=fell.sum(dim=1).to(torch.int32))
+    # the sensors, after the solve (ref: api/World.cs:99 OverlapSensors)
+    if step.sensor_ids:
+        sens, store = sensor_pass(state, cap, step.sensor_ids, *prev_pose,
+                                  n_w, stats=stats)
+        events = dataclasses.replace(events, **sens)
+        state = dataclasses.replace(state, sensor_overlap=store)
     zero_w = torch.zeros(n_w, dtype=torch.int32, device=dev)
     profile = Profile(
         pair_count=pairs.count,

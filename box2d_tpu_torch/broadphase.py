@@ -1,7 +1,8 @@
 """Broadphase: grid-cell candidate pairs and the persistent pair buffer.
 
 Torch port of box2d_tpu/broadphase.py (compute_shape_aabbs :40,
-_repair_pairs :157, find_pairs_incremental :309-406, find_pairs :409-667).
+_repair_pairs :157, find_pairs_incremental :309-406, find_pairs :409-667),
+each the one-world case of its batched form below.
 Pair lanes come out in the reference's order, because the contact store and
 the coloring priorities are keyed by lane. Where the JAX code relies on an
 order guarantee, the port states it:
@@ -74,24 +75,9 @@ class PairBuffer(NamedTuple):
     overflow: torch.Tensor  # i32
 
 
-def _grid_cell(cap: Capacity, alive, fat_lo, fat_hi):
-    """Grid cell size = widest non-big fat extent (see find_pairs)."""
-    return _grid_cell_batched(cap, alive[None], fat_lo[None], fat_hi[None])[0]
-
-
 def _box_overlap(a, b):
     return ((a[..., 0] <= b[..., 2]) & (b[..., 0] <= a[..., 2])
             & (a[..., 1] <= b[..., 3]) & (b[..., 1] <= a[..., 3]))
-
-
-def _compact_ids(mask, k):
-    """First k set lanes of `mask`, ascending: (ids clipped to range, ok)."""
-    n = mask.shape[0]
-    big = 1 << 30
-    lane = torch.arange(n, dtype=torch.int32, device=mask.device)
-    score = torch.where(mask, lane, big)
-    ids = torch.sort(score).values[:min(k, n)]
-    return torch.clamp(ids, 0, n - 1), ids < big
 
 
 _REPAIR_KE = 8
@@ -108,116 +94,6 @@ def _kth_true(ok, ids_row, kslots):
         [torch.where(ok & (rank == k), ids_row, -1).max(dim=1).values
          for k in range(kslots)], dim=1)
     return out, cnt
-
-
-def _repair_pairs(state: WorldState, cap: Capacity, bp, cache, fat_t,
-                  esc, wide, custom_filter=None):
-    """Lane-stable in-place repair of the pair buffer after a few shapes
-    escaped their fat AABBs (box2d_tpu/broadphase.py:157-306). The user's
-    custom_filter judges the new pairs, as in the JAX package (:284)."""
-    sh = state.shapes
-    b = state.bodies
-    S = fat_t.shape[0]
-    P = bp.shape_a.shape[0]
-    dev = fat_t.device
-    alive = bp.alive
-    all_ids = torch.arange(S, dtype=torch.int32, device=dev)
-    fat_new = torch.where(esc[:, None], fat_t, bp.fat)
-    old_fat = bp.fat
-    esc_big = esc & wide
-    esc_small = esc & ~wide
-
-    ab = torch.stack([bp.shape_a, bp.shape_b], dim=1).long()
-    esc_ab = esc[ab]
-    touched_lane = bp.valid & (esc_ab[:, 0] | esc_ab[:, 1])
-    fr = fat_new[ab]
-    still = _box_overlap(fr[:, 0], fr[:, 1])
-    valid2 = bp.valid & (~touched_lane | still)
-    inval = bp.valid & ~valid2
-    orphan = inval & cache.touching
-
-    body_of = sh.body
-    dyn = b.type[body_of.long()] == DYNAMIC
-
-    # pass A: escaped small shapes vs everything
-    E = min(cap.bp_repair_cap, S)
-    eids, e_ok = _compact_ids(esc_small, E)
-    el = eids.long()
-    ef_new = fat_new[el]
-    ef_old = old_fat[el]
-    e_body = body_of[el]
-    e_dyn = dyn[el]
-    now_a = _box_overlap(ef_new[:, None, :], fat_new[None, :, :])
-    was_a = _box_overlap(ef_old[:, None, :], old_fat[None, :, :])
-    ok_a = (now_a & ~was_a & e_ok[:, None] & alive[None, :]
-            & (e_body[:, None] != body_of[None, :])
-            & (e_dyn[:, None] | dyn[None, :])
-            & (eids[:, None] != all_ids[None, :])
-            & ~esc_big[None, :]
-            & (~esc_small[None, :] | (eids[:, None] < all_ids[None, :])))
-    nbr_a, cnt_a = _kth_true(ok_a, all_ids[None, :], _REPAIR_KE)
-    ovf_repair = torch.clamp(cnt_a - _REPAIR_KE, min=0).sum()
-
-    # pass B: everything vs escaped big shapes
-    gids, g_ok = _compact_ids(esc_big, _REPAIR_EB)
-    gl = gids.long()
-    gf_new = fat_new[gl]
-    gf_old = old_fat[gl]
-    g_body = body_of[gl]
-    g_dyn = dyn[gl]
-    now_b = _box_overlap(fat_new[:, None, :], gf_new[None, :, :])
-    was_b = _box_overlap(old_fat[:, None, :], gf_old[None, :, :])
-    ok_b = (now_b & ~was_b & g_ok[None, :] & alive[:, None]
-            & (body_of[:, None] != g_body[None, :])
-            & (dyn[:, None] | g_dyn[None, :])
-            & (all_ids[:, None] != gids[None, :])
-            & (~esc_big[:, None] | (all_ids[:, None] < gids[None, :])))
-    nbr_b, cnt_b = _kth_true(ok_b, gids[None, :], _REPAIR_KB)
-    ovf_repair = ovf_repair + torch.clamp(cnt_b - _REPAIR_KB, min=0).sum()
-
-    cand_a = torch.cat(
-        [eids[:, None].expand(nbr_a.shape).reshape(-1),
-         all_ids.repeat_interleave(_REPAIR_KB)])
-    cand_b = torch.cat([nbr_a.reshape(-1), nbr_b.reshape(-1)])
-    cand_ok = cand_b >= 0
-    NEW = min(max(cap.bp_repair_cap, 128), cand_ok.shape[0], P)
-    pos, new_ok = _compact_ids(cand_ok, NEW)
-    na = cand_a[pos.long()]
-    nb_ = torch.clamp(cand_b[pos.long()], min=0)
-    lo = torch.minimum(na, nb_)
-    hi = torch.maximum(na, nb_)
-
-    if cap.has_filters:
-        new_ok = new_ok & _group_pass(sh, lo.long(), hi.long())
-    if cap.has_joint_exclusions:
-        new_ok = new_ok & ~_joint_excluded(state, lo, hi)
-    if custom_filter is not None:
-        new_ok = new_ok & torch.as_tensor(custom_filter(state, lo, hi),
-                                          dtype=torch.bool)
-
-    free_lanes, free_ok = _compact_ids(~valid2, NEW)
-    slot_ok = new_ok & free_ok
-    ovf_repair = (ovf_repair + (new_ok & ~free_ok).sum()
-                  + torch.clamp(cand_ok.sum() - NEW, min=0))
-    # out-of-range targets land in a dropped extra row (JAX mode="drop")
-    tgt = torch.where(slot_ok, free_lanes, P).long()
-
-    def put(base, val):
-        ext = torch.cat([base, base[:1]])
-        ext[tgt] = val
-        return ext[:P]
-
-    sa2 = put(bp.shape_a, lo)
-    sb2 = put(bp.shape_b, hi)
-    valid3 = put(valid2, torch.ones_like(valid2[:1]).expand(tgt.shape[0]))
-    minus1 = torch.full((tgt.shape[0],), -1, dtype=torch.int32, device=dev)
-    ka2 = put(torch.where(inval, -1, cache.key_a), minus1)
-    kb2 = put(torch.where(inval, -1, cache.key_b), minus1)
-    cache2 = dataclasses.replace(cache, key_a=ka2, key_b=kb2)
-    count2 = valid3.sum().to(torch.int32)
-    return (sa2, sb2, valid3, count2, ovf_repair.to(torch.int32),
-            fat_new, cache2, orphan,
-            torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def _joint_excluded(state: WorldState, shape_lo, shape_hi):
@@ -255,90 +131,38 @@ def _group_pass(sh, ia, ib):
 def find_pairs_incremental(state: WorldState, cap: Capacity, aabbs, syncs,
                            custom_filter=None):
     """Persistent-pair keep / repair / full tiers
-    (box2d_tpu/broadphase.py:309-406); custom_filter (state, shape_a,
-    shape_b) -> keep mask judges pairs where they are built, the new pairs
-    of a repair and the whole set of a full rebuild. Returns (PairBuffer, new
-    BroadphaseStore, cache, orphan_mask, drops, kind) with kind 0/1/2."""
-    from .narrowphase import remap_cache
-
+    (box2d_tpu/broadphase.py:309-406): find_pairs_incremental_batched of
+    one world. custom_filter (state, shape_a, shape_b) -> keep mask judges
+    pairs where they are built, the new pairs of a repair and the whole
+    set of a full rebuild. Returns (PairBuffer, new BroadphaseStore,
+    cache, orphan_mask, drops, kind) with kind 0/1/2."""
     bp = state.broadphase
-    sh = state.shapes
-    b = state.bodies
-    cache = state.contacts
-    P = cache.key_a.shape[0]
-    dev = aabbs.device
-    alive = sh.enabled & b.enabled[sh.body.long()] & ~sh.is_sensor
-    inside = ((aabbs[:, 0] >= bp.fat[:, 0]) & (aabbs[:, 1] >= bp.fat[:, 1])
-              & (aabbs[:, 2] <= bp.fat[:, 2]) & (aabbs[:, 3] <= bp.fat[:, 3]))
-    esc = alive & ~inside
-    n_esc = esc.sum()
-    must_full = bp.dirty | (alive != bp.alive).any()
-    fat_t = torch.cat([aabbs[:, :2] - AABB_MARGIN,
-                       aabbs[:, 2:] + AABB_MARGIN], -1)
-
-    def do_full():
-        pb = find_pairs(state, cap, aabbs, custom_filter)
-        new_ka = torch.where(pb.valid, pb.shape_a, -1)
-        new_kb = torch.where(pb.valid, pb.shape_b, -1)
-        new_cache, orphan, drops = remap_cache(
-            cache, new_ka, new_kb, cap.max_contact_pairs)
-        cell = _grid_cell(cap, alive, fat_t[:, :2], fat_t[:, 2:])
-        return (pb.shape_a, pb.shape_b, pb.valid, pb.count, pb.overflow,
-                fat_t, new_cache, orphan, drops, cell)
-
-    def keep():
-        return (bp.shape_a, bp.shape_b, bp.valid, bp.count, bp.overflow,
-                bp.fat, cache, torch.zeros(P, dtype=torch.bool, device=dev),
-                torch.zeros((), dtype=torch.int32, device=dev), bp.cell)
-
-    if cap.bp_repair_cap <= 0:
-        must_full_h, n_esc_h = syncs.read(must_full, n_esc)
-        full = must_full_h or n_esc_h > 0
-        out = do_full() if full else keep()
-        kind = 2 if full else 0
-    else:
-        ext_new = torch.where(
-            esc,
-            torch.maximum(fat_t[:, 2] - fat_t[:, 0], fat_t[:, 3] - fat_t[:, 1]),
-            torch.maximum(bp.fat[:, 2] - bp.fat[:, 0],
-                          bp.fat[:, 3] - bp.fat[:, 1]))
-        wide = ext_new > 1.5 * bp.cell
-        n_big = (esc & wide).sum()
-        must_full_h, n_esc_h, n_big_h, ovf_h = syncs.read(
-            must_full, n_esc, n_big, bp.overflow)
-        full = must_full_h or (n_esc_h > 0 and (
-            ovf_h > 0 or n_esc_h > cap.bp_repair_cap or n_big_h > _REPAIR_EB))
-        if full:
-            out, kind = do_full(), 2
-        elif n_esc_h > 0:
-            out = _repair_pairs(state, cap, bp, cache, fat_t, esc, wide,
-                                custom_filter) + (bp.cell,)
-            kind = 1
-        else:
-            out, kind = keep(), 0
-
-    sa, sb, valid, count, ovf, fat, cache2, orphan, drops, cell = out
-    dirty_out = (ovf > 0) if kind == 1 else torch.zeros(
-        (), dtype=torch.bool, device=dev)
-    new_bp = BroadphaseStore(
-        fat=fat, alive=alive, shape_a=sa, shape_b=sb, valid=valid,
-        count=count, overflow=ovf, dirty=dirty_out, cell=cell)
-    kind_t = torch.tensor(kind, dtype=torch.int32, device=dev)
-    return (PairBuffer(sa, sb, valid, count, ovf), new_bp, cache2, orphan,
-            drops, kind_t)
-
-
-def find_pairs(state: WorldState, cap: Capacity, aabbs,
-               custom_filter=None) -> PairBuffer:
-    """Full rebuild: big-shape pass + grid-cell block-tile pass
-    (box2d_tpu/broadphase.py:409-667), then the user's custom_filter on
-    the candidate set (:660): find_pairs_batched of one world."""
-    pb = find_pairs_batched(state, cap, aabbs, 1)
-    valid = pb.valid
+    one = lambda x: x.reshape(1)  # noqa: E731
+    first = lambda x: x[0]  # noqa: E731
+    per_world = ("count", "overflow", "dirty", "cell")
+    pair_filter = None
     if custom_filter is not None:
-        valid = valid & torch.as_tensor(
-            custom_filter(state, pb.shape_a, pb.shape_b), dtype=torch.bool)
-    return PairBuffer(pb.shape_a, pb.shape_b, valid, pb.count[0],
+        pair_filter = lambda a, b: torch.as_tensor(  # noqa: E731
+            custom_filter(state, a[0], b[0]), dtype=torch.bool)[None]
+    pairs, new_bp, cache, orphan, drops, kind = \
+        find_pairs_incremental_batched(
+            dataclasses.replace(state, broadphase=dataclasses.replace(
+                bp, **{k: one(getattr(bp, k)) for k in per_world})),
+            cap, aabbs, 1, syncs, pair_filter)
+    new_bp = dataclasses.replace(
+        new_bp, **{k: first(getattr(new_bp, k)) for k in per_world})
+    return (pairs._replace(count=first(pairs.count),
+                           overflow=first(pairs.overflow)),
+            new_bp, cache, orphan, first(drops), first(kind))
+
+
+def find_pairs(state: WorldState, cap: Capacity, aabbs) -> PairBuffer:
+    """Full rebuild: big-shape pass + grid-cell block-tile pass
+    (box2d_tpu/broadphase.py:409-667): find_pairs_batched of one world.
+    The step takes it through find_pairs_incremental, which applies the
+    custom filter; the phase tests call it alone."""
+    pb = find_pairs_batched(state, cap, aabbs, 1)
+    return PairBuffer(pb.shape_a, pb.shape_b, pb.valid, pb.count[0],
                       pb.overflow[0])
 
 
@@ -565,19 +389,161 @@ def find_pairs_batched(state: WorldState, cap: Capacity, aabbs,
                       overflow)
 
 
+def _compact_ids(mask, k):
+    """The first k set lanes of each row of a (W, N) mask, ascending, as
+    (ids (W, min(k, N)) clipped to range, ok)."""
+    n = mask.shape[1]
+    big = 1 << 30
+    lane = torch.arange(n, dtype=torch.int32, device=mask.device)
+    ids = torch.sort(torch.where(mask, lane, big), dim=1).values[:, :min(k, n)]
+    return torch.clamp(ids, 0, n - 1), ids < big
+
+
+def _put_rows(base, tgt, val):
+    """base (W, n, ...) with base[w, tgt[w, i]] = val[w, i]; tgt == n is
+    dropped (JAX mode="drop")."""
+    n = base.shape[1]
+    tail = tuple(base.shape[2:])
+    ext = torch.cat([base, base[:, :1]], dim=1)
+    ix = tgt.reshape(tgt.shape + (1,) * len(tail)).expand(tgt.shape + tail)
+    return ext.scatter(1, ix.long(), val.to(base.dtype))[:, :n]
+
+
+def _repair_pairs(state: WorldState, cap: Capacity, bp, cache, fat_t, esc,
+                  wide, n_worlds: int, pair_filter=None):
+    """Lane-stable in-place repair of the pair buffer after a few shapes
+    escaped their fat AABBs (box2d_tpu/broadphase.py:157-306), in each
+    world of a flat batched state: its escape lists capped at
+    bp_repair_cap, its new pairs in its own free lanes, its own counts
+    (W,). pair_filter(lo, hi): the user's custom filter on the new pairs
+    at local shape ids (W, NEW) -> (W, NEW) keep, as in the JAX package
+    (:284)."""
+    sh = state.shapes
+    b = state.bodies
+    n_w = n_worlds
+    S = fat_t.shape[0] // n_w
+    P = bp.shape_a.shape[0] // n_w
+    dev = fat_t.device
+    r = lambda x: x.reshape((n_w, -1) + tuple(x.shape[1:]))  # noqa: E731
+    woff = (torch.arange(n_w, device=dev) * S)[:, None]
+    alive = r(bp.alive)
+    all_ids = torch.arange(S, dtype=torch.int32, device=dev)
+    fat_new = torch.where(esc[:, None], fat_t, bp.fat)
+    old_fat = bp.fat
+    esc_big = esc & wide
+    esc_small = esc & ~wide
+
+    ab = torch.stack([bp.shape_a, bp.shape_b], dim=1).long()
+    esc_ab = esc[ab]
+    touched_lane = bp.valid & (esc_ab[:, 0] | esc_ab[:, 1])
+    fr = fat_new[ab]
+    still = _box_overlap(fr[:, 0], fr[:, 1])
+    valid2 = bp.valid & (~touched_lane | still)
+    inval = bp.valid & ~valid2
+    orphan = inval & cache.touching
+
+    body_of = sh.body
+    dyn = b.type[body_of.long()] == DYNAMIC
+    fn_w, of_w, bo_w, dy_w = r(fat_new), r(old_fat), r(body_of), r(dyn)
+    eb_w, es_w = r(esc_big), r(esc_small)
+
+    # pass A: escaped small shapes vs everything of their world
+    E = min(cap.bp_repair_cap, S)
+    eids, e_ok = _compact_ids(es_w, E)
+    eg = eids.long() + woff
+    ef_new, ef_old = fat_new[eg], old_fat[eg]
+    e_body, e_dyn = body_of[eg], dyn[eg]
+    now_a = _box_overlap(ef_new[:, :, None, :], fn_w[:, None, :, :])
+    was_a = _box_overlap(ef_old[:, :, None, :], of_w[:, None, :, :])
+    ok_a = (now_a & ~was_a & e_ok[:, :, None] & alive[:, None, :]
+            & (e_body[:, :, None] != bo_w[:, None, :])
+            & (e_dyn[:, :, None] | dy_w[:, None, :])
+            & (eids[:, :, None] != all_ids[None, None, :])
+            & ~eb_w[:, None, :]
+            & (~es_w[:, None, :] | (eids[:, :, None] < all_ids)))
+    E = eids.shape[1]
+    nbr_a, cnt_a = _kth_true(ok_a.reshape(n_w * E, S), all_ids[None, :],
+                             _REPAIR_KE)
+    ovf_repair = torch.clamp(cnt_a - _REPAIR_KE, min=0).reshape(
+        n_w, E).sum(dim=1)
+
+    # pass B: everything vs the escaped big shapes of its world
+    gids, g_ok = _compact_ids(eb_w, _REPAIR_EB)
+    EB = gids.shape[1]
+    gg = gids.long() + woff
+    gf_new, gf_old = fat_new[gg], old_fat[gg]
+    g_body, g_dyn = body_of[gg], dyn[gg]
+    now_b = _box_overlap(fn_w[:, :, None, :], gf_new[:, None, :, :])
+    was_b = _box_overlap(of_w[:, :, None, :], gf_old[:, None, :, :])
+    ok_b = (now_b & ~was_b & g_ok[:, None, :] & alive[:, :, None]
+            & (bo_w[:, :, None] != g_body[:, None, :])
+            & (dy_w[:, :, None] | g_dyn[:, None, :])
+            & (all_ids[None, :, None] != gids[:, None, :])
+            & (~eb_w[:, :, None] | (all_ids[None, :, None]
+                                    < gids[:, None, :])))
+    nbr_b, cnt_b = _kth_true(
+        ok_b.reshape(n_w * S, EB),
+        gids[:, None, :].expand(n_w, S, EB).reshape(n_w * S, EB),
+        _REPAIR_KB)
+    ovf_repair = ovf_repair + torch.clamp(
+        cnt_b - _REPAIR_KB, min=0).reshape(n_w, S).sum(dim=1)
+
+    cand_a = torch.cat(
+        [eids[:, :, None].expand(n_w, E, _REPAIR_KE).reshape(n_w, -1),
+         all_ids.repeat_interleave(_REPAIR_KB)[None, :].expand(n_w, -1)],
+        dim=1)
+    cand_b = torch.cat([nbr_a.reshape(n_w, -1), nbr_b.reshape(n_w, -1)],
+                       dim=1)
+    cand_ok = cand_b >= 0
+    NEW = min(max(cap.bp_repair_cap, 128), cand_ok.shape[1], P)
+    pos, new_ok = _compact_ids(cand_ok, NEW)
+    na = torch.gather(cand_a, 1, pos.long())
+    nb_ = torch.clamp(torch.gather(cand_b, 1, pos.long()), min=0)
+    lo = torch.minimum(na, nb_)
+    hi = torch.maximum(na, nb_)
+    lo_g, hi_g = lo + woff.to(lo.dtype), hi + woff.to(hi.dtype)
+
+    if cap.has_filters:
+        new_ok = new_ok & _group_pass(sh, lo_g.long(), hi_g.long())
+    if cap.has_joint_exclusions:
+        new_ok = new_ok & ~_joint_excluded(
+            state, lo_g.reshape(-1), hi_g.reshape(-1)).reshape(n_w, -1)
+    if pair_filter is not None:
+        new_ok = new_ok & pair_filter(lo, hi)
+
+    free_lanes, free_ok = _compact_ids(~r(valid2), NEW)
+    slot_ok = new_ok & free_ok
+    ovf_repair = (ovf_repair + (new_ok & ~free_ok).sum(dim=1)
+                  + torch.clamp(cand_ok.sum(dim=1) - NEW, min=0))
+    # out-of-range targets land in a dropped extra row (JAX mode="drop")
+    tgt = torch.where(slot_ok, free_lanes, P)
+    put = lambda base, val: _put_rows(r(base), tgt, val).reshape(  # noqa
+        base.shape)
+    minus1 = torch.full_like(lo, -1)
+    valid3 = put(valid2, torch.ones_like(slot_ok))
+    cache2 = dataclasses.replace(
+        cache, key_a=put(torch.where(inval, -1, cache.key_a), minus1),
+        key_b=put(torch.where(inval, -1, cache.key_b), minus1))
+    return (put(bp.shape_a, lo_g), put(bp.shape_b, hi_g), valid3,
+            r(valid3).sum(dim=1).to(torch.int32),
+            ovf_repair.to(torch.int32), fat_new, cache2, orphan,
+            torch.zeros(n_w, dtype=torch.int32, device=dev))
+
+
 def find_pairs_incremental_batched(state: WorldState, cap: Capacity, aabbs,
-                                   n_worlds: int, syncs):
-    """find_pairs_incremental of each world of a flat batched state, in its
-    keep / full tiers (Capacity.bp_repair_cap 0, the JAX package's
-    vmapped bench): a world whose shapes all stay inside their fat boxes
-    and whose broadphase is clean keeps its pairs, the others rebuild
-    them. One device read: whether any world rebuilds. Returns what
-    find_pairs_incremental returns, each world's counts (W,)."""
+                                   n_worlds: int, syncs, pair_filter=None):
+    """find_pairs_incremental of each world of a flat batched state: each
+    world takes the full, repair or keep tier by its own rule
+    (box2d_tpu/broadphase.py:309-406, its must_full, escapes, escaped big
+    shapes and overflow). A tier runs when any world takes it, on every
+    world, and each world keeps its own tier's outputs (jax.vmap's select
+    of the conds). One device read: how many worlds rebuild and how many
+    repair. pair_filter(shape_a, shape_b): the user's custom filter at
+    local shape ids (W, N) -> (W, N) keep, judging a full rebuild's pairs
+    and a repair's new pairs. Returns what find_pairs_incremental returns,
+    each world's counts (W,)."""
     from .narrowphase import remap_cache_batched
 
-    if cap.bp_repair_cap > 0:
-        raise ValueError("the batched broadphase has no repair tier: "
-                         "Capacity.bp_repair_cap must be 0")
     n_w = n_worlds
     bp = state.broadphase
     sh = state.shapes
@@ -590,46 +556,83 @@ def find_pairs_incremental_batched(state: WorldState, cap: Capacity, aabbs,
     inside = ((aabbs[:, 0] >= bp.fat[:, 0]) & (aabbs[:, 1] >= bp.fat[:, 1])
               & (aabbs[:, 2] <= bp.fat[:, 2]) & (aabbs[:, 3] <= bp.fat[:, 3]))
     esc = alive & ~inside
-    full_w = (bp.dirty | (alive != bp.alive).reshape(n_w, S).any(dim=1)
-              | esc.reshape(n_w, S).any(dim=1))
+    n_esc = esc.reshape(n_w, S).sum(dim=1)
+    must_full = bp.dirty | (alive != bp.alive).reshape(n_w, S).any(dim=1)
     fat_t = torch.cat([aabbs[:, :2] - AABB_MARGIN,
                        aabbs[:, 2:] + AABB_MARGIN], -1)
-    (n_full,) = syncs.read(full_w.sum())
-    zero_w = torch.zeros(n_w, dtype=torch.int32, device=dev)
-    if n_full == 0:
-        sa, sb, valid, count, ovf = (bp.shape_a, bp.shape_b, bp.valid,
-                                     bp.count, bp.overflow)
-        fat, cache2, cell, drops = bp.fat, cache, bp.cell, zero_w
-        orphan = torch.zeros(n_w * P, dtype=torch.bool, device=dev)
+    if cap.bp_repair_cap <= 0:
+        full_w = must_full | (n_esc > 0)
+        repair_w = torch.zeros_like(full_w)
     else:
+        ext_new = torch.where(
+            esc,
+            torch.maximum(fat_t[:, 2] - fat_t[:, 0],
+                          fat_t[:, 3] - fat_t[:, 1]),
+            torch.maximum(bp.fat[:, 2] - bp.fat[:, 0],
+                          bp.fat[:, 3] - bp.fat[:, 1]))
+        wide = ext_new > 1.5 * bp.cell.repeat_interleave(S)
+        n_big = (esc & wide).reshape(n_w, S).sum(dim=1)
+        full_w = must_full | ((n_esc > 0) & (
+            (bp.overflow > 0) | (n_esc > cap.bp_repair_cap)
+            | (n_big > _REPAIR_EB)))
+        repair_w = ~full_w & (n_esc > 0)
+    n_full, n_repair = syncs.read(full_w.sum(), repair_w.sum())
+    pick = lambda new, old, m: torch.where(  # noqa: E731
+        m.reshape(m.shape + (1,) * (new.dim() - 1)), new, old)
+    lane_p = lambda m: m.repeat_interleave(P)  # noqa: E731
+    zero_w = torch.zeros(n_w, dtype=torch.int32, device=dev)
+    sa, sb, valid, count, ovf = (bp.shape_a, bp.shape_b, bp.valid,
+                                 bp.count, bp.overflow)
+    fat, cache2, cell, drops = bp.fat, cache, bp.cell, zero_w
+    orphan = torch.zeros(n_w * P, dtype=torch.bool, device=dev)
+
+    def take(m, n_m, out):
+        """World m's outputs from one tier's (sa, sb, valid, count, ovf,
+        fat, cache, orphan, drops); n_m worlds took it (all of them: the
+        tier's outputs as they are, as in every single world's step)."""
+        if n_m == n_w:
+            return out
+        lp = lane_p(m)
+        return (pick(out[0], sa, lp), pick(out[1], sb, lp),
+                pick(out[2], valid, lp), pick(out[3], count, m),
+                pick(out[4], ovf, m),
+                pick(out[5], fat, m.repeat_interleave(S)),
+                dataclasses.replace(cache2, **{
+                    f.name: pick(getattr(out[6], f.name),
+                                 getattr(cache2, f.name), lp)
+                    for f in dataclasses.fields(cache2)}),
+                torch.where(lp, out[7], orphan), torch.where(m, out[8], drops))
+
+    if n_full:
         # every world runs the rebuild; each keeps its own tier's outputs
         pb = find_pairs_batched(state, cap, aabbs, n_w)
+        if pair_filter is not None:
+            soff = (torch.arange(n_w, dtype=pb.shape_a.dtype, device=dev)
+                    * S)[:, None]
+            keep = pair_filter(pb.shape_a.reshape(n_w, P) - soff,
+                               pb.shape_b.reshape(n_w, P) - soff)
+            pb = pb._replace(valid=pb.valid & keep.reshape(-1))
         new_ka = torch.where(pb.valid, pb.shape_a, -1)
         new_kb = torch.where(pb.valid, pb.shape_b, -1)
-        new_cache, orphan, drops = remap_cache_batched(
+        new_cache, f_orphan, f_drops = remap_cache_batched(
             cache, new_ka, new_kb, cap.max_contact_pairs, n_w, S)
-        cell = _grid_cell_batched(cap, alive.reshape(n_w, S),
-                                  fat_t[:, :2].reshape(n_w, S, 2),
-                                  fat_t[:, 2:].reshape(n_w, S, 2))
-        lane_p = full_w.repeat_interleave(P)
-        pick = lambda new, old, m: torch.where(  # noqa: E731
-            m.reshape(m.shape + (1,) * (new.dim() - 1)), new, old)
-        sa = pick(pb.shape_a, bp.shape_a, lane_p)
-        sb = pick(pb.shape_b, bp.shape_b, lane_p)
-        valid = pick(pb.valid, bp.valid, lane_p)
-        count = pick(pb.count, bp.count, full_w)
-        ovf = pick(pb.overflow, bp.overflow, full_w)
-        fat = pick(fat_t, bp.fat, full_w.repeat_interleave(S))
-        cache2 = dataclasses.replace(cache, **{
-            f.name: pick(getattr(new_cache, f.name), getattr(cache, f.name),
-                         lane_p) for f in dataclasses.fields(cache)})
-        orphan = orphan & lane_p
-        drops = torch.where(full_w, drops, 0)
-        cell = torch.where(full_w, cell, bp.cell)
+        f_cell = _grid_cell_batched(cap, alive.reshape(n_w, S),
+                                    fat_t[:, :2].reshape(n_w, S, 2),
+                                    fat_t[:, 2:].reshape(n_w, S, 2))
+        sa, sb, valid, count, ovf, fat, cache2, orphan, drops = take(
+            full_w, n_full, (pb.shape_a, pb.shape_b, pb.valid, pb.count,
+                             pb.overflow, fat_t, new_cache, f_orphan,
+                             f_drops))
+        cell = torch.where(full_w, f_cell, cell)
+    if n_repair:
+        rep = _repair_pairs(state, cap, bp, cache, fat_t, esc, wide,
+                            n_w, pair_filter)
+        sa, sb, valid, count, ovf, fat, cache2, orphan, drops = take(
+            repair_w, n_repair, rep)
+    kind = torch.where(full_w, 2, torch.where(repair_w, 1, 0)).to(
+        torch.int32)
     new_bp = BroadphaseStore(
         fat=fat, alive=alive, shape_a=sa, shape_b=sb, valid=valid,
-        count=count, overflow=ovf,
-        dirty=torch.zeros(n_w, dtype=torch.bool, device=dev), cell=cell)
-    kind = torch.where(full_w, 2, 0).to(torch.int32)
+        count=count, overflow=ovf, dirty=repair_w & (ovf > 0), cell=cell)
     return (PairBuffer(sa, sb, valid, count, ovf), new_bp, cache2, orphan,
             drops, kind)

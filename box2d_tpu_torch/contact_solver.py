@@ -59,7 +59,8 @@ import os
 import torch
 
 from .cuda_build import HERE, nvcc_build
-from .joints import NAJ, NFJ, JointRows, joint_window, solvable_joint_types
+from .joints import (NAJ, NFJ, JointRows, joint_window, joint_window_inputs,
+                     solvable_joint_types)
 from .state import Capacity, auto_chunk
 
 NF = 33
@@ -91,10 +92,12 @@ TILED_BODY_TILE = 512
 
 # kernel launches made by contact_solve (the twin does not count), and how
 # many of them carried a joint region (the joint sweep ran on the card);
-# launches made by contact_solve_batched
+# launches made by contact_solve_batched, and how many of them carried
+# joint regions
 LAUNCHES = 0
 JOINT_LAUNCHES = 0
 BATCHED_LAUNCHES = 0
+BATCHED_JOINT_LAUNCHES = 0
 
 SOURCE = os.path.join(HERE, "csrc", "contact_solver.cu")
 JOINT_SOURCE = os.path.join(HERE, "csrc", "joint_sweep.cuh")
@@ -123,6 +126,10 @@ def build() -> ctypes.CDLL:
     fnb.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fnb.restype = ctypes.c_int
+    fnjb = lib.b2t_contact_solve_joints_batched
+    fnjb.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    fnjb.restype = ctypes.c_int
     lib.b2t_launch_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.b2t_launch_shape.restype = ctypes.c_int
     lib.ptxas_log = log
@@ -135,9 +142,8 @@ def launch_shape(joints: bool, batched: bool = False) -> dict:
     threads, one cluster a launch (a world, in a batched launch), and
     `max_active_clusters`, how many such clusters the card can hold at
     once (cudaOccupancyMaxActiveClusters). Raises if the cluster does not
-    fit. Asked once per process and instance (joints; batched, which
-    carries none)."""
-    key = 2 if batched else int(bool(joints))
+    fit. Asked once per process and instance (joints, batched)."""
+    key = (3 if joints else 2) if batched else int(bool(joints))
     if key not in _SHAPES:
         out = (ctypes.c_int * 3)()
         rc = build().b2t_launch_shape(key, ctypes.addressof(out))
@@ -238,31 +244,44 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
 
 
 def contact_solve_batched(scalars, idx, data, acc, body, params, nsub: int,
-                          chunk: int, l0: int, n_colors: int, tail_w: int):
-    """The contact-only pipeline of W worlds in one launch: scalars (W, 1,
-    8), idx (W, 2, L), data (W, NF, L), acc (W, NA, L), body (W, 8, Nb),
-    params (W, 12, Nb), the rest as contact_solve. Returns (body (W, 8,
-    Nb), acc (W, NA, L)); world w is contact_solve of world w's arrays,
-    each world on a cluster of its own."""
+                          chunk: int, l0: int, n_colors: int, tail_w: int,
+                          jrows: JointRows | None = None):
+    """The pipeline of W worlds in one launch: scalars (W, 1, 8), idx (W,
+    2, L), data (W, NF, L), acc (W, NA, L), body (W, 8, Nb), params (W,
+    12, Nb), the rest as contact_solve. Returns (body (W, 8, Nb), acc (W,
+    NA, L)), and the joint accumulators (W, NAJ, LJ) as a third value when
+    `jrows` is given: each world's joint region (JointRows with a leading
+    world axis on every array, its `overflow` a (W,) int32 tensor of each
+    world's flag). World w is contact_solve of world w's arrays, each
+    world on a cluster of its own."""
     if idx.dim() != 3 or body.dim() != 3:
         raise ValueError("contact_solve_batched takes a leading world axis")
     n_w = body.shape[0]
-    for t in (scalars, idx, data, acc, params):
+    arrays = (scalars, idx, data, acc, body, params)
+    j0 = None
+    if jrows is not None:
+        arrays += tuple(jrows[:5]) + (jrows.overflow,)
+        j0 = JointRows(*(x[0] for x in jrows[:5]))
+        if jrows.overflow.dtype != torch.int32:
+            raise ValueError("the worlds' overflow flags must be int32")
+    for t in arrays:
         if t.shape[0] != n_w:
             raise ValueError(f"world axes differ: {t.shape[0]} and {n_w}")
+        if t.device != body.device:
+            raise ValueError(f"all tensors must be on {body.device}, got "
+                             f"{t.device}")
     _check(scalars[0], idx[0], data[0], acc[0], body[0], params[0], chunk,
-           l0, n_colors, tail_w)
-    if not all(t.is_contiguous() for t in (scalars, idx, data, acc, body,
-                                            params)):
+           l0, n_colors, tail_w, j0)
+    if not all(t.is_contiguous() for t in arrays):
         raise ValueError("contact_solve_batched needs contiguous tensors")
     if body.device.type == "cpu":
         return contact_solve_batched_reference(
             scalars, idx, data, acc, body, params, nsub, chunk, l0,
-            n_colors, tail_w)
+            n_colors, tail_w, jrows)
     if body.device.type != "cuda":
         raise ValueError(f"contact_solve_batched: unsupported device "
                          f"{body.device}")
-    global BATCHED_LAUNCHES
+    global BATCHED_LAUNCHES, BATCHED_JOINT_LAUNCHES
     lib = build()
     L = data.shape[2]
     nb = body.shape[2]
@@ -270,18 +289,33 @@ def contact_solve_batched(scalars, idx, data, acc, body, params, nsub: int,
     out_acc = torch.empty_like(acc)
     jsum = torch.empty((n_w, 4, nb), dtype=torch.int64, device=body.device)
     with torch.cuda.device(body.device):
-        launch_shape(False, batched=True)
+        launch_shape(jrows is not None, batched=True)
         stream = torch.cuda.current_stream(body.device).cuda_stream
-        rc = lib.b2t_contact_solve_batched(
-            scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
-            acc.data_ptr(), body.data_ptr(), params.data_ptr(),
-            out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
-            n_w, nb, L, chunk, l0, n_colors, nsub, tail_w, stream)
+        if jrows is None:
+            rc = lib.b2t_contact_solve_batched(
+                scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
+                acc.data_ptr(), body.data_ptr(), params.data_ptr(),
+                out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
+                n_w, nb, L, chunk, l0, n_colors, nsub, tail_w, stream)
+        else:
+            out_jacc = torch.empty_like(jrows.acc)
+            rc = lib.b2t_contact_solve_joints_batched(
+                scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
+                acc.data_ptr(), body.data_ptr(), params.data_ptr(),
+                out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
+                jrows.idx.data_ptr(), jrows.data.data_ptr(),
+                jrows.acc.data_ptr(), jrows.type.data_ptr(),
+                jrows.offsets.data_ptr(), out_jacc.data_ptr(),
+                jrows.overflow.data_ptr(), n_w, nb, L, chunk, l0, n_colors,
+                nsub, tail_w, jrows.data.shape[2], JOINT_WINDOW, stream)
     if rc != 0:
         raise RuntimeError(f"contact_solve_batched kernel launch failed: "
                            f"cudaError {rc}")
     BATCHED_LAUNCHES += 1
-    return out_body, out_acc
+    if jrows is None:
+        return out_body, out_acc
+    BATCHED_JOINT_LAUNCHES += 1
+    return out_body, out_acc, out_jacc
 
 
 # ---------------------------------------------------------------------------
@@ -453,8 +487,9 @@ def contact_solve_reference(scalars, idx, data, acc, body, params,
                             tail_w: int, joints: JointRows | None = None):
     """The kernel's semantics in plain PyTorch on any device: the same
     stages, windows (window_table) and arithmetic (mode 1's contact_sweep
-    and the joint sweep, operation by operation), with each window's deltas
-    added by index_add_."""
+    and the joint sweep, operation by operation for every lane; the terms
+    that read only a window's rows are computed once a solve), with each
+    window's deltas added by index_add_."""
     out_body = body.clone()   # updated in place below
     out_acc = acc.clone()
     s = scalars.reshape(-1)
@@ -463,25 +498,28 @@ def contact_solve_reference(scalars, idx, data, acc, body, params,
     if joints is not None:
         out_jacc = joints.acc.clone()
         jlive = joints.idx[0] >= 0
-    # (is_joint, live lanes) in visit order
+    # (is_joint, live lanes, the window's stage-independent inputs) in
+    # visit order
     windows = []
     for kind, _, lo, hi in window_table(idx, chunk, l0, n_colors, tail_w,
                                         joints):
         is_joint = kind.startswith("joint")
         lanes = torch.nonzero((jlive if is_joint else live)[lo:hi])
-        windows.append((is_joint, lanes.squeeze(1) + lo))
+        lanes = lanes.squeeze(1) + lo
+        windows.append((is_joint, lanes, joint_window_inputs(
+            joints, lanes, h, inv_h) if is_joint else _window_inputs(
+                data, idx, lanes, inv_h, contact_speed, rthresh)))
     for k in range(3 * nsub + 1):
         p = 3 if k == 3 * nsub else k % 3
         if p == 0:
             _integrate_velocities(out_body, params, max_lin)
         elif p == 2:
             _integrate_positions(out_body, h)
-        for is_joint, lanes in windows:
+        for is_joint, lanes, win in windows:
             if not is_joint:
-                _window(out_body, out_acc, data, idx, lanes, p, inv_h,
-                        contact_speed, rthresh)
+                _window(out_body, out_acc, win, lanes, p)
             elif p != 3:
-                joint_window(out_body, joints, out_jacc, lanes, p, h, inv_h)
+                joint_window(out_body, out_jacc, win, lanes, p)
     if joints is None:
         return out_body, out_acc
     return out_body, out_acc, out_jacc
@@ -522,15 +560,49 @@ def _integrate_positions(body, h):
     body[6] = torch.where(active, s1 * inv, s0)
 
 
-def _window(body, acc, data, idx, lanes, p, inv_h, contact_speed, rthresh):
-    """One Jacobi window of stage p over the live `lanes`."""
+def _window_inputs(data, idx, lanes, inv_h, contact_speed, rthresh):
+    """What a contact window reads that no stage changes, built once a
+    solve so that every stage runs only its arithmetic: its lanes' body
+    ids, their constraint rows by name, the lanes whose body a / b is
+    dynamic with those bodies' ids (the lanes the deltas are added from),
+    and the terms of _window's arithmetic that read only these rows and
+    the scalars (inv_h, contact_speed, rthresh: 0-d, or one value a
+    lane), each computed as _window would compute it. The anchors and
+    separations of the two points are stacked (2, lanes)."""
     ia = idx[0, lanes].long()
     ib = idx[1, lanes].long()
-    d = data[:, lanes]
-    a = acc[:, lanes]
-    r = lambda name: d[_F[name]]
+    rows = data[:, lanes].unbind(0)
+    c = {k: rows[i] for k, i in _F.items()}
+    dyn_a = torch.nonzero((c["inv_ma"] > 0.0)
+                          | (c["inv_ia"] > 0.0)).squeeze(1)
+    dyn_b = torch.nonzero((c["inv_mb"] > 0.0)
+                          | (c["inv_ib"] > 0.0)).squeeze(1)
+    two = lambda name: torch.stack([c[name + "0"], c[name + "1"]])  # noqa
+    c.update(
+        inv_h=inv_h, neg_nx=-c["nx"], neg_speed=-contact_speed,
+        sm_sb=c["soft_mass"] * c["soft_bias"],
+        ax2=two("ax"), ay2=two("ay"), bx2=two("bx"), by2=two("by"),
+        sep2=two("sep"))
+    for bias_f in (0.0, 1.0):
+        c["mscale", bias_f] = 1.0 + bias_f * (c["soft_mass"] - 1.0)
+        c["iscale", bias_f] = bias_f * c["soft_imp"]
+    neg_rthresh = -rthresh
+    for jj in (0, 1):
+        c["neg_nmass", jj] = -c[f"nmass{jj}"]
+        c["rest_relv", jj] = c["restitution"] * c[f"relv{jj}"]
+        c["rest_ok", jj] = ((c["restitution"] != 0.0)
+                            & (c[f"relv{jj}"] < neg_rthresh))
+    return ia, ib, c, dyn_a, ia[dyn_a], dyn_b, ib[dyn_b]
+
+
+def _window(body, acc, win, lanes, p):
+    """One Jacobi window of stage p over the live `lanes`, whose
+    stage-independent inputs are `win` (_window_inputs)."""
+    ia, ib, c, dyn_a, ia_dyn, dyn_b, ib_dyn = win
+    a = acc[:, lanes].unbind(0)
+    r = c.__getitem__
     nx, ny = r("nx"), r("ny")
-    tx, ty = ny, -nx
+    tx, ty = ny, r("neg_nx")
     inv_ma, inv_mb = r("inv_ma"), r("inv_mb")
     inv_ia, inv_ib = r("inv_ia"), r("inv_ib")
     ni = [a[0], a[1]]
@@ -563,48 +635,46 @@ def _window(body, acc, data, idx, lanes, p, inv_h, contact_speed, rthresh):
         bias_f = 1.0 if p == 1 else 0.0
         rest_f = 1.0 if p == 3 else 0.0
         solve_f = 1.0 - rest_f
-        st_a = body[:, ia]
-        st_b = body[:, ib]
+        st_a = body[:, ia].unbind(0)
+        st_b = body[:, ib].unbind(0)
         dpx = st_b[3] - st_a[3]
         dpy = st_b[4] - st_a[4]
         dqca, dqsa = st_a[5], st_a[6]
         dqcb, dqsb = st_b[5], st_b[6]
         vax, vay, wa = st_a[0], st_a[1], st_a[2]
         vbx, vby, wb = st_b[0], st_b[1], st_b[2]
-        restitution = r("restitution")
-        soft_bias, soft_mass = r("soft_bias"), r("soft_mass")
-        soft_imp, relaxv = r("soft_imp"), r("relax")
+        relaxv = r("relax")
+        # both points' separations at the window's start, (2, lanes): the
+        # anchors rotate with the start poses, which the points share
+        ax2, ay2, bx2, by2 = r("ax2"), r("ay2"), r("bx2"), r("by2")
+        rrx_a = dqca * ax2 - dqsa * ay2
+        rry_a = dqsa * ax2 + dqca * ay2
+        rrx_b = dqcb * bx2 - dqsb * by2
+        rry_b = dqsb * bx2 + dqcb * by2
+        dsx = dpx + rrx_b - rrx_a
+        dsy = dpy + rry_b - rry_a
+        sep = r("sep2") + dsx * nx + dsy * ny
+        speculative = sep > 0.0
+        bias2 = torch.where(
+            speculative, sep * r("inv_h"),
+            bias_f * torch.maximum(r("sm_sb") * sep, r("neg_speed")))
+        mscale2 = torch.where(speculative, 1.0, c["mscale", bias_f])
+        iscale2 = torch.where(speculative, 0.0, c["iscale", bias_f])
         total_normal = torch.zeros_like(roll)
         for j in (0, 1):
             rax, ray = r(f"ax{j}"), r(f"ay{j}")
             rbx, rby = r(f"bx{j}"), r(f"by{j}")
             mask = r(f"mask{j}")
-            nmass = r(f"nmass{j}")
+            neg_nmass = c["neg_nmass", j]
             vrx = (vbx - wb * rby) - (vax - wa * ray)
             vry = (vby + wb * rbx) - (vay + wa * rax)
             vn = vrx * nx + vry * ny
-            rrx_a = dqca * rax - dqsa * ray
-            rry_a = dqsa * rax + dqca * ray
-            rrx_b = dqcb * rbx - dqsb * rby
-            rry_b = dqsb * rbx + dqcb * rby
-            dsx = dpx + rrx_b - rrx_a
-            dsy = dpy + rry_b - rry_a
-            sep = r(f"sep{j}") + dsx * nx + dsy * ny
-            speculative = sep > 0.0
-            bias = torch.where(
-                speculative, sep * inv_h,
-                bias_f * torch.maximum(soft_mass * soft_bias * sep,
-                                       -contact_speed))
-            mscale = torch.where(speculative, 1.0,
-                                 1.0 + bias_f * (soft_mass - 1.0))
-            iscale = torch.where(speculative, 0.0, bias_f * soft_imp)
-            imp_s = (-nmass * (mscale * vn + bias) - iscale * ni[j]) * relaxv
+            imp_s = (neg_nmass * (mscale2[j] * vn + bias2[j])
+                     - iscale2[j] * ni[j]) * relaxv
             new_s = torch.clamp(ni[j] + imp_s, min=0.0) * mask
             d_s = new_s - ni[j]
-            relv = r(f"relv{j}")
-            apply_r = ((restitution != 0.0) & (relv < -rthresh)
-                       & (tni[j] > 0.0)) * mask
-            imp_r = -nmass * (vn + restitution * relv)
+            apply_r = (c["rest_ok", j] & (tni[j] > 0.0)) * mask
+            imp_r = neg_nmass * (vn + c["rest_relv", j])
             new_r = torch.clamp(ni[j] + imp_r, min=0.0)
             d_r = (new_r - ni[j]) * apply_r
             impulse = solve_f * d_s + rest_f * d_r
@@ -652,39 +722,56 @@ def _window(body, acc, data, idx, lanes, p, inv_h, contact_speed, rthresh):
         dva = torch.stack([vax - st_a[0], vay - st_a[1], wa - st_a[2]])
         dvb = torch.stack([vbx - st_b[0], vby - st_b[1], wb - st_b[2]])
 
-    dyn_a = (inv_ma > 0.0) | (inv_ia > 0.0)
-    dyn_b = (inv_mb > 0.0) | (inv_ib > 0.0)
     vel = body[0:3]   # a view: index_add_ writes into body
-    vel.index_add_(1, ia[dyn_a], dva[:, dyn_a])
-    vel.index_add_(1, ib[dyn_b], dvb[:, dyn_b])
+    vel.index_add_(1, ia_dyn, dva.index_select(1, dyn_a))
+    vel.index_add_(1, ib_dyn, dvb.index_select(1, dyn_b))
 
 
-def _batched_windows(idx, chunk: int, l0: int, n_colors: int, tail_w: int):
+def _batched_windows(idx, chunk: int, l0: int, n_colors: int, tail_w: int,
+                     joints: JointRows | None = None):
     """The windows of a stage for W stacked worlds, in visit order, as
-    lanes of the flattened (W * L) lane axis: each of a world's windows
-    (window_table) joins the windows of the same color bucket, or the
+    (is_joint, lanes of the flattened (W * L) contact lane axis, or of the
+    (W * LJ) joint lane axis): each of a world's windows (window_table of
+    its arrays) joins the windows of the same color's joint segment (the
+    same kind-pure window of it, by rank), the same color bucket, or the
     same tail window, of the other worlds. A world's own windows keep
     their order, and within a window each world's lanes keep theirs."""
     n_w, _, L = idx.shape
     keyed: dict = {}
     for w in range(n_w):
         live = idx[w, 0] >= 0
-        for kind, _, lo, hi in window_table(idx[w], chunk, l0, n_colors,
-                                            tail_w):
-            key = (0, lo) if kind == "contact" else (1, lo)
-            lanes = torch.nonzero(live[lo:hi]).squeeze(1) + (lo + w * L)
+        jr = None
+        if joints is not None:
+            jr = JointRows(joints.idx[w], joints.data[w], joints.acc[w],
+                           joints.type[w], joints.offsets[w],
+                           bool(joints.overflow[w]))
+            jlive = jr.idx[0] >= 0
+            lj = jr.idx.shape[1]
+        rank = {}
+        for kind, c, lo, hi in window_table(idx[w], chunk, l0, n_colors,
+                                            tail_w, jr):
+            if kind.startswith("joint"):
+                k = rank[c] = rank.get(c, -1) + 1
+                key = (0, c, 0, k)
+                lanes = torch.nonzero(jlive[lo:hi]).squeeze(1) + (lo + w * lj)
+            else:
+                key = (0, c, 1, 0) if kind == "contact" else (1, lo, 0, 0)
+                lanes = torch.nonzero(live[lo:hi]).squeeze(1) + (lo + w * L)
             keyed.setdefault(key, []).append(lanes)
-    return [torch.cat(keyed[k]) for k in sorted(keyed)]
+    return [(k[0] == 0 and k[2] == 0, torch.cat(keyed[k]))
+            for k in sorted(keyed)]
 
 
 def contact_solve_batched_reference(scalars, idx, data, acc, body, params,
                                     nsub: int, chunk: int, l0: int,
-                                    n_colors: int, tail_w: int):
+                                    n_colors: int, tail_w: int,
+                                    joints: JointRows | None = None):
     """contact_solve_batched in plain PyTorch: the worlds side by side on
     one lane axis and one body axis (world w's bodies at w * Nb), every
     window of a stage taking all worlds' lanes of that window, each world
-    with its own scalars. The arithmetic is contact_solve_reference's,
-    operation by operation."""
+    with its own scalars; joint windows run joints.joint_window on the
+    worlds' joint regions laid side by side the same way. The arithmetic
+    is contact_solve_reference's, operation by operation."""
     n_w, _, L = idx.shape
     nb = body.shape[2]
     dev = body.device
@@ -699,18 +786,38 @@ def contact_solve_batched_reference(scalars, idx, data, acc, body, params,
     s = scalars.reshape(n_w, 8)
     per_body = lambda col: s[:, col].repeat_interleave(nb)  # noqa: E731
     h_b, max_lin_b = per_body(0), per_body(4)
-    windows = _batched_windows(idx, chunk, l0, n_colors, tail_w)
-    lane_s = [(s[lanes // L, 1], s[lanes // L, 2], s[lanes // L, 3])
-              for lanes in windows]
+    windows = _batched_windows(idx, chunk, l0, n_colors, tail_w, joints)
+    if joints is not None:
+        lj = joints.idx.shape[2]
+        jr_f = JointRows(
+            idx=flat(torch.where(joints.idx >= 0, joints.idx + off,
+                                 joints.idx)),
+            data=flat(joints.data), acc=None,
+            type=joints.type.reshape(-1), offsets=None)
+        out_jacc = flat(joints.acc).clone()
+    lane_s = [(s[lanes // (lj if is_joint else L), 0],
+               s[lanes // (lj if is_joint else L), 1],
+               s[lanes // (lj if is_joint else L), 2],
+               s[lanes // (lj if is_joint else L), 3])
+              for is_joint, lanes in windows]
+    wins = [joint_window_inputs(jr_f, lanes, h, inv_h) if is_joint
+            else _window_inputs(data_f, idx_f, lanes, inv_h, speed, rthresh)
+            for (is_joint, lanes), (h, inv_h, speed, rthresh) in zip(
+                windows, lane_s)]
     for k in range(3 * nsub + 1):
         p = 3 if k == 3 * nsub else k % 3
         if p == 0:
             _integrate_velocities(out_body, prm_f, max_lin_b)
         elif p == 2:
             _integrate_positions(out_body, h_b)
-        for lanes, (inv_h, speed, rthresh) in zip(windows, lane_s):
-            _window(out_body, out_acc, data_f, idx_f, lanes, p, inv_h, speed,
-                    rthresh)
+        for (is_joint, lanes), win in zip(windows, wins):
+            if not is_joint:
+                _window(out_body, out_acc, win, lanes, p)
+            elif p != 3:
+                joint_window(out_body, out_jacc, win, lanes, p)
     unflat = lambda t, r: t.reshape(r, n_w, -1).permute(1, 0, 2)  # noqa
-    return (unflat(out_body, 8).contiguous(),
-            unflat(out_acc, acc.shape[1]).contiguous())
+    out = (unflat(out_body, 8).contiguous(),
+           unflat(out_acc, acc.shape[1]).contiguous())
+    if joints is None:
+        return out
+    return out + (unflat(out_jacc, NAJ).contiguous(),)

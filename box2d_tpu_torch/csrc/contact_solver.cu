@@ -90,6 +90,11 @@
 // own arrays runs (its own window table, its own choice of the cluster or
 // CTA 0). A small world frees seven of its CTAs after the prologue, so
 // the clusters the card holds at once do not queue for long.
+// b2t_contact_solve_joints_batched does the same with each world's joint
+// region (solve_kernel<true, true>): the joint arrays are stacked world
+// after world too, at one LJ, and each world reads its own overflow flag,
+// so a world whose coloring overflowed sweeps its overflow color as
+// kind-pure Jacobi windows beside worlds that did not.
 //
 // Joints: a jointed world launches the second instance of the kernel
 // (solve_kernel<true>), which sweeps a joint segment with each color's
@@ -594,6 +599,16 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
     body_in += 8 * w * q.nb;
     q.params += 12 * w * q.nb;
     q.jsum += 4 * w * q.nb;
+    if constexpr (kJoints) {
+      const long lj = jr.LJ;
+      jr.idx += 2 * w * lj;
+      jr.data += long(JRELAX + 1) * w * lj;
+      jr.acc += long(S2Y + 1) * w * lj;
+      jacc_in += long(S2Y + 1) * w * lj;
+      jr.type += w * lj;
+      jr.off += w * (q.n_colors + 1);
+      jr.overflow = __ldg(jr.overflow_w + w);
+    }
   }
   __shared__ Table tab;
   Stage s;
@@ -767,7 +782,8 @@ int launch(const Problem& q, const JointRegion& jr, const float* acc_in,
 // error code (cudaLaunchKernelEx, then cudaGetLastError()).
 
 // The launch shape of one instance of the kernel (kind 0: contact only,
-// 1: with the joint sweep, 2: the batched contact-only instance): out[0]
+// 1: with the joint sweep, 2: the batched contact-only instance, 3: the
+// batched instance with the joint sweep): out[0]
 // CTAs of the cluster, out[1] threads of a CTA, out[2] how many such
 // clusters the card can hold at once (cudaOccupancyMaxActiveClusters; 0:
 // the cluster does not fit).
@@ -777,6 +793,7 @@ extern "C" int b2t_launch_shape(int kind, int* out) {
   const void* fn =
       kind == 1 ? reinterpret_cast<void*>(solve_kernel<true, false>)
       : kind == 2 ? reinterpret_cast<void*>(solve_kernel<false, true>)
+      : kind == 3 ? reinterpret_cast<void*>(solve_kernel<true, true>)
                   : reinterpret_cast<void*>(solve_kernel<false, false>);
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
@@ -795,7 +812,7 @@ extern "C" int b2t_contact_solve(
   const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
                   nb, L, chunk, l0, n_colors, nsub, tail_w};
   const JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
-                         0};
+                         0, nullptr};
   return launch<false, false>(q, none, acc_in, body_in, nullptr, 1, stream);
 }
 
@@ -815,7 +832,7 @@ extern "C" int b2t_contact_solve_batched(
   const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
                   nb, L, chunk, l0, n_colors, nsub, tail_w};
   const JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
-                         0};
+                         0, nullptr};
   return launch<false, true>(q, none, acc_in, body_in, nullptr, worlds,
                              stream);
 }
@@ -835,6 +852,29 @@ extern "C" int b2t_contact_solve_joints(
   const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
                   nb, L, chunk, l0, n_colors, nsub, tail_w};
   const JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ, overflow,
-                       jwin};
+                       jwin, nullptr};
   return launch<true, false>(q, jr, acc_in, body_in, jacc_in, 1, stream);
+}
+
+// The jointed pipeline for `worlds` worlds in one launch: the arrays of
+// b2t_contact_solve_batched and each world's joint region, one world after
+// another at one LJ: jidx (W, 2, LJ), jdata (W, 39, LJ), jacc_in /
+// out_jacc (W, 9, LJ), jtype (W, LJ), joff (W, n_colors + 1), and
+// overflow (W,) int32, each world's flag. World w is what
+// b2t_contact_solve_joints gives for world w's arrays.
+extern "C" int b2t_contact_solve_joints_batched(
+    const float* scalars, const int* idx, const float* data,
+    const float* acc_in, const float* body_in, const float* params,
+    float* out_body, float* out_acc, long long* jsum,
+    const int* jidx, const float* jdata, const float* jacc_in,
+    const int* jtype, const int* joff, float* out_jacc,
+    const int* overflow, int worlds,
+    int nb, int L, int chunk, int l0, int n_colors, int nsub, int tail_w,
+    int LJ, int jwin, void* stream) {
+  const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
+                  nb, L, chunk, l0, n_colors, nsub, tail_w};
+  const JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ, 0, jwin,
+                       overflow};
+  return launch<true, true>(q, jr, acc_in, body_in, jacc_in, worlds,
+                            stream);
 }

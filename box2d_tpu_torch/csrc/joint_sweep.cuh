@@ -63,6 +63,8 @@ struct JointRegion {
   int LJ;
   int overflow;      // the coloring overflowed this step
   int jwin;          // the width of the overflow color's joint windows
+  const int* overflow_w;  // (W,): each world's overflow flag, read in
+                          // place of `overflow` by a batched launch
 };
 
 __device__ __forceinline__ float jclamp(float x, float lo, float hi) {

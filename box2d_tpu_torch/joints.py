@@ -93,7 +93,7 @@ class JointRows(NamedTuple):
     acc: torch.Tensor       # (NAJ, LJ) f32
     type: torch.Tensor      # (LJ,) i32
     offsets: torch.Tensor   # (n_colors + 1,) i32
-    overflow: bool = False
+    overflow: bool = False  # a batch's rows: (W,) i32, one flag a world
 
 
 def joint_types_present(types) -> frozenset:
@@ -115,7 +115,8 @@ def _safe_recip(k):
 def prepare_joints(state: WorldState, color, h: float,
                    inv_h: float) -> JointConstraints:
     """ref: src/Joint.cs:125-129 + per-type Prepare. h and inv_h are
-    float32 values held in Python floats."""
+    float32 values held in Python floats. The tuning's warm-start flag is
+    the world's, or one a joint lane (a batch's worlds side by side)."""
     jn = state.joints
     b = state.bodies
     ba = torch.clamp(jn.body_a, min=0)
@@ -157,15 +158,16 @@ def prepare_joints(state: WorldState, color, h: float,
                            constraint_soft, ang_soft)
 
     warm = torch.where(state.tuning.enable_warm_starting, 1.0, 0.0)
+    warm2 = warm[:, None] if warm.dim() else warm
     return JointConstraints(
         color=color, active=active, type=jn.type, body_a=ba, body_b=bb,
         fa_p=fa_p, fa_q=fa_q, fb_p=fb_p, fb_q=fb_q, delta_center=delta_center,
         inv_mass_a=ma, inv_mass_b=mb, inv_i_a=ia, inv_i_b=ib,
         axial_mass=axial_mass, spring_soft=spring_soft, angular_soft=ang_soft,
         constraint_soft=constraint_soft,
-        impulse=warm * jn.impulse,
+        impulse=warm2 * jn.impulse,
         spring_impulse=warm * jn.spring_impulse,
-        spring_impulse2=warm * jn.spring_impulse2,
+        spring_impulse2=warm2 * jn.spring_impulse2,
         motor_impulse=warm * jn.motor_impulse,
         lower_impulse=warm * jn.lower_impulse,
         upper_impulse=warm * jn.upper_impulse,
@@ -282,23 +284,53 @@ def layout_joint_rows(jn, jc: JointConstraints, n_colors: int,
     first, by (color, type), so that each color is one contiguous segment
     and each warp of a segment mostly runs one type's branch. `overflow`:
     the step's coloring overflowed (JointRows.overflow). Returns
-    (JointRows, jpos) where jpos (J,) is each joint's lane."""
+    (JointRows, jpos) where jpos (J,) is each joint's lane:
+    layout_joint_rows_batched of one world."""
+    rows, jpos = layout_joint_rows_batched(
+        jn, jc, n_colors, 1, 0,
+        torch.full((1,), int(overflow), dtype=torch.int32,
+                   device=jc.color.device))
+    return JointRows(*(x[0] for x in rows[:5]), overflow=bool(overflow)), jpos
+
+
+def layout_joint_rows_batched(jn, jc: JointConstraints, n_colors: int,
+                              n_worlds: int, n_bodies: int, overflow):
+    """layout_joint_rows of each of the n_worlds worlds of a flat batched
+    state (batch.py: world w's J joints are lanes [w * J, (w + 1) * J),
+    their body ids offset by w * n_bodies): one stable sort over all W * J
+    lanes by the world-major key (world, color, type), so world w's rows
+    are sorted lanes [w * J, (w + 1) * J) in the order its own
+    layout_joint_rows gives; each world's color offsets from one
+    searchsorted. overflow: (W,) each world's coloring overflowed.
+    Returns (JointRows with a leading world axis, LJ = J, body ids local,
+    `overflow` a (W,) int32 tensor; jpos (W * J,), each joint's lane on
+    the flat (W * LJ) row axis)."""
     data, acc, idx = pack_joint_rows(jn, jc)
-    J = idx.shape[0]
+    n_w = n_worlds
+    WJ = idx.shape[0]
+    J = WJ // n_w
     dev = idx.device
     live = jc.color >= 0
-    key = torch.where(live, jc.color.long() * 8 + jn.type.long(),
-                      n_colors * 8 + 8)
+    span = n_colors * 8 + 9
+    world = torch.arange(n_w, device=dev).repeat_interleave(J)
+    key = world * span + torch.where(live, jc.color.long() * 8
+                                     + jn.type.long(), n_colors * 8 + 8)
     skey, order = torch.sort(key, stable=True)
-    bounds = torch.arange(n_colors + 1, device=dev) * 8
-    offsets = torch.searchsorted(skey, bounds).to(torch.int32)
-    jpos = torch.empty(J, dtype=torch.int64, device=dev)
-    jpos[order] = torch.arange(J, device=dev)
-    rows = JointRows(idx=idx[order].T.contiguous(),
-                     data=data[order].T.contiguous(),
-                     acc=acc[order].T.contiguous(),
-                     type=jn.type[order].to(torch.int32).contiguous(),
-                     offsets=offsets, overflow=overflow)
+    bounds = (torch.arange(n_w, device=dev)[:, None] * span
+              + torch.arange(n_colors + 1, device=dev)[None, :] * 8)
+    offsets = (torch.searchsorted(skey, bounds.reshape(-1)).reshape(
+        n_w, n_colors + 1) - torch.arange(n_w, device=dev)[:, None] * J)
+    jpos = torch.empty(WJ, dtype=torch.int64, device=dev)
+    jpos[order] = torch.arange(WJ, device=dev)
+    idx = torch.where(idx >= 0, idx - (world * n_bodies)[:, None].to(
+        idx.dtype), idx)
+    by_world = lambda x: x[order].reshape(  # noqa: E731
+        n_w, J, -1).transpose(1, 2).contiguous()
+    rows = JointRows(idx=by_world(idx), data=by_world(data),
+                     acc=by_world(acc),
+                     type=jn.type[order].to(torch.int32).reshape(n_w, J),
+                     offsets=offsets.to(torch.int32),
+                     overflow=overflow.to(torch.int32).contiguous())
     return rows, jpos
 
 
@@ -323,11 +355,11 @@ def _recip_nz(k):
 
 def joint_lanes(jtype: int, p: int, d, a, st_a, st_b, h, inv_h):
     """One sweep of stage p (0 warm start, 1 solve with bias, 2 relax) over
-    n joint lanes of one type: d (NFJ, n) rows, a (NAJ, n) accumulators,
-    st_a / st_b (8, n) the gathered body rows of both endpoints. Returns
-    (dva (3, n), dvb (3, n), acc_new (NAJ, n)). Operation by operation the
-    arithmetic of solver_pallas._joint_sweep."""
-    R = lambda name: d[_JF[name]]
+    n joint lanes of one type: d the NFJ rows by name ((n,) each), a
+    (NAJ, n) accumulators, st_a / st_b (8, n) the gathered body rows of
+    both endpoints. Returns (dva (3, n), dvb (3, n), acc_new (NAJ, n)).
+    Operation by operation the arithmetic of solver_pallas._joint_sweep."""
+    R = d.__getitem__
     bias_f = 1.0 if p == 1 else 0.0
     warm = p == 0
 
@@ -757,31 +789,52 @@ def joint_lanes(jtype: int, p: int, d, a, st_a, st_b, h, inv_h):
     return dva, dvb, acc_new
 
 
-def joint_window(body, jr: JointRows, jacc, lanes, p: int, h, inv_h):
-    """One Jacobi window of stage p over the live joint `lanes` (any mix of
-    types): every lane reads the body state at the window's start, then the
-    velocity deltas of dynamic endpoints are summed in. Updates `body` and
-    `jacc` in place."""
+def joint_window_inputs(jr: JointRows, lanes, h, inv_h):
+    """What a joint window reads that no stage changes: its lanes' body
+    ids, the lanes of each joint type present with their rows and h /
+    inv_h (scalars, or one value a lane: the worlds of a batch side by
+    side), and the lanes whose body a / b is dynamic with those bodies'
+    ids (the lanes the deltas are added from). Built once a solve, so
+    that every stage runs only its arithmetic."""
     ia = jr.idx[0, lanes].long()
     ib = jr.idx[1, lanes].long()
+    d = jr.data[:, lanes]
+    ty = jr.type[lanes]
+    groups = []
+    for t in torch.unique(ty).tolist():
+        sel = torch.nonzero(ty == t).squeeze(1)
+        hs, ihs = ((h[sel], inv_h[sel]) if torch.is_tensor(h) and h.dim()
+                   else (h, inv_h))
+        rows = d[:, sel].unbind(0)
+        groups.append((t, sel, {k: rows[i] for k, i in _JF.items()}, hs,
+                       ihs))
+    dyn_a = torch.nonzero((d[_JF["inv_ma"]] > 0.0)
+                          | (d[_JF["inv_ia"]] > 0.0)).squeeze(1)
+    dyn_b = torch.nonzero((d[_JF["inv_mb"]] > 0.0)
+                          | (d[_JF["inv_ib"]] > 0.0)).squeeze(1)
+    return ia, ib, groups, dyn_a, ia[dyn_a], dyn_b, ib[dyn_b]
+
+
+def joint_window(body, jacc, win, lanes, p: int):
+    """One Jacobi window of stage p over the live joint `lanes` (any mix of
+    types), whose stage-independent inputs are `win`
+    (joint_window_inputs): every lane reads the body state at the
+    window's start, then the velocity deltas of dynamic endpoints are
+    summed in. Updates `body` and `jacc` in place."""
+    ia, ib, groups, dyn_a, ia_dyn, dyn_b, ib_dyn = win
     st_a = body[:, ia]
     st_b = body[:, ib]
-    d = jr.data[:, lanes]
     a = jacc[:, lanes]
-    ty = jr.type[lanes]
     dva = torch.zeros_like(st_a[0:3])
     dvb = torch.zeros_like(dva)
     acc_new = a.clone()
-    for t in torch.unique(ty).tolist():
-        sel = torch.nonzero(ty == t).squeeze(1)
-        va, vb, an = joint_lanes(t, p, d[:, sel], a[:, sel], st_a[:, sel],
-                                 st_b[:, sel], h, inv_h)
+    for t, sel, d_sel, hs, ihs in groups:
+        va, vb, an = joint_lanes(t, p, d_sel, a[:, sel], st_a[:, sel],
+                                 st_b[:, sel], hs, ihs)
         dva[:, sel] = va
         dvb[:, sel] = vb
         acc_new[:, sel] = an
     jacc[:, lanes] = acc_new
-    dyn_a = (d[_JF["inv_ma"]] > 0.0) | (d[_JF["inv_ia"]] > 0.0)
-    dyn_b = (d[_JF["inv_mb"]] > 0.0) | (d[_JF["inv_ib"]] > 0.0)
     vel = body[0:3]   # a view: index_add_ writes into body
-    vel.index_add_(1, ia[dyn_a], dva[:, dyn_a])
-    vel.index_add_(1, ib[dyn_b], dvb[:, dyn_b])
+    vel.index_add_(1, ia_dyn, dva.index_select(1, dyn_a))
+    vel.index_add_(1, ib_dyn, dvb.index_select(1, dyn_b))

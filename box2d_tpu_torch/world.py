@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from . import math2d as m
-from .broadphase import compute_shape_aabbs, find_pairs_incremental
+from .broadphase import (_put_rows, compute_shape_aabbs,
+                         find_pairs_incremental)
 from .coloring import dense_remap, repair_colors
 from .contact_solver import (NA, NF, contact_solve, kernel_mode,
                              tail_window)
@@ -150,14 +151,14 @@ def make_step(capacity: Capacity, classes_present: frozenset,
 
 
 def make_batched_step(capacity: Capacity, classes_present: frozenset,
-                      substeps: int = 4, continuous: bool = True, **refused):
+                      substeps: int = 4, continuous: bool = True, **kw):
     """The step of a batch of worlds of one configuration, each tensor of
     its state with a leading world axis: the counterpart of jax.vmap of
-    the JAX step (batch.py, which refuses joints, particles, sensors and
-    hooks through `refused`)."""
+    the JAX step (batch.py; `kw` are make_step's joint_types, sensor_ids,
+    custom_filter and pre_solve, and particle_cfg, which it refuses)."""
     from .batch import make_batched_step as make
 
-    return make(capacity, classes_present, substeps, continuous, **refused)
+    return make(capacity, classes_present, substeps, continuous, **kw)
 
 
 def _step(state: WorldState, dt, cap: Capacity, classes_present: frozenset,
@@ -472,11 +473,11 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
         events, ev_drop = _contact_hit_events(
             state, data, touching, relv, tni, cap,
             state.tuning.hit_event_threshold, orphan_info[:3], 1, syncs)
+        if jc is not None:
+            events, d_joint = _joint_events(state, jc, inv_h, events, cap, 1)
+            ev_drop = ev_drop + d_joint
         events = map_state(lambda x: x[0], events)
         ev_drop = ev_drop[0]
-        if jc is not None:
-            events, d_joint = _joint_events(state, jc, inv_h, events, cap)
-            ev_drop = ev_drop + d_joint
     if until == "events":
         return events
 
@@ -508,10 +509,12 @@ def _step_tail(state, data, bs, dt, inv_dt, cap, pairs, num_colors,
         body_move_count=moved.sum().to(torch.int32),
         body_fell_asleep_count=fell.sum().to(torch.int32))
     # the sensors, after the solve (ref: api/World.cs:99 OverlapSensors)
-    state = sensor_pass(dataclasses.replace(state, events=events), cap,
-                        sensor_ids, *(prev_pose or (None, None)),
-                        stats=syncs)
-    events = state.events
+    if sensor_ids:
+        sens, store = sensor_pass(state, cap, sensor_ids, *prev_pose, 1,
+                                  stats=syncs)
+        events = dataclasses.replace(
+            events, **{k: v[0] for k, v in sens.items()})
+        state = dataclasses.replace(state, sensor_overlap=store[0])
     profile = Profile(
         pair_count=pairs.count,
         contact_point_count=data.manifold.point_count.sum().to(torch.int32),
@@ -561,15 +564,6 @@ def _compact_events(mask, payload, capacity: int):
     count = mask.sum(dim=1)
     return (rows, torch.clamp(count, max=capacity).to(torch.int32),
             torch.clamp(count - capacity, min=0).to(torch.int32))
-
-
-def _put_batched(arr, tgt, val):
-    """arr (W, e, ...) with arr[w, tgt[w, i]] = val[w, i]; tgt == e drops."""
-    n_w, e = arr.shape[:2]
-    tail = tuple(arr.shape[2:])
-    ext = torch.cat([arr, arr[:, :1]], dim=1)
-    ix = tgt.reshape(tgt.shape + (1,) * len(tail)).expand(tgt.shape + tail)
-    return ext.scatter(1, ix, val.to(arr.dtype))[:, :e]
 
 
 def _zero_events_batched(cap: Capacity, dev, n_w: int, nb: int):
@@ -625,7 +619,7 @@ def _contact_hit_events(state, data, touching, relv, tni, cap, hit_threshold,
             n_w, P) & evc[(kb + soff).reshape(-1)].reshape(n_w, P))
         pos = end_count[:, None] + torch.cumsum(orphan.to(torch.int64), 1) - 1
         tgt = torch.where(orphan & (pos < e), pos, e)
-        end_arr = _put_batched(end_arr, tgt, torch.stack([ka, kb], dim=2))
+        end_arr = _put_rows(end_arr, tgt, torch.stack([ka, kb], dim=2))
         total = end_count + orphan.sum(dim=1)
         end_count = torch.clamp(total, max=e).to(torch.int32)
         dropped = dropped + torch.clamp(total - e, min=0).to(torch.int32)
@@ -645,20 +639,23 @@ def _contact_hit_events(state, data, touching, relv, tni, cap, hit_threshold,
         n_hit = hit_w.sum(dim=1)
         events = dataclasses.replace(
             events,
-            hit_point=_put_batched(events.hit_point, tgt, rw(point)),
-            hit_normal=_put_batched(events.hit_normal, tgt,
+            hit_point=_put_rows(events.hit_point, tgt, rw(point)),
+            hit_normal=_put_rows(events.hit_normal, tgt,
                                     rw(data.manifold.normal)),
-            hit_speed=_put_batched(events.hit_speed, tgt, rw(speed)),
-            hit_shapes=_put_batched(events.hit_shapes, tgt, pairs_ab),
+            hit_speed=_put_rows(events.hit_speed, tgt, rw(speed)),
+            hit_shapes=_put_rows(events.hit_shapes, tgt, pairs_ab),
             hit_count=torch.clamp(n_hit, max=e).to(torch.int32))
         dropped = dropped + torch.clamp(n_hit - e, min=0).to(torch.int32)
     return events, dropped
 
 
-def _joint_events(state, jc, inv_h, events, cap):
+def _joint_events(state, jc, inv_h, events, cap, n_w):
     """Joint force/torque threshold events (box2d_tpu/world.py:964-1000,
-    ref: src/Solver.cs:1126-1150 + per-joint GetReaction), in joint-lane
-    order."""
+    ref: src/Solver.cs:1126-1150 + per-joint GetReaction) of each of the
+    n_w worlds of a flat state (batch.py; one world: the state itself):
+    its joints over a threshold, in its joint-lane order, at local joint
+    ids, into its own buffer (events with a world axis). Returns (events,
+    dropped (W,))."""
     jn = state.joints
     ty = jn.type
     lin = torch.sqrt((jc.impulse ** 2).sum(dim=1))
@@ -679,16 +676,15 @@ def _joint_events(state, jc, inv_h, events, cap):
                     torch.where(ty == JOINT_WHEEL,
                                 torch.abs(jc.motor_impulse),
                                 torch.abs(jc.angular_impulse)))) * inv_h
-    over = jc.active & ((force >= jn.force_threshold)
-                        | (torque >= jn.torque_threshold))
+    over = (jc.active & ((force >= jn.force_threshold)
+                         | (torque >= jn.torque_threshold))).reshape(n_w, -1)
     e = cap.event_capacity
-    pos = torch.cumsum(over.to(torch.int64), 0) - 1
+    pos = torch.cumsum(over.to(torch.int64), 1) - 1
     tgt = torch.clamp(torch.where(over, pos, e), max=e)
-    ids = torch.arange(ty.shape[0], dtype=torch.int32, device=ty.device)
-    ext = torch.cat([events.joint_force, events.joint_force[:1]])
-    ext[tgt] = ids
-    n_over = over.sum()
+    ids = torch.arange(over.shape[1], dtype=torch.int32,
+                       device=over.device).expand(n_w, -1)
+    n_over = over.sum(dim=1)
     return dataclasses.replace(
-        events, joint_force=ext[:e],
+        events, joint_force=_put_rows(events.joint_force, tgt, ids),
         joint_force_count=torch.clamp(n_over, max=e).to(torch.int32),
     ), torch.clamp(n_over - e, min=0).to(torch.int32)

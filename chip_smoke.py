@@ -66,10 +66,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with three buckets moved into every world's tail for three seeds,
    then timed; worlds 0 and 63 of a perturbed batch held to the single-world
    step in lockstep, and a batch of identical worlds staying identical,
-   bit for bit, running free and in lockstep;
+   bit for bit, running free and in lockstep; (e) the RL loop of
+   tests/test_rl_demo.py as a batch of 64 joint_farm(1) worlds (the
+   default repair tier), a torso motor speed a world written into the
+   (W, J) joint arrays every step, 256 steps from spawn after a warm
+   run of 30: one jointed solver launch (solve_kernel<true, true>) a work
+   step, the actions splitting the torsos by parity; that launch against
+   64 single launches and itself (bit for bit) and its twin, ten times
+   each, at a perturbed seed and on three hub worlds whose joint
+   coloring overflows in two and not in the third, then timed against
+   the 64 single launches; (f) the same at 1,024 worlds, 120 steps, the
+   batched launch once against the 1,024 single launches (bit for bit),
+   timed, with the clusters the card holds at once; (g) 64 perturbed api_scene worlds
+   (every joint type, a sensor box, a filtered box, an open chain, every
+   event kind on) with both hooks of tests/test_torch_api.py and the
+   default repair tier, 60 steps, worlds 0-2 and 63 held to the
+   single-world step in lockstep at every step and all 64 at the last
+   (1e-5; events, pairs and tiers equal), a repair tier
+   taken and pairs dropped by the filter;
    then the flat batches (scenes.replicate) 64 x pyramid-20 and 1,024 x
    pyramid-8 through the solver kernel, the RL loop (64 x joint_farm(1),
-   256 steps, per-world motor speeds written on the card) through the
+   128 steps, per-world motor speeds written on the card) through the
    joint sweep, and 64 x dam_break(500) and 8 x dam_break(12000) through
    K3 and K4 with per-block shape culling (a culled step held to the
    CPU's, overflow count included; at 64 x dam_break(500) the culled
@@ -109,12 +126,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from port_fixtures import (PARTICLE_API, all_types_scene, api_sequence,
-                           chain_sensor_scene, every_gate_tank, groups_tank,
-                           hub_scene, k3_table, library_rank, median_ms,
-                           move_buckets_to_tail, obstacle_tank,
+from port_fixtures import (PARTICLE_API, all_types_scene, api_scene,
+                           api_sequence, chain_sensor_scene, every_gate_tank,
+                           groups_tank, hub_scene, k3_table, library_rank,
+                           QUEUE_CYCLES, median_ms, move_buckets_to_tail,
+                           obstacle_tank,
                            particle_api_case, perturbed_leaves, rank_table,
-                           record_particle_calls)
+                           record_particle_calls, with_all_events)
 
 MAIN_STEPS = 120        # joint_farm(1000)
 PYRAMID_STEPS = 120     # the earlier paths
@@ -188,6 +206,21 @@ FLAT = ((64, 20), (1024, 8))
 FLAT_STEPS = 60
 RL_WORLDS = 64
 RL_STEPS = 256
+FLAT_RL_STEPS = 128     # the RL loop on a flat batch (phase 6)
+# the vmapped jointed, sensor and hooked worlds: the RL loop as a batch of
+# worlds (tests/test_rl_demo.py:24-25), the same at 1,024 worlds, and
+# port_fixtures.api_scene with every event kind, both hooks of
+# tests/test_torch_api.py and the default repair tier; API_LOCKSTEP's
+# worlds held to the single-world step in lockstep at each step, and all
+# worlds at the last
+RL_BIG_WORLDS = 1024
+RL_BIG_STEPS = 120
+API_WORLDS = 64
+API_STEPS = 60
+API_KICK = (1, 7, (2.0, 1.0))
+API_ASLEEP = 2
+API_LOCKSTEP = (0, 1, 2, API_WORLDS - 1)
+API_THRESHOLD = 0.5
 FLAT_PARTICLES = ((64, 500), (8, 12000))
 FLAT_PARTICLE_STEPS = 30
 # the culled coupling against the dense one, the CPU test's bound
@@ -1606,16 +1639,18 @@ def _small_worlds_against_cpu():
 def phase_batching():
     """Batches of worlds (box2d_tpu_torch/batch.py) and flat batches
     (scenes.replicate). Returns the batched solver's row of the kernels
-    line, and the launches of the other kernels on these paths."""
+    line, the batched joint launch's rows at 64 and 1,024 worlds, and the
+    launches of the other kernels on these paths."""
     t0 = time.perf_counter()
     row = _vmapped_batch()
     print(f"[batch] vmapped batch done in {time.perf_counter() - t0:.1f} s")
+    jrows = _vmapped_jointed()
     t1 = time.perf_counter()
     launches = _flat_batches()
     launches.update(_rl_loop())
     launches.update(_flat_particle_batches())
     print(f"[batch] flat batches done in {time.perf_counter() - t1:.1f} s")
-    return row, launches
+    return row, jrows, launches
 
 
 def _batch_setup(rows, device="cuda"):
@@ -1649,7 +1684,7 @@ def _spread(leaves):
 
 def _batched_bound_ms(args):
     """_bound_ms of the batched call: the bytes and operations of all its
-    worlds (live lanes only)."""
+    worlds (live lanes only), joint regions included."""
     scalars, idx, data, acc, body, params, nsub = args[:7]
     live = int((idx[:, 0] >= 0).sum())
     nb = body.shape[0] * body.shape[2]
@@ -1658,22 +1693,44 @@ def _batched_bound_ms(args):
                   + 8 * body.shape[0])
     flops = (live * stages * FLOP_CONTACT_LANE_STAGE
              + nb * nsub * FLOP_BODY_SUBSTEP)
+    if len(args) > 11:
+        # each world's joint region, as _bound_ms counts one world's
+        joints = args[11]
+        jlive = int((joints.idx[:, 0] >= 0).sum())
+        nbytes += 4 * (jlive * (2 + 39 + 9 + 9 + 1) + joints.offsets.numel()
+                       + joints.overflow.numel())
+        flops += jlive * 3 * nsub * FLOP_JOINT_LANE_STAGE
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _perturbed_args(base, n_w, seed, bstep):
+def _perturbed_args(base, n_w, seed, bstep, kick_body=5):
     """The batched solver's arguments for a perturbed batch of `base`
-    (jitter from `seed`, world n_w - 1 kicked) after WARM_STEPS steps."""
+    (jitter from `seed`, world n_w - 1's body kick_body kicked) after
+    WARM_STEPS steps."""
     from box2d_tpu_torch import batch as bt
     from box2d_tpu_torch.state import state_from_numpy
 
     b = state_from_numpy(perturbed_leaves(
-        base, n_w, seed=seed, kick=(n_w - 1, 5, (2.0, 1.0))), "cuda")
+        base, n_w, seed=seed, kick=(n_w - 1, kick_body, (2.0, 1.0))), "cuda")
     for _ in range(WARM_STEPS):
         b = bstep(b, 1 / 60)
     return bt.batched_kernel_args(b, 1 / 60, bstep)
+
+
+def _single_args(args, w):
+    """contact_solve's arguments for world w of a batched call's (its
+    joint region, when the call has them, with world w's overflow
+    flag)."""
+    from box2d_tpu_torch.joints import JointRows
+
+    jr = None
+    if len(args) > 11:
+        j = args[11]
+        jr = JointRows(j.idx[w], j.data[w], j.acc[w], j.type[w],
+                       j.offsets[w], bool(j.overflow[w]))
+    return tuple(a[w] for a in args[:6]) + tuple(args[6:11]) + (jr,)
 
 
 def _batched_against_single(tag, args):
@@ -1685,7 +1742,9 @@ def _batched_against_single(tag, args):
     algorithms, so that its index_add_ sums in a fixed order. Prints the
     launches' distance from the twin (the single launches' too, at the
     value where the batched launch is furthest from it) and the values
-    outside ATOL / RTOL of it. Returns them; the caller asserts."""
+    outside ATOL / RTOL of it. A call with joint regions (args[11]) holds
+    the joint accumulators too, each single launch on its world's region.
+    Returns them; the caller asserts."""
     from box2d_tpu_torch import contact_solver as cs
 
     n_w, l0 = args[0].shape[0], args[8]
@@ -1708,10 +1767,8 @@ def _batched_against_single(tag, args):
 
     for k in range(JACOBI_REPEATS):
         ob = cs.contact_solve_batched(*args)
-        one = [cs.contact_solve(*(tuple(a[w] for a in args[:6])
-                                  + tuple(args[6:]) + (None,)))
-               for w in range(n_w)]
-        sb = [torch.stack([o[i] for o in one]) for i in range(2)]
+        one = [cs.contact_solve(*_single_args(args, w)) for w in range(n_w)]
+        sb = [torch.stack([o[i] for o in one]) for i in range(len(ob))]
         torch.cuda.synchronize()
         for what, x, y in (("batched against single", ob, sb),
                            ("batched against the first", ob,
@@ -1849,8 +1906,8 @@ def _vmapped_batch():
         a = args if seed == JACOBI_SEEDS[0] else _perturbed_args(
             base, n_w, seed, bstep)
         tails = [move_buckets_to_tail(
-            tuple(x[w] for x in a[:6]) + tuple(a[6:]) + (None,),
-            range(TAIL_BUCKETS), TAIL_BUCKETS * a[7]) for w in range(n_w)]
+            _single_args(a, w), range(TAIL_BUCKETS), TAIL_BUCKETS * a[7])
+            for w in range(n_w)]
         n_tail = [len(_tail_windows(t)) for t in tails]
         cases.append((f"seed {seed}, {TAIL_BUCKETS} buckets moved into each "
                       f"tail ({min(n_tail)}-{max(n_tail)} Jacobi windows a "
@@ -1869,8 +1926,7 @@ def _vmapped_batch():
     sh = cs.launch_shape(False, batched=True)
     ptx = _ptxas_kernels(cs.build().ptxas_log).get("batched", "not reported")
     plain_ms = _time_ms(lambda: cs.contact_solve_batched_reference(*args))
-    one_ms = _time_ms(lambda: cs.contact_solve(
-        *(tuple(a[0] for a in args[:6]) + tuple(args[6:]) + (None,))))
+    one_ms = _time_ms(lambda: cs.contact_solve(*_single_args(args, 0)))
     bound_ms, bound_by = _batched_bound_ms(args)
     print(f"[batch] {n_w} worlds after {WARM_STEPS} perturbed steps: "
           f"{live} live lanes; the batched launch, a cluster of "
@@ -1907,6 +1963,368 @@ def _vmapped_batch():
     return {"launches": n_batched, "max_abs_err": err_twin,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
+
+
+def _batch_statics(builder):
+    """(pair classes, joint types, sensor shape ids) of a built world, as
+    api.World.compile takes them."""
+    from box2d_tpu_torch.joints import joint_types_present
+    from box2d_tpu_torch.narrowphase import classes_for_shape_types
+    from box2d_tpu_torch.sensors import sensor_shape_ids
+
+    return (classes_for_shape_types(s["geom"].type for s in builder._shapes),
+            joint_types_present(j["_type"] for j in builder._joints),
+            sensor_shape_ids(builder._shapes))
+
+
+def _rl_batch(n_w, device="cuda"):
+    """joint_farm(1) built on `device` with Capacity.batched (the default
+    repair tier), n_w copies of its spawn state, its batched step and
+    tests/test_rl_demo.py's action schedule (a torso motor speed a world
+    a step, whose sign follows the parity of the world)."""
+    import dataclasses
+
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.state import broadcast_state
+
+    w = scenes.joint_farm(ragdolls=1, device=device)
+    state, cap = w.builder.build(device=device)
+    cap = dataclasses.replace(cap, batched=True)
+    classes, jtypes, sensors = _batch_statics(w.builder)
+    bstep = world.make_batched_step(
+        cap, classes, 4, w.builder.def_.enable_continuous,
+        joint_types=jtypes, sensor_ids=sensors)
+    return state, broadcast_state(state, n_w), bstep
+
+
+def _rl_run(bstep, batch0, steps):
+    """The vmapped RL loop: each step writes every world's torso motor
+    speed (joint 0) into the batched (W, J) joint arrays on the card, then
+    steps the batch."""
+    import dataclasses
+
+    n_w = batch0.bodies.center.shape[0]
+    dev = batch0.bodies.center.device
+    t_idx = torch.arange(steps, device=dev, dtype=torch.float32)[:, None]
+    w_idx = torch.arange(n_w, device=dev, dtype=torch.float32)[None]
+    actions = 2.0 * torch.sin(0.05 * t_idx + w_idx) + torch.where(
+        w_idx % 2 == 0, 1.5, -1.5)
+    lanes = (torch.arange(n_w, device=dev),
+             torch.zeros(n_w, dtype=torch.long, device=dev))
+    b = batch0
+    for k in range(steps):
+        b = dataclasses.replace(b, joints=dataclasses.replace(
+            b.joints, motor_speed=b.joints.motor_speed.index_put(
+                lanes, actions[k])))
+        b = bstep(b, 1 / 60)
+    return b
+
+
+def _vmapped_rl(n_w, steps):
+    """n_w x joint_farm(1) as a batch of worlds, `steps` steps of the RL
+    loop from spawn after one warm run, timed: one joint-region solver
+    launch a work step, the actions reaching the dynamics (the torso
+    angular velocities split by the parity of their world). Returns the
+    step, the batch after the run, the launches and the timing line's
+    numbers."""
+    from box2d_tpu_torch import batch as bt
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch.state import state_to_numpy
+
+    tag = f"{n_w} x joint_farm(1) vmapped RL loop"
+    state, batch0, bstep = _rl_batch(n_w)
+    _rl_run(bstep, batch0, min(steps, WARM_STEPS))      # warm run
+    torch.cuda.synchronize()
+    bstep.stats = bt.BatchStats()
+    cs.BATCHED_LAUNCHES = cs.BATCHED_JOINT_LAUNCHES = 0
+    cs.LAUNCHES = cs.JOINT_LAUNCHES = 0
+    t0 = time.perf_counter()
+    b = _rl_run(bstep, batch0, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = bstep.stats
+    n_joint, n_single = cs.BATCHED_JOINT_LAUNCHES, cs.LAUNCHES
+    work = st.steps - st.idle_steps
+    assert n_joint == cs.BATCHED_LAUNCHES == work == st.solver_launches > 0, (
+        f"{tag}: {n_joint} joint-region launches for {work} work steps")
+    assert n_single == 0, f"{tag}: {n_single} single-world launches"
+    leaves = state_to_numpy(b)
+    for k, v in leaves.items():
+        if v.dtype.kind == "f":
+            assert np.isfinite(v).all(), f"{tag}: non-finite {k}"
+    w_t = leaves["bodies.w"][:, 1]
+    even, odd = w_t[0::2].mean(), w_t[1::2].mean()
+    assert even > odd + 0.1, (
+        f"{tag}: actions did not differentiate worlds: even {even:.3f} "
+        f"vs odd {odd:.3f}")
+    step_ms = wall / steps * 1e3
+    reads0 = st.syncs
+    launches_step, busy_ms = _device_work(lambda: bstep(b, 1 / 60))
+    busy = (f"{busy_ms:.3f} ms of device time, idle "
+            f"{100 * (1 - busy_ms / step_ms):.1f}% of a {step_ms:.3f} ms "
+            f"step" if busy_ms else "device time not measured")
+    n_body = int((state.bodies.type == 2).sum()) * n_w
+    sps = steps / wall
+    print(f"[batch] {tag}: {n_body} dynamic bodies, {steps} steps from "
+          f"spawn in {wall:.3f} s: {sps:.2f} steps/s, {sps * n_body:.1f} "
+          f"body-steps/s; reads/step {st.syncs / st.steps:.2f}; idle steps "
+          f"{st.idle_steps}; solver launches/step {n_joint / work:.2f} (one "
+          f"for all {n_w} worlds, with their joint regions); one more step "
+          f"under the profiler: CUDA launches "
+          f"{launches_step or 'not measured'}, reads {st.syncs - reads0}, "
+          f"{busy}; torso angular velocity even worlds {even:.3f}, odd "
+          f"{odd:.3f}; tail windows of {bstep.tail_w} lanes")
+    return state, bstep, n_joint
+
+
+def _timed_once(fn):
+    """(fn(), its time in ms from CUDA events around the one call, queued
+    behind the device-side wait of median_ms)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_CYCLES)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _joint_batch_row(tag, args, calls, plain_ms=None, loop_ms=None):
+    """The batched joint launch's row figures at `args`: median device ms
+    over `calls` calls, its twin's, W single launches' (one timed block of
+    all W, and W times the median of world 0's), the bound and the
+    clusters the card holds at once. plain_ms / loop_ms: the twin's and
+    the single launches' times where the caller took them already (one
+    call each, with _timed_once)."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    n_w = args[0].shape[0]
+    ms = median_ms(lambda: cs.contact_solve_batched(*args), calls)
+    if plain_ms is None:
+        plain_ms = median_ms(
+            lambda: cs.contact_solve_batched_reference(*args),
+            max(1, calls // 5))
+    singles = [_single_args(args, w) for w in range(n_w)]
+
+    def all_single():
+        for a in singles:
+            cs.contact_solve(*a)
+
+    if loop_ms is None:
+        loop_ms = median_ms(all_single, max(1, calls // 5))
+    one_ms = median_ms(lambda: cs.contact_solve(*singles[0]), calls)
+    bound_ms, bound_by = _batched_bound_ms(args)
+    sh = cs.launch_shape(True, batched=True)
+    jr = args[11]
+    print(f"[batch] {tag}: the batched joint launch (solve_kernel<true, "
+          f"true>, a cluster of {sh['cluster']} CTAs x {sh['threads']} "
+          f"threads a world, {sh['max_active_clusters']} clusters resident "
+          f"at once, {n_w * sh['cluster']} CTAs in all): "
+          f"{int((args[1][:, 0] >= 0).sum())} "
+          f"live contact lanes, {int((jr.idx[:, 0] >= 0).sum())} live joint "
+          f"lanes, worlds whose coloring overflowed "
+          f"{int(jr.overflow.sum())}; median {ms:.4f} ms; the {n_w} single "
+          f"launches {loop_ms:.4f} ms one after another ({n_w} x world 0's "
+          f"{one_ms:.4f} ms = {n_w * one_ms:.4f} ms); twin {plain_ms:.4f} "
+          f"ms; bound {bound_ms:.6f} ms ({bound_by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, single_loop_ms=loop_ms,
+                single_sum_ms=n_w * one_ms,
+                clusters=sh["max_active_clusters"])
+
+
+def _hub_batch_args():
+    """The batched solver's arguments for three hub worlds
+    (port_fixtures.hub_scene: 24 joints of three types on one dynamic
+    hub, whose joint coloring overflows) after two steps, world 1 with all
+    but three of its joints disabled: a world whose coloring overflows
+    beside one that does not, with fewer live joints under one LJ."""
+    import dataclasses
+
+    from box2d_tpu_torch import api, geometry, types, world
+    from box2d_tpu_torch import batch as bt
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    w = hub_scene(api.World, types, geometry, device="cuda")
+    state, cap = w.builder.build(device="cuda")
+    classes, jtypes, sensors = _batch_statics(w.builder)
+    bstep = world.make_batched_step(
+        dataclasses.replace(cap, batched=True), classes, 4, False,
+        joint_types=jtypes, sensor_ids=sensors)
+    leaves = perturbed_leaves(state_to_numpy(state), 3, seed=50,
+                              kick=(2, 1, (0.0, 1.0)))
+    leaves["joints.enabled"][1, 3:] = False
+    b = state_from_numpy(leaves, "cuda")
+    for _ in range(2):
+        b = bstep(b, 1 / 60)
+    args = bt.batched_kernel_args(b, 1 / 60, bstep)
+    flags = args[11].overflow.tolist()
+    assert flags == [1, 0, 1], f"hub batch: overflow flags {flags}"
+    return args
+
+
+def _vmapped_jointed():
+    """Phase 6 (e)-(g): the RL loop as a batch of 64 and of 1,024 worlds,
+    and 64 api_scene worlds with sensors, both hooks and the repair tier.
+    Returns the batched joint launch's two rows (64 and 1,024 worlds)."""
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch.state import state_to_numpy
+
+    # (e) 64 worlds: timed, then the batched launch held to 64 single
+    # launches and itself (bit for bit) and to its twin on the card
+    t0 = time.perf_counter()
+    state, bstep, n_e = _vmapped_rl(RL_WORLDS, RL_STEPS)
+    base = state_to_numpy(state)
+    results = []
+    results.append(_batched_against_single(
+        "with joint regions, 3 x hub (coloring overflow in worlds 0 and 2, "
+        "not in world 1)", _hub_batch_args()))
+    seed = JACOBI_SEEDS[0]
+    args = _perturbed_args(base, RL_WORLDS, seed, bstep, kick_body=1)
+    assert len(args) == 12, "the batched step packed no joint region"
+    results.append(_batched_against_single(
+        f"with joint regions, {RL_WORLDS} x joint_farm(1) seed {seed} "
+        f"after {WARM_STEPS} steps", args))
+    for r in results:
+        assert not r["unequal"], (f"batched joint launch not bit for bit: "
+                                  f"{r['unequal'][:3]}")
+        assert r["out_bt"] == 0, (
+            f"batched joint launch: {r['out_bt']} values outside atol "
+            f"{ATOL} / rtol {RTOL} of the twin")
+    row_e = _joint_batch_row(f"{RL_WORLDS} x joint_farm(1)", args,
+                             TIMED_CALLS)
+    row_e.update(launches=n_e, max_abs_err=max(r["bt"] for r in results))
+    print(f"[batch] (e) done in {time.perf_counter() - t0:.1f} s")
+
+    # (f) 1,024 worlds: timed; the batched launch once against the 1,024
+    # single launches, bit for bit
+    t0 = time.perf_counter()
+    state, bstep, n_f = _vmapped_rl(RL_BIG_WORLDS, RL_BIG_STEPS)
+    args = _perturbed_args(state_to_numpy(state), RL_BIG_WORLDS, 11, bstep,
+                           kick_body=1)
+    ob = cs.contact_solve_batched(*args)
+    singles = [_single_args(args, w) for w in range(RL_BIG_WORLDS)]
+    one, loop_ms = _timed_once(lambda: [cs.contact_solve(*a)
+                                        for a in singles])
+    for i, x in enumerate(ob):
+        assert torch.equal(x, torch.stack([o[i] for o in one])), (
+            f"{RL_BIG_WORLDS} worlds: the batched joint launch differs from "
+            f"the single launches (output {i})")
+    twin, plain_ms = _timed_once(
+        lambda: cs.contact_solve_batched_reference(*args))
+    err_f = max(float((a - b).abs().max()) for a, b in zip(ob, twin))
+    print(f"[batch] {RL_BIG_WORLDS} x joint_farm(1) after {WARM_STEPS} "
+          f"perturbed steps: the batched joint launch equals the "
+          f"{RL_BIG_WORLDS} single launches bit for bit; max |d| from its "
+          f"twin {err_f:.3e}")
+    row_f = _joint_batch_row(f"{RL_BIG_WORLDS} x joint_farm(1)", args, 5,
+                             plain_ms=plain_ms, loop_ms=loop_ms)
+    row_f.update(launches=n_f, max_abs_err=err_f)
+    print(f"[batch] (f) done in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    _vmapped_api_scene()
+    print(f"[batch] (g) done in {time.perf_counter() - t0:.1f} s")
+    return row_e, row_f
+
+
+def _vmapped_api_scene():
+    """(g) 64 perturbed api_scene worlds (world 1 kicked, world 2 asleep)
+    with every event kind, the default repair tier, Capacity.batched, the
+    custom filter and pre_solve hooks of tests/test_torch_api.py and no
+    continuous pass, API_STEPS steps; worlds API_LOCKSTEP (the kicked
+    and the asleep world among them) held to the single-world step in
+    lockstep at every step, and every world at the last step (each single
+    step starts from the batch's world): floats within 1e-5, discrete
+    leaves (events, pairs, tiers, colors) equal."""
+    import dataclasses
+
+    from box2d_tpu_torch import api, geometry, types, world
+    from box2d_tpu_torch.state import (state_from_numpy, state_to_numpy,
+                                       unstack_state)
+
+    def keep_pair(state, a, b):
+        return (a + b) % 3 != 0
+
+    def one_way(state, a, b, manifold):
+        return (manifold.normal[:, 1] < 0.9) | (a % 2 == 0)
+
+    tag = f"{API_WORLDS} x api_scene vmapped"
+    w = with_all_events(api_scene(api.World, types, geometry,
+                                  device="cuda"), API_THRESHOLD)
+    cap = dataclasses.replace(w.builder.default_capacity(), max_verts=8,
+                              batched=True)
+    state, cap = w.builder.build(cap, device="cuda")
+    assert cap.bp_repair_cap > 0
+    classes, jtypes, sensors = _batch_statics(w.builder)
+    kw = dict(joint_types=jtypes, sensor_ids=sensors,
+              custom_filter=keep_pair, pre_solve=one_way)
+    bstep = world.make_batched_step(cap, classes, 4, False, **kw)
+    single = world.make_step(cap, classes, 4, False, **kw)
+    assert single.tail_w == bstep.tail_w
+    b = state_from_numpy(perturbed_leaves(
+        state_to_numpy(state), API_WORLDS, seed=21, kick=API_KICK,
+        asleep=(API_ASLEEP,)), "cuda")
+    worst = 0.0
+    kinds = np.zeros((API_STEPS, API_WORLDS), np.int64)
+    dropped = 0
+    n_events = dict(contact=0, hit=0, sensor=0, joint=0)
+    t_batch = 0.0
+    for k in range(API_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt = bstep(b, 1 / 60)
+        torch.cuda.synchronize()
+        t_batch += time.perf_counter() - t0
+        got_all = state_to_numpy(nxt)
+        held = range(API_WORLDS) if k == API_STEPS - 1 else API_LOCKSTEP
+        for wi in held:
+            want = state_to_numpy(single(unstack_state(b, wi), 1 / 60))
+            for key, bb in want.items():
+                a = got_all[key][wi]
+                if a.dtype.kind == "f":
+                    d = float(np.abs(a - bb).max()) if a.size else 0.0
+                    worst = max(worst, d)
+                    assert d <= 1e-5, f"{tag} step {k + 1} world {wi} {key}"
+                else:
+                    assert np.array_equal(a, bb), (
+                        f"{tag} step {k + 1} world {wi} {key}")
+        kinds[k] = got_all["profile.pair_rebuild"]
+        # the filter's drops: a rebuild's candidates that are not valid
+        full = kinds[k] == 2
+        dropped += int((got_all["profile.pair_count"]
+                        - got_all["broadphase.valid"].sum(axis=1))[full].sum())
+        sa, sb = got_all["broadphase.shape_a"], got_all["broadphase.shape_b"]
+        dropped_ok = (got_all["broadphase.valid"] & ((sa + sb) % 3 == 0))
+        assert not dropped_ok.any(), (
+            f"{tag}: a pair the custom filter drops at local ids is valid")
+        for name, key in (("contact", "contact_begin_count"),
+                          ("hit", "hit_count"),
+                          ("sensor", "sensor_begin_count"),
+                          ("joint", "joint_force_count")):
+            n_events[name] += int(got_all[f"events.{key}"].sum())
+        b = nxt
+    assert (kinds == 1).any(), f"{tag}: no world took the repair tier"
+    assert dropped > 0, f"{tag}: the custom filter dropped no pair"
+    assert all(n > 0 for n in n_events.values()), f"{tag}: {n_events}"
+    st = bstep.stats
+    leaves = state_to_numpy(b)
+    for key in ("overflow_pairs", "events_dropped"):
+        assert int(leaves[f"profile.{key}"].max()) == 0, f"{tag}: {key}"
+    sps = API_STEPS / t_batch
+    print(f"[batch] {tag} (every joint type, a sensor box, a filtered box, "
+          f"an open chain; hooks, repair tier, every event kind on): "
+          f"{API_STEPS} steps, the batched step alone {t_batch:.3f} s "
+          f"({sps:.2f} steps/s); reads/step {st.syncs / st.steps:.2f}; "
+          f"solver launches {st.solver_launches}; steps where some world "
+          f"repaired {int((kinds == 1).any(axis=1).sum())}, kept "
+          f"{int((kinds == 0).any(axis=1).sum())}, rebuilt "
+          f"{int((kinds == 2).any(axis=1).sum())}; pairs the filter dropped "
+          f"in rebuilds {dropped}; events in all worlds {n_events}; worlds "
+          f"{API_LOCKSTEP} at every step and all {API_WORLDS} at the last "
+          f"against the single-world step in lockstep: max "
+          f"|d| {worst:.3e} (bound 1e-5), discrete leaves and events equal")
 
 
 def _flat_batches():
@@ -1969,17 +2387,18 @@ def _rl_loop():
     motor_lanes = torch.arange(RL_WORLDS, device=dev) * n_joints
     world_of_body = torch.arange(w.state.bodies.center.shape[0],
                                  device=dev) // n_bodies
-    t_idx = torch.arange(RL_STEPS, device=dev, dtype=torch.float32)[:, None]
+    t_idx = torch.arange(FLAT_RL_STEPS, device=dev,
+                         dtype=torch.float32)[:, None]
     w_idx = torch.arange(RL_WORLDS, device=dev, dtype=torch.float32)[None]
     actions = 2.0 * torch.sin(0.05 * t_idx + w_idx) + torch.where(
         w_idx % 2 == 0, 1.5, -1.5)
-    rewards = torch.zeros((RL_STEPS, RL_WORLDS), device=dev)
+    rewards = torch.zeros((FLAT_RL_STEPS, RL_WORLDS), device=dev)
     w.reset_stats()
     cs.LAUNCHES = 0
     cs.JOINT_LAUNCHES = 0
     import dataclasses
     t0 = time.perf_counter()
-    for k in range(RL_STEPS):
+    for k in range(FLAT_RL_STEPS):
         s = w.state
         w.state = dataclasses.replace(s, joints=dataclasses.replace(
             s.joints, motor_speed=s.joints.motor_speed.index_put(
@@ -2007,8 +2426,9 @@ def _rl_loop():
         f"vs odd {odd.mean():.3f}")
     work = st.steps - st.idle_steps
     assert cs.JOINT_LAUNCHES == work > 0, f"RL: {cs.JOINT_LAUNCHES} K2j"
-    print(f"[batch] RL loop, {RL_WORLDS} x joint_farm(1) flat, {RL_STEPS} "
-          f"steps in {wall:.3f} s: {RL_STEPS / wall:.2f} steps/s; reads/step "
+    print(f"[batch] RL loop, {RL_WORLDS} x joint_farm(1) flat, "
+          f"{FLAT_RL_STEPS} steps in {wall:.3f} s: "
+          f"{FLAT_RL_STEPS / wall:.2f} steps/s; reads/step "
           f"{st.syncs / st.steps:.2f}; joint-sweep (K2j) launches "
           f"{cs.JOINT_LAUNCHES}; torso angular velocity even worlds "
           f"{even.mean():.3f}, odd {odd.mean():.3f}; reward sum "
@@ -2445,7 +2865,7 @@ def main():
     print(f"[main] kernel launches on the queries and host-API paths: "
           f"{api_launches}")
     t6 = time.perf_counter()
-    batched, batch_launches = phase_batching()
+    batched, (jbatch, jbatch_big), batch_launches = phase_batching()
     print(f"[main] kernel launches on the batching paths: {batch_launches}; "
           f"phase 6 in {time.perf_counter() - t6:.1f} s")
     group_launches = phase_particle_groups()
@@ -2541,7 +2961,23 @@ def main():
         "bound_ms": batched["bound_ms"],
         "bound_by": batched["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + [{
+        # the jointed kernel under jax.vmap: one launch for W worlds with
+        # their joint regions, at 64 (e) and 1,024 (f) worlds of the RL
+        # loop; bound from the bytes and operations of all its worlds
+        "name": f"contact_solve_joints_batched_{n_w}",
+        "route": "cuda",
+        "source": "box2d_tpu_torch/csrc/joint_sweep.cuh",
+        "replaces": "box2d_tpu/solver_pallas.py:681 (_joint_sweep, traced "
+                    "into :1815, under jax.vmap)",
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"],
+        "library_ms": None,
+    } for n_w, r in ((RL_WORLDS, jbatch), (RL_BIG_WORLDS, jbatch_big))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

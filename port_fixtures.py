@@ -476,6 +476,21 @@ def api_scene(World, t, g, rows=8, **kw):
     return w
 
 
+def with_all_events(w, threshold=0.5):
+    """World `w`, before its build, with contact, hit and sensor events on
+    every shape and every joint's force and torque thresholds at
+    `threshold`, so that every event kind fires (the shape flags ride in
+    the packed shape table, so they are set before the build). Works on
+    either package's World; returns it."""
+    for s in w.builder._shapes:
+        for key in ("enable_contact_events", "enable_hit_events",
+                    "enable_sensor_events"):
+            s[key] = True
+    for j in w.builder._joints:
+        j["force_threshold"] = j["torque_threshold"] = threshold
+    return w
+
+
 def obstacle_tank(particles, World, t, g, **kw):
     """dam_break's tank and water column (box2d_tpu_torch/scenes.py
     dam_break) with a static circle and a static capsule in the column's

@@ -53,26 +53,27 @@ def test_sensor_pass_matches_jax():
         post = tw.state
         given = dataclasses.replace(post, sensor_overlap=pre.sensor_overlap)
         b = pre.bodies
-        out = sensor_pass(given, tw.capacity, sensors, b.origin, b.rot,
-                          StepStats())
+        sens, store = sensor_pass(given, tw.capacity, sensors, b.origin,
+                                  b.rot, 1, StepStats())
+        sens = {k: v[0] for k, v in sens.items()}   # the one world
         ref = fn(to_jax_state(template, state_to_numpy(given)),
                  jnp.asarray(b.origin.numpy()), jnp.asarray(b.rot.numpy()))
         for f in FIELDS:
             a = np.asarray(getattr(ref.events, f))
             np.testing.assert_array_equal(
-                getattr(out.events, f).numpy(), a, err_msg=f"{f} step {i}")
+                sens[f].numpy(), a, err_msg=f"{f} step {i}")
             np.testing.assert_array_equal(
                 getattr(post.events, f).numpy(), a, err_msg=f"{f} step {i}")
-        np.testing.assert_array_equal(out.sensor_overlap.numpy(),
+        np.testing.assert_array_equal(store[0].numpy(),
                                       np.asarray(ref.sensor_overlap))
         np.testing.assert_array_equal(post.sensor_overlap.numpy(),
                                       np.asarray(ref.sensor_overlap))
-        begins += int(out.events.sensor_begin_count)
-        ends += int(out.events.sensor_end_count)
+        begins += int(sens["sensor_begin_count"])
+        ends += int(sens["sensor_end_count"])
         # the thrown circle crosses the sensor within one step: only the
         # swept test sees it
-        if int(out.events.sensor_begin_count):
-            swept += bool((out.events.sensor_begin[:, 1] == 8).any())
+        if int(sens["sensor_begin_count"]):
+            swept += bool((sens["sensor_begin"][:, 1] == 8).any())
     # each of the seven falling shapes that report sensor events enters
     # and leaves once; the circle that does not report never shows
     assert begins == 7 and ends == 7
