@@ -37,7 +37,17 @@ and pre-solve hooks see one world at a time, as under jax.vmap: each is
 mapped over the world axis with torch.func.vmap, on a view of the batch
 with a leading world axis and local ids (`_on_worlds`).
 
-Refused (NotImplementedError, naming its ROADMAP.md item): particles.
+Particle worlds take the particle gate of the JAX step under vmap
+(box2d_tpu/world.py:101-135, its lax.cond a select): the particles of
+every world step first, in one particles.particle_step over the worlds
+laid flat (`_flatten_particles`: world w's particle lanes [w * n, ...),
+its pair, triad and group ids offset; K3 batched, one launch a phase for
+every world); each world's bodies take their particle impulses; then the
+rigid work runs, when any world is live, for every world, and a world
+that is not live takes the skip branch's output (zero events, its
+particle overflow in the profile, step_count + 1, the stepped particles).
+One device read decides it. The rank repair K4 is never taken: the JAX
+package keeps it off under vmap.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from .continuous import _continuous_impl, gate_batched
 from .joints import (layout_joint_rows_batched, prepare_joints,
                      solvable_joint_types, unpack_joint_acc)
 from .narrowphase import narrow_phase, update_cache
+from .particles import particle_step
 from .sensors import sensor_pass
 from .sleep import wake_and_sleep_batched
 from .solver import (BodySolverState, finalize_bodies, pack_bodies,
@@ -69,6 +80,9 @@ from .world import (Hooks, StepStats, _contact_hit_events, _f32_scalars,
 # per-world fields of Bodies (0-d in a single world)
 _BODY_SCALARS = ("island_dirty", "island_split_pending")
 _BP_LANES = ("fat", "alive", "shape_a", "shape_b", "valid")
+# the Particles fields that hold particle lanes (pairs and triads); the
+# particle step writes none of them, nor `group`
+_PARTICLE_IDS = ("pair_a", "pair_b", "triad_a", "triad_b", "triad_c")
 
 
 class BatchStats(StepStats):
@@ -84,12 +98,6 @@ class BatchStats(StepStats):
         self.ccd_world_calls = 0
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"make_batched_step: {what} in a batched world ({item}); step them "
-        f"as a flat batch (scenes.replicate)")
-
-
 class BatchedStep:
     """The step of a batch of worlds of one static configuration: call it
     on a batched WorldState; world w of the result is what world.Step
@@ -97,19 +105,22 @@ class BatchedStep:
     vmapped JAX step: a contact-only world's are chunk-wide where the
     mode-1 kernel takes it, else one window (the XLA path); a jointed
     world's are those of the single-world Step (kernel_mode and
-    tail_window of its joint types, the JAX World's path for it)."""
+    tail_window of its joint types, the JAX World's path for it). With a
+    particle_cfg, worlds with particles take the particle gate (module
+    docstring); its rank_repair is ignored."""
 
     def __init__(self, capacity: Capacity, classes_present: frozenset,
                  substeps: int = 4, continuous: bool = True,
                  joint_types: frozenset = frozenset(),
                  sensor_ids: tuple = (), custom_filter=None,
-                 pre_solve=None):
+                 pre_solve=None, particle_cfg=None):
         self.capacity = capacity
         self.classes = classes_present
         self.substeps = substeps
         self.continuous = continuous
         self.joint_types = frozenset(joint_types)
         self.sensor_ids = tuple(sensor_ids)
+        self.particle_cfg = particle_cfg
         self.stats = BatchStats()
         if solvable_joint_types(self.joint_types):
             mode = kernel_mode(capacity, self.joint_types)
@@ -129,12 +140,12 @@ def make_batched_step(capacity: Capacity, classes_present: frozenset,
                       custom_filter=None, pre_solve=None) -> BatchedStep:
     """The batched counterpart of world.make_step (jax.vmap of the JAX
     step), with the same arguments; custom_filter and pre_solve see one
-    world and its local shape ids at a time (world.Hooks). Particles are
-    refused."""
-    if particle_cfg is not None:
-        _refuse("particles", "ROADMAP.md queue 12b (vmapped particle worlds)")
+    world and its local shape ids at a time (world.Hooks). With a
+    particle_cfg, particle worlds step their particles first (the
+    particle gate); its rank_repair is ignored, as under jax.vmap."""
     return BatchedStep(capacity, classes_present, substeps, continuous,
-                       joint_types, sensor_ids, custom_filter, pre_solve)
+                       joint_types, sensor_ids, custom_filter, pre_solve,
+                       particle_cfg)
 
 
 def _on_worlds(hook, name: str, view: WorldState, *args):
@@ -225,6 +236,32 @@ def _flatten(batch: WorldState) -> WorldState:
                                broadphase=bpf)
 
 
+def _flatten_particles(pt):
+    """A batch's Particles (every field with a leading world axis) laid
+    flat, world-major: world w's particle lanes [w * n, (w + 1) * n), its
+    pair, triad and group ids offset to them; ParticleParams keep their
+    world axis, one value a world (particles.particle_step, n_worlds)."""
+    n = pt.pos.shape[1]
+    ng = pt.group_flags.shape[1]
+    kw = {f.name: _flat(getattr(pt, f.name))
+          for f in dataclasses.fields(pt) if f.name != "params"}
+    for k in _PARTICLE_IDS:
+        kw[k] = _flat(_shift(getattr(pt, k), n))
+    kw["group"] = _flat(_shift(pt.group, ng))
+    return dataclasses.replace(pt, **kw)
+
+
+def _unflatten_particles(flat, batch_pt):
+    """The particle step's flat output back on the world axis: the ids and
+    parameters (which the step does not write) are the batch's own."""
+    n_w = batch_pt.pos.shape[0]
+    keep = set(_PARTICLE_IDS) | {"group", "params"}
+    return dataclasses.replace(flat, **{
+        f.name: (getattr(batch_pt, f.name) if f.name in keep
+                 else _unflat(getattr(flat, f.name), n_w))
+        for f in dataclasses.fields(flat)})
+
+
 def _unflat(x, n_w):
     return x.reshape((n_w, -1) + tuple(x.shape[1:]))
 
@@ -300,8 +337,9 @@ def _tuning_per_lane(tuning, reps: int):
 
 def _batched_step(batch: WorldState, dt, step: BatchedStep,
                   stats: BatchStats) -> WorldState:
-    if batch.particles is not None:
-        _refuse("particles", "ROADMAP.md queue 12b (vmapped particle worlds)")
+    if (step.particle_cfg is not None and batch.particles is not None
+            and batch.broadphase is not None):
+        return _particle_gate(batch, dt, step, stats)
     n_w = batch.bodies.center.shape[0]
     b0 = batch.bodies
     cap = step.capacity
@@ -325,16 +363,69 @@ def _batched_step(batch: WorldState, dt, step: BatchedStep,
     return out
 
 
-def _idle_output(batch: WorldState, cap: Capacity) -> WorldState:
+def _particle_gate(batch: WorldState, dt, step: BatchedStep,
+                   stats: BatchStats) -> WorldState:
+    """world._particle_gate of every world (box2d_tpu/world.py:101-135
+    under jax.vmap): the particles of all worlds step first; each world's
+    bodies take their impulses (poked bodies wake); the rigid work runs
+    for every world when any world is live (one read), and a world that is
+    not takes the skip branch's output. There is no whole-batch idle gate:
+    particles always step."""
+    n_w, nb = batch.bodies.center.shape[:2]
+    cap = step.capacity
+    flat = _flatten(batch)
+    new_pt, body_dv, body_dw, pov = particle_step(
+        _flatten_particles(batch.particles), flat, dt, step.particle_cfg,
+        stats, n_worlds=n_w)
+    particles = _unflatten_particles(new_pt, batch.particles)
+    # particle impulses wake the bodies they touch
+    # (ref: particle/World.cs:47-61 ApplyLinearImpulse -> WakeBody)
+    poked = ((m.dot(body_dv, body_dv) + body_dw * body_dw) > 1e-12).reshape(
+        n_w, nb)
+    b0 = batch.bodies
+    b1 = dataclasses.replace(
+        b0, v=b0.v + body_dv.reshape(n_w, nb, 2),
+        w=b0.w + body_dw.reshape(n_w, nb),
+        awake=b0.awake | (poked & (b0.type == DYNAMIC)),
+        sleep_time=torch.where(poked, 0.0, b0.sleep_time))
+    batch = dataclasses.replace(batch, bodies=b1, particles=particles)
+    live = batch.broadphase.dirty | (
+        b1.awake & (b1.type != 0) & b1.enabled).any(dim=1)
+    (n_live,) = stats.read(live.sum())
+    stats.steps += 1
+    stats.worlds = n_w
+    skip = _idle_output(batch, cap, pov)
+    if n_live == 0:
+        stats.idle_steps += 1
+        return skip
+    flat = dataclasses.replace(flat, particles=particles, bodies=dataclasses
+                               .replace(flat.bodies, **{
+                                   k: _flat(getattr(b1, k)) for k in
+                                   ("v", "w", "awake", "sleep_time")}))
+    out = _unflatten(_batched_work(flat, dt, step, stats, batch,
+                                   particle_overflow=pov), batch)
+    if n_live < n_w:
+        keep = lambda i, o: o if o is i else torch.where(  # noqa: E731
+            live.reshape((n_w,) + (1,) * (o.dim() - 1)), o, i)
+        out = map_state(keep, skip, out)
+    return out
+
+
+def _idle_output(batch: WorldState, cap: Capacity,
+                 particle_overflow=None) -> WorldState:
     """What the idle branch leaves (box2d_tpu/world.py:137-159): zeroed
-    events and profile, step_count + 1, the rest as it was."""
+    events and profile, step_count + 1, the rest as it was; with the
+    worlds' particle_overflow (W,), the particle gate's skip branch
+    (:123-127), which keeps it in the profile."""
     n_w, nb = batch.bodies.center.shape[:2]
     dev = batch.bodies.center.device
+    profile = map_state(lambda x: x.expand(n_w).clone(), zero_profile(dev))
+    if particle_overflow is not None:
+        profile = dataclasses.replace(profile,
+                                      overflow_particles=particle_overflow)
     return dataclasses.replace(
         batch, events=_zero_events_batched(cap, dev, n_w, nb),
-        profile=map_state(lambda x: x.expand(n_w).clone(),
-                          zero_profile(dev)),
-        step_count=batch.step_count + 1)
+        profile=profile, step_count=batch.step_count + 1)
 
 
 def batched_kernel_args(batch: WorldState, dt, step: BatchedStep):
@@ -348,10 +439,11 @@ def batched_kernel_args(batch: WorldState, dt, step: BatchedStep):
 
 def _batched_work(state: WorldState, dt, step: BatchedStep,
                   stats: BatchStats, batch: WorldState,
-                  until: str = "") -> WorldState:
+                  until: str = "", particle_overflow=None) -> WorldState:
     """world._step_work of every world, on the flat state; `batch` is the
     step's input (the hooks' view of the worlds); until="layout" returns
-    the solver's arguments instead."""
+    the solver's arguments instead. particle_overflow: the worlds'
+    particle overflow (W,), kept in the profile."""
     cap, substeps, hooks = step.capacity, step.substeps, step.hooks
     n_w = batch.bodies.center.shape[0]
     dt, inv_dt, h, inv_h = _f32_scalars(dt, substeps)
@@ -561,7 +653,8 @@ def _batched_work(state: WorldState, dt, step: BatchedStep,
         overflow_colors=overflow_colors,
         store_drops=store_drops,
         overflow_ccd=overflow_ccd,
-        overflow_particles=zero_w,
+        overflow_particles=(zero_w if particle_overflow is None
+                            else particle_overflow),
         events_dropped=ev_drop,
         pair_rebuild=rebuild_kind,
     )

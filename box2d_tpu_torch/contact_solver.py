@@ -58,7 +58,7 @@ import os
 
 import torch
 
-from .cuda_build import HERE, nvcc_build
+from .cuda_build import HERE, nvcc_build, twin
 from .joints import (NAJ, NFJ, JointRows, joint_window, joint_window_inputs,
                      solvable_joint_types)
 from .state import Capacity, auto_chunk
@@ -482,6 +482,7 @@ def window_table(idx, chunk: int, l0: int, n_colors: int, tail_w: int,
 # plain PyTorch twin
 # ---------------------------------------------------------------------------
 
+@twin
 def contact_solve_reference(scalars, idx, data, acc, body, params,
                             nsub: int, chunk: int, l0: int, n_colors: int,
                             tail_w: int, joints: JointRows | None = None):
@@ -762,6 +763,7 @@ def _batched_windows(idx, chunk: int, l0: int, n_colors: int, tail_w: int,
             for k in sorted(keyed)]
 
 
+@twin
 def contact_solve_batched_reference(scalars, idx, data, acc, body, params,
                                     nsub: int, chunk: int, l0: int,
                                     n_colors: int, tail_w: int,

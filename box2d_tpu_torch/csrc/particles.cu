@@ -59,6 +59,19 @@
 // with the same operations, built with -fmad=false, so the kernel equals
 // window_pass_reference bit for bit on either path.
 //
+// K3 batched (b2t_particle_window_batched): the same kernel as jax.vmap of
+// the particle step traces `window_pass` (box2d_tpu/particles.py:855-877:
+// a batch axis on the grid, one scalar row a world). W worlds' tables lie
+// world-major, (W, n) each, with one scalar row a world (each world its
+// own damping, density and so its own terms); the grid is (ceil(n / 256),
+// W) and a block takes its world from blockIdx.y and offsets every table,
+// its scalar row and its output by it. Its searches and stage then stay
+// inside that world's table: no block spans two worlds and no particle
+// sees another world's neighbour. A world's blocks do exactly what a
+// single launch on that world's table does, so world w of the batched
+// launch equals the single launch on world w bit for bit. What bounds it
+// is what bounds one launch, W times over, in one launch's fixed cost.
+//
 // ---------------------------------------------------------------------------
 // K4, rank_kernel: replaces box2d_tpu/particles_pallas.py:356 `rank_pass`
 // (its body `_rank_kernel`, :276-320). Particles move at most one cell per
@@ -262,6 +275,16 @@ __global__ void __launch_bounds__(kBlock) window_kernel(
                               // upper key of the block's lanes
   __shared__ int seg[3][3];   // per d: the union [lo, hi) and its offset
                               // in the stage
+  // this block's world (0 in a single launch): its table, its scalar row
+  // and its output rows
+  const size_t world = static_cast<size_t>(blockIdx.y) * n;
+  pos += 2 * world;
+  skey += world;
+  alive += world;
+  p0 += world;
+  p1 += world;
+  out += 2 * world;
+  scalars += 8 * blockIdx.y;
   const int tid = threadIdx.x;
   const int wl = tid & 31;
   const int warp = tid >> 5;
@@ -480,17 +503,15 @@ __global__ void __launch_bounds__(kBlock) rank_kernel(
 
 }  // namespace
 
-// pos (n, 2) f32, skey (n) i32 ascending, alive (n) bool, p0 / p1 (n) f32,
-// scalars (8) f32, out (n, 2) f32. phase: 0 weight, 1 pressure, 2 damping.
-// paths: null, or (2) i32 to which the blocks that walked staged
-// candidates (paths[0]) and global ones (paths[1]) are added.
-extern "C" int b2t_particle_window(const float* pos, const int* skey,
-                                   const bool* alive, const float* p0,
-                                   const float* p1, const float* scalars,
-                                   float* out, int* paths, int n, int phase,
-                                   void* stream) {
-  if (n <= 0) return 0;
-  const dim3 grid((n + kBlock - 1) / kBlock);
+namespace {
+
+int launch_window(const float* pos, const int* skey, const bool* alive,
+                  const float* p0, const float* p1, const float* scalars,
+                  float* out, int* paths, int n, int n_worlds, int phase,
+                  void* stream) {
+  if (n <= 0 || n_worlds <= 0) return 0;
+  if (n_worlds > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kBlock - 1) / kBlock, n_worlds);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (phase) {
     case PH_WEIGHT:
@@ -509,6 +530,32 @@ extern "C" int b2t_particle_window(const float* pos, const int* skey,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// pos (n, 2) f32, skey (n) i32 ascending, alive (n) bool, p0 / p1 (n) f32,
+// scalars (8) f32, out (n, 2) f32. phase: 0 weight, 1 pressure, 2 damping.
+// paths: null, or (2) i32 to which the blocks that walked staged
+// candidates (paths[0]) and global ones (paths[1]) are added.
+extern "C" int b2t_particle_window(const float* pos, const int* skey,
+                                   const bool* alive, const float* p0,
+                                   const float* p1, const float* scalars,
+                                   float* out, int* paths, int n, int phase,
+                                   void* stream) {
+  return launch_window(pos, skey, alive, p0, p1, scalars, out, paths, n, 1,
+                       phase, stream);
+}
+
+// The same for n_worlds tables in one launch: pos (W, n, 2), skey, alive,
+// p0, p1 (W, n), scalars (W, 8) one row a world, out (W, n, 2); paths
+// counts the blocks of all worlds. n_worlds <= 65535 (the grid's y).
+extern "C" int b2t_particle_window_batched(
+    const float* pos, const int* skey, const bool* alive, const float* p0,
+    const float* p1, const float* scalars, float* out, int* paths, int n,
+    int n_worlds, int phase, void* stream) {
+  return launch_window(pos, skey, alive, p0, p1, scalars, out, paths, n,
+                       n_worlds, phase, stream);
 }
 
 // newkey (n) i32, offs (n_blocks) i32 with n_blocks = ceil(n / 256),

@@ -1,4 +1,5 @@
-"""Builds a csrc/ source into a shared library with a plain C interface.
+"""Builds a csrc/ source into a shared library with a plain C interface,
+and runs a kernel's plain PyTorch twin.
 
 Each kernel module of the port compiles its source with nvcc for sm_90a
 into the git-ignored _build/ directory at its first CUDA use and loads it
@@ -8,9 +9,12 @@ with ctypes. Nothing here runs when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import subprocess
 import time
+
+import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(HERE, "_build")
@@ -44,3 +48,22 @@ def nvcc_build(source: str, name: str,
     seconds = time.perf_counter() - t0
     os.replace(tmp, out)
     return ctypes.CDLL(out), proc.stderr, seconds
+
+
+def twin(fn):
+    """A kernel's plain PyTorch twin, run under torch.inference_mode: a twin
+    is thousands of small operations on tensors that need no gradient,
+    and inference mode dispatches them without autograd's bookkeeping
+    (the same kernels, so the same results). Its outputs (a tensor or a
+    tuple of them) are returned as ordinary tensors, which the caller may
+    update in place."""
+
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        with torch.inference_mode():
+            out = fn(*args, **kw)
+        if isinstance(out, tuple):
+            return tuple(x.clone() for x in out)
+        return out.clone()
+
+    return run

@@ -34,6 +34,15 @@ shape. The culled rows reach the impulse sums as arguments, never through
 a name a later pass rebinds (the reference's rigid pass rebinds them,
 :1267).
 
+Batched worlds (`particle_step(..., n_worlds=W)`, batch.py; the
+counterpart of jax.vmap of the JAX step): W worlds laid flat, world-major,
+one parameter set a world. Each world sorts its own cells (a stable sort
+of (world, cell) keys), couples with its own nearby shapes and, when
+culled, its own blocks, and sums its own neighbours: K3 batched (one
+launch a phase for every world) or the windowed pipeline with every shift
+and search kept inside a world. World w of the result equals the
+single-world step on world w, bit for bit on the CPU.
+
 PyTorch runs eagerly: the `lax.scan` over sub-iterations is a Python loop,
 the rank repair's `lax.cond` is a host branch on one device read a
 sub-iteration, the depth pass's `lax.cond` one read a sub-iteration of a
@@ -366,6 +375,92 @@ class ParticleSystemBuilder:
 
 
 # ---------------------------------------------------------------------------
+# worlds
+# ---------------------------------------------------------------------------
+
+class _Worlds:
+    """How the flat lanes of a particle step split into worlds: `w`
+    worlds of `n` particle lanes each, world-major (batch.py lays a batch
+    out so: world k's particles are lanes [k * n, (k + 1) * n), its
+    nearby shapes rows [k * sb, (k + 1) * sb), its pairs, triads and
+    groups likewise). With one world each method is what the single-world
+    step did before there were worlds, and launches nothing more."""
+
+    def __init__(self, w: int, n: int):
+        self.w, self.n = w, n
+        self._rows = {}
+
+    def view(self, x):
+        """x (w * k, ...) as (w, k, ...)."""
+        if self.w == 1:
+            return x
+        return x.reshape((self.w, -1) + tuple(x.shape[1:]))
+
+    def flat(self, x):
+        """x (w, k, ...) as (w * k, ...)."""
+        if self.w == 1:
+            return x
+        return x.reshape((-1,) + tuple(x.shape[2:]))
+
+    def rows(self, x, k: int):
+        """A value of each world (0-d in one world, (w, ...) in w) at each
+        of its k lanes: (w * k, ...); made once a step for each x."""
+        if self.w == 1:
+            return x
+        key = (id(x), k)
+        if key not in self._rows:
+            self._rows[key] = (x, x.repeat_interleave(k, dim=0))
+        return self._rows[key][1]
+
+    def sum(self, x):
+        """x (w * k,) summed in each world: (w,); one world: 0-d."""
+        if self.w == 1:
+            return x.sum()
+        return x.view(self.w, -1).sum(dim=1)
+
+    def at_lanes(self, x):
+        """Each world's shape rows x (w * sb, ...) at each of its particle
+        lanes, to broadcast against (w * n, sb, ...)."""
+        if self.w == 1:
+            return x[None]
+        v = self.view(x)
+        return v[:, None].expand((self.w, self.n) + tuple(v.shape[1:])
+                                 ).reshape((self.w * self.n,)
+                                           + tuple(v.shape[1:]))
+
+    def shape_sum(self, x, tree: bool = False):
+        """(w * n, sb, ...) per (particle, shape) values summed over each
+        world's particles: (w * sb, ...); by _tree_sum where `tree`."""
+        if self.w == 1:
+            return _tree_sum(x.transpose(0, 1)) if tree else x.sum(dim=0)
+        v = x.view((self.w, self.n) + tuple(x.shape[1:]))
+        out = _tree_sum(v) if tree else v.sum(dim=1)
+        return out.reshape((-1,) + tuple(x.shape[2:]))
+
+    def search(self, seq, q, right: bool = False):
+        """torch.searchsorted of each lane's q in its own world's sorted
+        seq: indices local to the world."""
+        if self.w == 1:
+            return torch.searchsorted(seq, q, right=right)
+        return torch.searchsorted(self.view(seq), self.view(q),
+                                  right=right).reshape(-1)
+
+    def map(self, fn, *args):
+        """fn over each world's rows of args (torch.vmap over the world
+        axis), its outputs flat again."""
+        if self.w == 1:
+            return fn(*args)
+        out = torch.vmap(fn)(*(self.view(a) for a in args))
+        return tuple(self.flat(o) for o in out)
+
+
+def _lanes(x, ndim: int):
+    """x, one value a lane ((N,), or 0-d for all lanes), shaped to
+    broadcast against (N, ...) of ndim dims."""
+    return x if x.dim() == 0 else x.reshape(x.shape + (1,) * (ndim - 1))
+
+
+# ---------------------------------------------------------------------------
 # geometry helpers
 # ---------------------------------------------------------------------------
 
@@ -532,17 +627,21 @@ def _ray_polygon_batched(pos, delta, s_origin, s_rot, verts, normals,
 
 
 def _tunnel_polygons(pos, vel, dt, inv_dt, alive, bs_valid, s_origin,
-                     s_rot, s_verts, s_normals, s_count, cull=None):
+                     s_rot, s_verts, s_normals, s_count, cull=None,
+                     worlds=None):
     """The anti-tunnel ray of a world whose shapes are all polygons: the
     slab ray against the nearby shapes (box2d_tpu/particles.py:1657-1695),
     or, under per-block culling (`cull`, a BlockShapes), against each
     block's own shapes (:1660-1679); the velocity clamped at the first
-    nearest hit."""
+    nearest hit. worlds: the _Worlds of a batch (each world's particles
+    against its own shapes)."""
+    W = worlds or _Worlds(1, pos.shape[0])
     step_v = dt * vel
     if cull is None:
-        hit, frac, wnx, wny = _ray_polygon_batched(
-            pos, step_v, s_origin, s_rot, s_verts, s_normals, s_count)
-        hit = hit & bs_valid[None, :] & alive[:, None]
+        hit, frac, wnx, wny = W.map(
+            _ray_polygon_batched, pos, step_v, s_origin, s_rot, s_verts,
+            s_normals, s_count)
+        hit = hit & W.at_lanes(bs_valid) & alive[:, None]
     else:
         dvp = cull.pad(step_v, 0.0)
         hit, frac, wnx, wny = (cull.flat(x) for x in torch.vmap(
@@ -562,27 +661,29 @@ def _tunnel_polygons(pos, vel, dt, inv_dt, alive, bs_valid, s_origin,
 
 def _tunnel_analytic(pos, vel, dt, inv_dt, alive, bs_valid, s_origin, s_rot,
                      s_type, s_verts, s_normals, s_count, s_radius,
-                     geom_types):
+                     geom_types, worlds=None):
     """The anti-tunnel ray of a world with other shapes than polygons
     (box2d_tpu/particles.py:1697-1715): the closed-form ray of every
     (particle, nearby shape) lane through queries.ray_shape_analytic,
     polygons included, a hit needing a fraction above 0; the velocity is
-    clamped at the first nearest hit."""
-    n, sb = pos.shape[0], s_verts.shape[0]
+    clamped at the first nearest hit. worlds: the _Worlds of a batch."""
+    W = worlds or _Worlds(1, pos.shape[0])
+    n, sb = pos.shape[0], s_verts.shape[0] // W.w
     step_v = dt * vel
-    lo = m.inv_rot_vec(s_rot[None], pos[:, None] - s_origin[None])
-    ld = m.inv_rot_vec(s_rot[None], step_v[:, None])
-    rep = lambda x: x.expand((n,) + tuple(x.shape)).reshape(  # noqa: E731
-        (n * sb,) + tuple(x.shape[1:]))
+    at = W.at_lanes
+    lo = m.inv_rot_vec(at(s_rot), pos[:, None] - at(s_origin))
+    ld = m.inv_rot_vec(at(s_rot), step_v[:, None])
+    rep = lambda x: at(x).expand(  # noqa: E731
+        (n, sb) + tuple(x.shape[1:])).reshape((n * sb,) + tuple(x.shape[1:]))
     hit, frac, _, lnrm = ray_shape_analytic(
         lo.reshape(-1, 2), ld.reshape(-1, 2), 1.0, rep(s_type),
         rep(s_verts), rep(s_normals), rep(s_count), rep(s_radius),
         geom_types)
-    hit = (hit.reshape(n, sb) & bs_valid[None, :] & alive[:, None])
+    hit = (hit.reshape(n, sb) & at(bs_valid) & alive[:, None])
     frac = frac.reshape(n, sb)
     hit = hit & torch.isfinite(frac) & (frac > 0.0)
     frac = torch.where(hit, frac, math.inf)
-    wn = m.rot_vec(s_rot[None], lnrm.reshape(n, sb, 2))
+    wn = m.rot_vec(at(s_rot), lnrm.reshape(n, sb, 2))
     fbest, best = frac.min(dim=1)      # the first nearest hit
     rows = torch.arange(n, device=pos.device)
     any_hit = hit[rows, best]
@@ -602,9 +703,12 @@ class BlockShapes(NamedTuple):
     """The shapes each block of CULL_BLK sorted particles couples with this
     sub-iteration: K slots a block, rows (NBlk, K, ...) gathered from the
     per-shape table (box2d_tpu/particles.py:900-959). `ok` marks the
-    filled slots; `body` is the slot's body lane, nb for an empty one."""
+    filled slots; `body` is the slot's body lane, nb for an empty one. In
+    a batch of `worlds` each world's n / worlds particles make their own
+    blocks (padded alone), world-major."""
 
     n: int
+    worlds: int
     posp: Any       # (NBlk, BLK, 2) positions, padding at 1e9
     ok: Any         # (NBlk, K)
     body: Any       # (NBlk, K) i64
@@ -620,24 +724,29 @@ class BlockShapes(NamedTuple):
     count: Any
     verts: Any
     normals: Any
-    over: Any       # overlapping shapes beyond K, summed over blocks
+    over: Any       # overlapping shapes beyond K, summed over each world's
+                    # blocks
 
     def pad(self, x, fill):
         """(n, ...) per-particle rows -> (NBlk, BLK, ...)."""
         nblk, blk = self.posp.shape[:2]
-        extra = torch.full((nblk * blk - self.n,) + tuple(x.shape[1:]), fill,
+        w, tail = self.worlds, tuple(x.shape[1:])
+        nw = self.n // w
+        extra = torch.full((w, nblk // w * blk - nw) + tail, fill,
                            dtype=x.dtype, device=x.device)
-        return torch.cat([x, extra]).reshape((nblk, blk) + tuple(x.shape[1:]))
+        return torch.cat([x.reshape((w, nw) + tail), extra],
+                         dim=1).reshape((nblk, blk) + tail)
 
     def flat(self, x):
         """(NBlk, BLK, K, ...) per-(particle, slot) values -> (n, K, ...)."""
-        return x.reshape((-1,) + tuple(x.shape[2:]))[:self.n]
+        tail = tuple(x.shape[2:])
+        return x.reshape((self.worlds, -1) + tail)[
+            :, :self.n // self.worlds].reshape((self.n,) + tail)
 
     def expand(self, a):
         """(NBlk, K, ...) block rows -> (n, K, ...) per particle."""
         nblk, blk = self.posp.shape[:2]
-        out = a[:, None].expand((nblk, blk) + tuple(a.shape[1:]))
-        return out.reshape((nblk * blk,) + tuple(a.shape[1:]))[:self.n]
+        return self.flat(a[:, None].expand((nblk, blk) + tuple(a.shape[1:])))
 
     def block_sum(self, x, exact=False):
         """(n, K, ...) per-(particle, slot) values summed per block:
@@ -659,35 +768,48 @@ def _shape_table(s_origin, s_rot, s_center, s_v, s_w, s_invm, s_invI, s_dyn,
 
 
 def _block_shapes(pos, alive, s_fatbox, bs_valid, shape_tab, p_body, k: int,
-                  nb: int) -> BlockShapes:
+                  nb: int, n_worlds: int = 1) -> BlockShapes:
     """Each block's top-k overlapping shapes, lowest nearby-shape slot
-    first (box2d_tpu/particles.py:900-944)."""
+    first (box2d_tpu/particles.py:900-944). In a batch of n_worlds worlds
+    (rows of pos, s_fatbox, bs_valid, shape_tab and p_body world-major)
+    each world's particles make their own blocks against its own shapes;
+    `over` is then counted per world."""
     n = pos.shape[0]
-    nblk = -(-n // CULL_BLK)
-    npad = nblk * CULL_BLK - n
+    w = n_worlds
+    nw = n // w
+    nblk = -(-nw // CULL_BLK)      # blocks a world
+    npad = nblk * CULL_BLK - nw
     dev = pos.device
-    posp = torch.cat([pos, torch.full((npad, 2), 1e9, device=dev)]).reshape(
-        nblk, CULL_BLK, 2)
-    alivep = torch.cat([alive, torch.zeros(npad, dtype=torch.bool,
-                                           device=dev)]).reshape(nblk,
-                                                                 CULL_BLK)
+    posp = torch.cat([pos.reshape(w, nw, 2),
+                      torch.full((w, npad, 2), 1e9, device=dev)],
+                     dim=1).reshape(w * nblk, CULL_BLK, 2)
+    alivep = torch.cat([alive.reshape(w, nw),
+                        torch.zeros((w, npad), dtype=torch.bool,
+                                    device=dev)],
+                       dim=1).reshape(w * nblk, CULL_BLK)
     blk_lo = torch.where(alivep[..., None], posp, math.inf).min(dim=1).values
     blk_hi = torch.where(alivep[..., None], posp, -math.inf).max(dim=1).values
-    ov = ((blk_lo[:, None, 0] <= s_fatbox[None, :, 2])
-          & (s_fatbox[None, :, 0] <= blk_hi[:, None, 0])
-          & (blk_lo[:, None, 1] <= s_fatbox[None, :, 3])
-          & (s_fatbox[None, :, 1] <= blk_hi[:, None, 1])
-          & bs_valid[None, :])                              # (NBlk, Sb)
-    sb = s_fatbox.shape[0]
+    sb = s_fatbox.shape[0] // w
+    lo = blk_lo.reshape(w, nblk, 1, 2)
+    hi = blk_hi.reshape(w, nblk, 1, 2)
+    fb = s_fatbox.reshape(w, 1, sb, 4)
+    ov = ((lo[..., 0] <= fb[..., 2]) & (fb[..., 0] <= hi[..., 0])
+          & (lo[..., 1] <= fb[..., 3]) & (fb[..., 1] <= hi[..., 1])
+          & bs_valid.reshape(w, 1, sb)).reshape(w * nblk, sb)  # (NBlk, Sb)
     score = torch.where(ov, sb - torch.arange(sb, device=dev)[None, :], 0)
     top, _ = _top_k(score, k)
     ok = top > 0
     j = torch.where(ok, sb - top, 0)
-    over = torch.clamp(ov.sum(dim=1) - k, min=0).sum().to(torch.int32)
-    rows = shape_tab[j.reshape(-1)].reshape(nblk, k, -1)
+    over = torch.clamp(ov.sum(dim=1) - k, min=0)
+    over = (over.sum() if w == 1 else
+            over.reshape(w, nblk).sum(dim=1)).to(torch.int32)
+    if w > 1:
+        # the rows of the block's own world
+        j = j + sb * (torch.arange(w * nblk, device=dev) // nblk)[:, None]
+    rows = shape_tab[j.reshape(-1)].reshape(w * nblk, k, -1)
     v = (rows.shape[2] - 14) // 4
     return BlockShapes(
-        n=n, posp=posp, ok=ok,
+        n=n, worlds=w, posp=posp, ok=ok,
         body=torch.where(ok, p_body[j], nb),
         origin=rows[..., 0:2], rot=rows[..., 2:4], center=rows[..., 4:6],
         v=rows[..., 6:8], w=rows[..., 8],
@@ -695,8 +817,8 @@ def _block_shapes(pos, alive, s_fatbox, bs_valid, shape_tab, p_body, k: int,
         invI=torch.where(ok, rows[..., 10], 0.0),
         dyn=(rows[..., 11] > 0) & ok, radius=rows[..., 12],
         count=rows[..., 13].to(torch.int32),
-        verts=rows[..., 14:14 + 2 * v].reshape(nblk, k, v, 2),
-        normals=rows[..., 14 + 2 * v:].reshape(nblk, k, v, 2), over=over)
+        verts=rows[..., 14:14 + 2 * v].reshape(w * nblk, k, v, 2),
+        normals=rows[..., 14 + 2 * v:].reshape(w * nblk, k, v, 2), over=over)
 
 
 
@@ -817,8 +939,13 @@ def _shift_up(x, k):
     return torch.cat([x[k:], pad])
 
 
-def _shift_down(x, k):
-    """out[i + k] = x[i], zero before the start (:391-395)."""
+def _shift_down(x, k, n_worlds: int = 1):
+    """out[i + k] = x[i], zero before the start (:391-395); in a batch of
+    n_worlds worlds (x world-major), before each world's start."""
+    if n_worlds > 1:
+        return _shift_down(x.reshape((n_worlds, -1) + tuple(x.shape[1:]))
+                           .transpose(0, 1), k).transpose(0, 1).reshape(
+                               x.shape)
     k = min(k, x.shape[0])
     pad = torch.zeros((k,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
@@ -846,21 +973,28 @@ class PairWindows(NamedTuple):
     w_up: Any      # (n, ku)
 
 
-def _find_contacts_sorted(pos, alive, skey, diameter, cfg: ParticleConfig):
+def _find_contacts_sorted(pos, alive, skey, diameter, cfg: ParticleConfig,
+                          worlds=None):
     """Neighbour windows over cell-sorted particles (ref:
     FindContacts_Reference :1096-1117; box2d_tpu/particles.py:421-480):
     the next k_same sorted lanes (own and next cell of the row) and k_up
     lanes from the row above, found by one searchsorted. Each pair appears
     once. Returns (PairWindows, overflow): the alive particles whose
     same-row or row-above span exceeds its window; their excess contacts
-    are shed this sub-iteration."""
+    are shed this sub-iteration. worlds: the _Worlds of a batch (each
+    world sorted in its own lanes; diameter one value a lane, (n, 1)): no
+    window reaches past its world's last lane, and each world's overflow
+    is counted apart, (W,)."""
     n = pos.shape[0]
+    W = worlds or _Worlds(1, n)
     dev = pos.device
     inv_d = 1.0 / diameter
     d2max = diameter * diameter
     ks, ku = cfg.k_same, cfg.k_up
     srow = skey >> 16
     lanes = torch.arange(n, device=dev)
+    # lane within its world
+    loc = lanes if W.w == 1 else lanes % W.n
 
     def geom(p_part, al_part, in_rng, row_ok):
         d = p_part - pos[:, None, :]
@@ -877,8 +1011,8 @@ def _find_contacts_sorted(pos, alive, skey, diameter, cfg: ParticleConfig):
                 torch.where(valid, weight, 0.0))
 
     # same-row window: static shifts
-    in_rng_s = (lanes[:, None]
-                + torch.arange(1, ks + 1, device=dev)[None, :]) < n
+    in_rng_s = (loc[:, None]
+                + torch.arange(1, ks + 1, device=dev)[None, :]) < W.n
     v_same, n_same, w_same = geom(
         _partner_same(pos, ks), _partner_same(alive, ks), in_rng_s,
         _partner_same(srow, ks) == srow[:, None])
@@ -886,35 +1020,38 @@ def _find_contacts_sorted(pos, alive, skey, diameter, cfg: ParticleConfig):
     # row-above window: searchsorted for key(y + 1, x - 1), one packed
     # partner gather
     skey64 = skey.long()
-    start_up = torch.searchsorted(skey, _wrap32(skey64 + (1 << 16) - 1))
+    start_up = W.search(skey, _wrap32(skey64 + (1 << 16) - 1))
     raw_up = start_up[:, None] + torch.arange(ku, device=dev)[None, :]
-    cand_up = raw_up.clamp(0, n - 1)
+    cand_up = raw_up.clamp(0, W.n - 1)
+    if W.w > 1:
+        cand_up = cand_up + (lanes - loc)[:, None]
     ptab = torch.cat([pos, srow.float()[:, None], alive.float()[:, None]],
                      dim=1)
     pu = ptab[cand_up]                                   # (n, ku, 4)
     v_up, n_up, w_up = geom(
-        pu[..., :2], pu[..., 3] > 0, raw_up < n,
+        pu[..., :2], pu[..., 3] > 0, raw_up < W.n,
         pu[..., 2].to(torch.int32) == srow[:, None] + 1)
 
     # window-overflow accounting
-    same_end = torch.searchsorted(skey, _wrap32(skey64 + 2))
-    up_end = torch.searchsorted(skey, _wrap32(skey64 + (1 << 16) + 2))
-    over = alive & (((same_end - lanes - 1) > ks)
+    same_end = W.search(skey, _wrap32(skey64 + 2))
+    up_end = W.search(skey, _wrap32(skey64 + (1 << 16) + 2))
+    over = alive & (((same_end - loc - 1) > ks)
                     | ((up_end - start_up) > ku))
     return (PairWindows(cand_up, v_same, v_up, n_same, n_up, w_same, w_up),
-            over.sum().to(torch.int32))
+            W.sum(over).to(torch.int32))
 
 
-def _pair_accum(a_same, a_up, b_same, b_up, cand_up, n, plan=None):
+def _pair_accum(a_same, a_up, b_same, b_up, cand_up, n, plan=None,
+                n_worlds: int = 1):
     """Per-pair contributions summed per particle in sorted space
     (box2d_tpu/particles.py:483-494): out[i] += sum_k a_same[i, k] +
-    sum_r a_up[i, r]; out[i + 1 + k] += b_same[i, k] (static shifts);
-    out[cand_up[i, r]] += b_up[i, r] (the one scatter, through `plan`,
-    the SegmentPlan of cand_up, made here if not given). Contributions are
-    already 0 on invalid lanes."""
+    sum_r a_up[i, r]; out[i + 1 + k] += b_same[i, k] (static shifts,
+    within each of n_worlds worlds); out[cand_up[i, r]] += b_up[i, r] (the
+    one scatter, through `plan`, the SegmentPlan of cand_up, made here if
+    not given). Contributions are already 0 on invalid lanes."""
     out = _tree_sum(a_same) + _tree_sum(a_up)
     for k in range(1, a_same.shape[1] + 1):
-        out = out + _shift_down(b_same[:, k - 1], k)
+        out = out + _shift_down(b_same[:, k - 1], k, n_worlds)
     if plan is None:
         plan = _segment_plan_of(cand_up, n)
     return _segment_add(out, plan, b_up)
@@ -925,17 +1062,24 @@ def _pair_accum(a_same, a_up, b_same, b_up, cand_up, n, plan=None):
 # ---------------------------------------------------------------------------
 
 def _solve_barrier(pair_a, pair_b, pair_flags, group, alive, radius, pos,
-                   vel, dt):
+                   vel, dt, same_world=None):
     """Barrier pass (ref: SolveBarrier :1670-1760;
     box2d_tpu/particles.py:1450-1540): every pair flagged P_BARRIER is a
     moving segment; a particle of another group whose relative trajectory
     crosses it within dt takes the barrier point's velocity (the removed
     momentum is absorbed, as the JAX package does), and a particle within
     one radius of a segment loses its approach component toward it.
-    Dense over (pairs x particles). pair_a / pair_b are sorted lanes.
+    Dense over (pairs x particles). pair_a / pair_b are sorted lanes;
+    radius is 0-d or one value a particle. same_world: in a batch of
+    worlds, the (pairs, particles) mask of a pair and a particle of one
+    world (a segment blocks only its own world's particles).
     Returns the new velocity."""
     ba, bb = pair_a.long(), pair_b.long()
     is_bar = ((pair_flags & P_BARRIER) != 0) & alive[ba] & alive[bb]
+    if same_world is not None:
+        is_bar = is_bar[:, None] & same_world
+    else:
+        is_bar = is_bar[:, None]
     lanes = torch.arange(pos.shape[0], device=pos.device)
     pa, pb = pos[ba], pos[bb]
     va, vb = vel[ba], vel[bb]
@@ -967,7 +1111,7 @@ def _solve_barrier(pair_a, pair_b, pair_flags, group, alive, radius, pos,
     s = _safe_div(-m.dot(pr, et), m.dot(et, et))
     same_group = group[ba][:, None] == group[None, :]
     valid = (cand_ok & (cand_t >= 0.0) & (cand_t <= dt)
-             & (s >= 0.0) & (s <= 1.0) & is_bar[:, None, None]
+             & (s >= 0.0) & (s <= 1.0) & is_bar[:, :, None]
              & (~same_group)[:, :, None] & alive[None, :, None])
     t_sel = torch.where(valid, cand_t, math.inf)
     # earliest hit over the candidates, then over the pairs (first minimum)
@@ -985,7 +1129,7 @@ def _solve_barrier(pair_a, pair_b, pair_flags, group, alive, radius, pos,
     s_c = (-m.dot(qa, e0) / e2).clamp(0.0, 1.0)             # (Pb, Np)
     cl = qa + s_c[..., None] * e0        # particle -> closest segment point
     d2 = m.dot(cl, cl)
-    near = (is_bar[:, None] & ~same_group & alive[None, :]
+    near = (is_bar & ~same_group & alive[None, :]
             & (d2 < radius * radius))
     d2m = torch.where(near, d2, math.inf)
     kn = d2m.argmin(dim=0)
@@ -1072,7 +1216,7 @@ def _relax_depth(d, ia, ib, same, r_edge, big_d, cap, stats):
 # ---------------------------------------------------------------------------
 
 def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
-                  stats=None):
+                  stats=None, n_worlds: int = 1):
     """One full particle update (ref: Solve :1512-1564;
     box2d_tpu/particles.py:642-1447). Returns (particles, body_dv (Nb, 2),
     body_dw (Nb,), neighbor_overflow): the nearby shapes beyond
@@ -1084,7 +1228,21 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
     stats: a world.StepStats; counts the device reads (the rank repair's
     branch, the depth pass's gate, the depth relaxation's checks), which
     sort each sub-iteration took (rank_repairs / full_sorts) and the depth
-    relaxation's rounds."""
+    relaxation's rounds.
+
+    n_worlds: W > 1 steps a batch of W worlds of one configuration (the
+    counterpart of jax.vmap of the JAX step; batch.py): pt and state are
+    laid flat, world-major, as batch.py lays them (world w's particle
+    lanes [w * n, (w + 1) * n), its shapes, bodies, pairs, triads and
+    groups likewise, every id offset to its own lanes), pt.params and
+    state.tuning hold one value a world. Each world sorts its own cells,
+    couples with its own nearby shapes (and blocks) only and sums its own
+    neighbours (K3 batched, one launch a phase for all worlds); body_dv /
+    body_dw are the flat bodies' and the overflow is (W,). The rank
+    repair is never taken, whatever cfg.rank_repair says: the JAX package
+    keeps it off under vmap (box2d_tpu/particles.py:186-190). A step's
+    device reads do not grow with W: each is an any or a max over the
+    worlds."""
     if stats is None:
         from .world import StepStats
         stats = StepStats()
@@ -1095,6 +1253,22 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
     n = pt.pos.shape[0]
     dev = pt.pos.device
     f32 = np.float32
+    W = _Worlds(n_worlds, n // n_worlds)
+    batched = n_worlds > 1
+
+    # a world's value at each particle lane (one world: the value itself),
+    # as a column against (n, C), and at each lane of the flat pair view
+    def lane_v(x):
+        return W.rows(x, W.n)
+
+    def lane_c(x):
+        return _lanes(lane_v(x), 2)
+
+    def pair_v(x):
+        return W.rows(x, W.n * (cfg.k_same + cfg.k_up))
+
+    def pair_c(x):
+        return _lanes(pair_v(x), 2)
 
     dt = f32(dt) / f32(cfg.iterations)
     inv_dt = f32(1.0) / dt if dt != 0 else f32(1.0)
@@ -1109,27 +1283,36 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
     lin_d = prm.damping_strength
     quad_d = _safe_div(1.0, crit_v)
     vel_per_p = dt * (1.0 / prm.density) * inv_diameter
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    zero = torch.zeros_like(inv_diameter)
+    # K3's scalars: (8,), or a row a world
     scal_k = torch.stack([inv_diameter, diameter * diameter, lin_d, quad_d,
-                          vel_per_p, zero, zero, zero])
+                          vel_per_p, zero, zero, zero], dim=-1)
 
-    # nearby rigid shapes, compacted once per step (system AABB prefilter)
+    # nearby rigid shapes, compacted once per step (system AABB prefilter),
+    # each world against its own shapes
     alive0 = pt.alive[:, None]
-    sys_lo = torch.where(alive0, pt.pos, math.inf).min(dim=0).values \
-        - diameter
-    sys_hi = torch.where(alive0, pt.pos, -math.inf).max(dim=0).values \
-        + diameter
+    sys_lo = W.view(torch.where(alive0, pt.pos, math.inf)).min(
+        dim=-2).values - _lanes(diameter, 2)
+    sys_hi = W.view(torch.where(alive0, pt.pos, -math.inf)).max(
+        dim=-2).values + _lanes(diameter, 2)
     boxes = compute_shape_aabbs(state)
-    near = ((boxes[:, 0] <= sys_hi[0]) & (sys_lo[0] <= boxes[:, 2])
-            & (boxes[:, 1] <= sys_hi[1]) & (sys_lo[1] <= boxes[:, 3])
-            & sh.enabled & b.enabled[sh.body.long()] & ~sh.is_sensor)
-    S = sh.type.shape[0]
+    S = sh.type.shape[0] // n_worlds
+    lo_s, hi_s = W.rows(sys_lo, S), W.rows(sys_hi, S)
+    near = W.view((boxes[:, 0] <= hi_s[..., 0]) & (lo_s[..., 0] <= boxes[:, 2])
+                  & (boxes[:, 1] <= hi_s[..., 1])
+                  & (lo_s[..., 1] <= boxes[:, 3])
+                  & sh.enabled & b.enabled[sh.body.long()] & ~sh.is_sensor)
     sscore = torch.where(near, S - torch.arange(S, device=dev), 0)
     stop, _ = _top_k(sscore, min(cfg.max_body_shapes, S))
     bs_valid = stop > 0
     bs_idx = torch.where(bs_valid, S - stop, 0)
-    shape_overflow = torch.clamp(near.sum() - bs_valid.sum(),
+    shape_overflow = torch.clamp(near.sum(-1) - bs_valid.sum(-1),
                                  min=0).to(torch.int32)
+    if batched:
+        # each world's nearby shapes as rows of the flat shape lanes
+        bs_idx = (bs_idx + S * torch.arange(n_worlds, device=dev)[:, None]
+                  ).reshape(-1)
+        bs_valid = bs_valid.reshape(-1)
 
     # per-shape body rows, gathered once (body velocities are read
     # pre-step: Jacobi coupling)
@@ -1150,10 +1333,11 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
     # per-block culling when the nearby shapes outnumber a block's slots:
     # the shapes' boxes grown by the coupling radius and one diameter of
     # travel (a particle moves under a diameter a sub-iteration)
-    sb = bs_idx.shape[0]
+    sb = bs_idx.shape[0] // n_worlds
     use_cull = sb > cfg.block_shape_slots
     if use_cull:
-        marg = prm.radius + diameter + PARTICLE_LINEAR_SLOP
+        marg = _lanes(W.rows(prm.radius + diameter + PARTICLE_LINEAR_SLOP,
+                             sb), 2)
         s_boxes = boxes[bs_idx]
         s_fatbox = torch.where(
             bs_valid[:, None],
@@ -1229,19 +1413,34 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
     cur_depth, cur_color = pt.depth, pt.color
     gflags = pt.group_flags
     s2o = torch.arange(n, dtype=torch.int32, device=dev)
-    skey_prev = _cell_key(pt.pos, pt.alive, inv_diameter)
+    skey_prev = _cell_key(pt.pos, pt.alive, lane_v(inv_diameter))
     bc_cnt = torch.zeros(n, dtype=torch.int32, device=dev)
-    # the worst sub-iteration's window and culling overflow
-    iter_over = torch.zeros((), dtype=torch.int32, device=dev)
+    # the worst sub-iteration's window and culling overflow (one a world)
+    iter_over = torch.zeros(() if not batched else (n_worlds,),
+                            dtype=torch.int32, device=dev)
     nbk = -(-n // pk.B_BLK)
     rbw = pk.rank_window(n)
     if need_flat:
         lanes = torch.arange(n, device=dev)
+        if batched:
+            loc = lanes % W.n
+    if cfg.has_rigid:
+        # the particle mass at each group of a world (rigid statistics)
+        g_mass = W.rows(mass, pt.group_flags.shape[0] // n_worlds)
+    if batched:
+        # (world, cell) sort keys: each world's lanes stay together, in
+        # its own cell order, equal keys in lane order
+        lane_world = torch.arange(n, device=dev) // W.n
+        world_key = lane_world << 32
+        if cfg.has_barrier:
+            # a barrier segment and a particle of one world
+            bar_world = bar_lanes // (pt.pair_a.shape[0] // n_worlds)
+            same_world = bar_world[:, None] == lane_world[None, :]
     for _ in range(cfg.iterations):
         # ---- cell sort: the whole sub-iteration runs in sorted space ----
-        key = _cell_key(cur_pos, cur_alive, inv_diameter)
+        key = _cell_key(cur_pos, cur_alive, lane_v(inv_diameter))
         use_rank = False
-        if cfg.rank_repair and use_kernel and n > 0:
+        if cfg.rank_repair and use_kernel and n > 0 and not batched:
             # nearly-sorted repair (K4) when every particle moved at most
             # one cell since the last sort and every block's window fits;
             # else the stable argsort (the other branch of the JAX cond)
@@ -1255,7 +1454,8 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             rank = pk.rank_pass(key, offs_r, rbw)
             stats.rank_repairs += 1
         else:
-            rank = _sort_rank(key)
+            rank = _sort_rank(key if not batched else
+                              world_key | (key.long() - pk.INT32_MIN))
             stats.full_sorts += 1
         # one packed permutation of every field the sub-iteration carries
         # (float columns ride as their int32 bits, so the copy is exact),
@@ -1311,21 +1511,35 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                                        s2o_l.new_full((1,), n)])
                 plan_g = SegmentPlan(sorted_of[plan0["g"].lanes], n)
 
+        def k3(p0, p1, phase):
+            """K3 on this sub-iteration's table: one launch for all worlds
+            of a batch."""
+            if not batched:
+                return pk.window_pass(pos_c, skey, alive, p0, p1, scal_k,
+                                      phase)
+            return pk.window_pass_batched(
+                *(W.view(x) for x in (pos_c, skey, alive, p0, p1)), scal_k,
+                phase).reshape(n, 2)
+
         # ---- neighbour contacts (ref UpdateContacts) ----
         if use_kernel:
             zcol = torch.zeros(n, dtype=torch.float32, device=dev)
-            w_pairs = pk.window_pass(pos_c, skey, alive, zcol, zcol, scal_k,
-                                     pk.PH_WEIGHT)[:, 0]
+            w_pairs = k3(zcol, zcol, pk.PH_WEIGHT)[:, 0]
             c_over = None      # K3 never truncates
         else:
-            pw, c_over = _find_contacts_sorted(pos_c, alive, skey, diameter,
-                                               cfg)
+            pw, c_over = _find_contacts_sorted(pos_c, alive, skey,
+                                               lane_c(diameter), cfg, W)
         if need_flat:
             # the flat sorted-space pair view of the gated passes
             # (:880-893): lane (i, k) pairs sorted lane ia = i with ib
-            idx_same = (lanes[:, None]
-                        + torch.arange(1, ks + 1, device=dev)[None, :]
-                        ).clamp(0, n - 1)
+            if not batched:
+                idx_same = (lanes[:, None]
+                            + torch.arange(1, ks + 1, device=dev)[None, :]
+                            ).clamp(0, n - 1)
+            else:
+                idx_same = (loc[:, None]
+                            + torch.arange(1, ks + 1, device=dev)[None, :]
+                            ).clamp(0, W.n - 1) + (lanes - loc)[:, None]
             cand = torch.cat([idx_same, pw.cand_up], dim=1)
             ia = lanes[:, None].expand(cand.shape).reshape(-1)
             ib = cand.reshape(-1)
@@ -1337,7 +1551,7 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         # each block's K culled shapes ----
         if use_cull:
             cull = _block_shapes(pos, alive, s_fatbox, bs_valid, shape_tab,
-                                 p_body, cfg.block_shape_slots, nb)
+                                 p_body, cfg.block_shape_slots, nb, n_worlds)
             bdist, bnrm = (cull.flat(x) for x in torch.vmap(
                 functools.partial(_point_shape_distance_batched, sqrt=root))(
                     cull.posp, cull.origin, cull.rot, cull.verts,
@@ -1350,12 +1564,14 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             c_over = cull.over if c_over is None else c_over + cull.over
         else:
             cull = None
-            bdist, bnrm = _point_shape_distance_batched(
-                pos, s_origin, s_rot, s_verts, s_normals, s_count, s_radius,
-                root)
-            bc_valid = bs_valid[None, :]
-            e_center, e_v, e_w = s_center[None, :, :], s_v[None], s_w[None]
-            e_invm, e_invI, e_dyn = s_invm[None], s_invI[None], s_dyn[None]
+            bdist, bnrm = W.map(
+                functools.partial(_point_shape_distance_batched, sqrt=root),
+                pos, s_origin, s_rot, s_verts, s_normals, s_count, s_radius)
+            bc_valid = W.at_lanes(bs_valid)
+            e_center, e_v, e_w = (W.at_lanes(s_center), W.at_lanes(s_v),
+                                  W.at_lanes(s_w))
+            e_invm, e_invI, e_dyn = (W.at_lanes(s_invm), W.at_lanes(s_invI),
+                                     W.at_lanes(s_dyn))
 
         if exact:
             # the SegmentPlans of the row-above partners, of the flat
@@ -1396,12 +1612,13 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             ang = m.cross(pos[:, None, :] - e_center, imp)
             if cull is None:
                 if exact:
-                    return (_segment_add(dv, plan_body, _tree_sum(
-                                imp.transpose(0, 1)) * s_invm[:, None]),
-                            _segment_add(dw, plan_body, s_invI * _tree_sum(
-                                ang.transpose(0, 1))))
-                dv = dv.index_add(0, p_body, imp.sum(dim=0) * s_invm[:, None])
-                dw = dw.index_add(0, p_body, s_invI * ang.sum(dim=0))
+                    return (_segment_add(dv, plan_body, W.shape_sum(
+                                imp, True) * s_invm[:, None]),
+                            _segment_add(dw, plan_body, s_invI * W.shape_sum(
+                                ang, True)))
+                dv = dv.index_add(0, p_body,
+                                  W.shape_sum(imp) * s_invm[:, None])
+                dw = dw.index_add(0, p_body, s_invI * W.shape_sum(ang))
                 return dv, dw
             if exact:
                 return (_segment_add(dv, plan_body, cull.block_sum(imp, True)
@@ -1417,12 +1634,13 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                 0, tgt, (cull.invI * cull.block_sum(ang)).reshape(-1))[:nb]
             return dv, dw
 
-        bc_ok = (bdist < prm.radius) & alive[:, None] & bc_valid
+        bc_ok = (bdist < lane_c(prm.radius)) & alive[:, None] & bc_valid
         bc_n = -bnrm
-        bc_w = torch.where(bc_ok, 1.0 - bdist * inv_diameter * 2.0, 0.0)
+        bc_w = torch.where(bc_ok, 1.0 - bdist * lane_c(inv_diameter) * 2.0,
+                           0.0)
         rpn = m.cross(pos[:, None, :] - e_center, bnrm)
         wall = (flags & P_WALL) != 0
-        inv_m_c = (torch.where(wall, 0.0, inv_mass)[:, None]
+        inv_m_c = (torch.where(wall, 0.0, lane_v(inv_mass))[:, None]
                    + e_invm + e_invI * rpn * rpn)
         bc_mass = torch.where(
             inv_m_c > 0, 1.0 / torch.where(inv_m_c > 0, inv_m_c, 1.0), 0.0)
@@ -1433,7 +1651,8 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             weight = w_pairs + bc_w.sum(dim=1)
         else:
             weight = _pair_accum(pw.w_same, pw.w_up, pw.w_same, pw.w_up,
-                                 pw.cand_up, n, plan_up) + _tree_sum(bc_w)
+                                 pw.cand_up, n, plan_up, n_worlds
+                                 ) + _tree_sum(bc_w)
 
         if cfg.has_solid:
             # ---- depth relaxation (ref ComputeDepth :1002-1062; :1021-
@@ -1457,24 +1676,25 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                     torch.where(w_acc < 0.8, 0.0, big_d), ia, ib, same,
                     torch.where(same, 1.0 - c_w, big_d), big_d,
                     cfg.depth_iterations, stats)
-                d = torch.where(d < big_d, d * diameter, 0.0)
+                d = torch.where(d < big_d, d * lane_v(diameter), 0.0)
                 depth = torch.where(upd, d, depth)
                 gflags = gflags & ~(needs.to(torch.int32) * G_NEEDS_DEPTH)
 
         # ---- force (user forces, ref SolveForce) ----
-        vel = vel + dt * inv_mass * force
+        vel = vel + lane_c(dt * inv_mass) * force
 
         if cfg.has_viscous:
             # ---- viscous (ref SolveViscous, :1067-1080) ----
             visc = (c_flags & P_VISCOUS) != 0
-            f = prm.viscous_strength * c_w[:, None] * (vel[ib] - vel[ia])
+            f = pair_c(prm.viscous_strength) * c_w[:, None] * (
+                vel[ib] - vel[ia])
             f = torch.where(visc[:, None], f, 0.0)
             vel = pair_add(vel, f, -f)
             bvisc = bc_ok & ((flags & P_VISCOUS) != 0)[:, None]
-            fb = (prm.viscous_strength * bc_mass * bc_w)[..., None] * (
-                body_vel_at() - vel[:, None, :])
+            fb = (lane_c(prm.viscous_strength) * bc_mass * bc_w)[
+                ..., None] * (body_vel_at() - vel[:, None, :])
             fb = torch.where(bvisc[..., None], fb, 0.0)
-            vel = vel + inv_mass * rsum(fb)
+            vel = vel + lane_c(inv_mass) * rsum(fb)
             body_dv, body_dw = apply_body_impulse(body_dv, body_dw, -fb,
                                                   bvisc)
 
@@ -1482,7 +1702,8 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             # ---- repulsive (ref SolveRepulsive, :1082-1087) ----
             rep = (((c_flags & P_REPULSIVE) != 0)
                    & (group[ia] != group[ib]))
-            f = (prm.repulsive_strength * crit_v * c_w)[:, None] * c_n
+            f = (pair_v(prm.repulsive_strength * crit_v) * c_w)[
+                :, None] * c_n
             f = torch.where(rep[:, None], f, 0.0)
             vel = pair_add(vel, -f, f)
 
@@ -1490,7 +1711,8 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             # ---- powder (ref SolvePowder, :1089-1095) ----
             min_w = 1.0 - PARTICLE_STRIDE
             pow_ = ((c_flags & P_POWDER) != 0) & (c_w > min_w)
-            f = (prm.powder_strength * crit_v * (c_w - min_w))[:, None] * c_n
+            f = (pair_v(prm.powder_strength * crit_v)
+                 * (c_w - min_w))[:, None] * c_n
             f = torch.where(pow_[:, None], f, 0.0)
             vel = pair_add(vel, -f, f)
 
@@ -1501,9 +1723,9 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             wn = torch.where(tens[:, None], wn, 0.0)
             acc2 = pair_add(torch.zeros((n, 2), dtype=torch.float32,
                                         device=dev), -wn, wn)
-            p_s = prm.surface_tension_pressure * crit_v
-            n_s = prm.surface_tension_normal * crit_v
-            max_var = MAX_PARTICLE_FORCE * crit_v
+            p_s = pair_v(prm.surface_tension_pressure * crit_v)
+            n_s = pair_v(prm.surface_tension_normal * crit_v)
+            max_var = pair_v(MAX_PARTICLE_FORCE * crit_v)
             fh = torch.minimum(
                 p_s * (weight[ia] + weight[ib] - 2.0)
                 + n_s * m.dot(acc2[ib] - acc2[ia], c_n), max_var) * c_w
@@ -1513,22 +1735,22 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         if cfg.has_solid:
             # ---- solid ejection (ref SolveSolid :2200; :1113-1119) ----
             sol = (group[ia] != group[ib]) & c_ok
-            ej = (prm.ejection_strength * inv_dt
+            ej = (pair_v(prm.ejection_strength * inv_dt)
                   * (depth[ia] + depth[ib]) * c_w)
             f = torch.where(sol, ej, 0.0)[:, None] * c_n
             vel = pair_add(vel, -f, f)
 
         # ---- gravity (ref SolveGravity) ----
-        g_ = dt * prm.gravity_scale * state.tuning.gravity
-        vel = vel + torch.where(alive[:, None], g_[None, :], 0.0)
+        g_ = _lanes(dt * prm.gravity_scale, 2) * state.tuning.gravity
+        vel = vel + torch.where(alive[:, None], lane_v(g_), 0.0)
 
         sp_mask = (flags & P_STATIC_PRESSURE) != 0
         if cfg.has_static_pressure:
             # ---- static pressure (ref SolveStaticPressure, :1127-1145):
             # a fixed number of relaxation rounds ----
-            pp_w = prm.static_pressure_strength * crit_p
-            max_p = MAX_PARTICLE_PRESSURE * crit_p
-            relax = prm.static_pressure_relaxation
+            pp_w = lane_v(prm.static_pressure_strength * crit_p)
+            max_p = lane_v(MAX_PARTICLE_PRESSURE * crit_p)
+            relax = lane_v(prm.static_pressure_relaxation)
             cw_sp = torch.where((c_flags & P_STATIC_PRESSURE) != 0, c_w, 0.0)
             for _ in range(cfg.static_pressure_iterations):
                 acc = pair_add(torch.zeros(n, dtype=torch.float32,
@@ -1545,60 +1767,59 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
         ppw = prm.pressure_strength * crit_p
         maxp = MAX_PARTICLE_PRESSURE * crit_p
         accum = torch.minimum(
-            ppw * torch.clamp(weight - MIN_PARTICLE_WEIGHT, min=0.0), maxp)
+            lane_v(ppw) * torch.clamp(weight - MIN_PARTICLE_WEIGHT, min=0.0),
+            lane_v(maxp))
         accum = torch.where((flags & _NO_PRESSURE) != 0, 0.0, accum)
         accum = accum + torch.where(sp_mask, static_pressure, 0.0)
-        fb = (vel_per_p * bc_w * bc_mass
-              * (accum[:, None] + ppw * bc_w))[..., None] * bc_n
+        fb = (lane_c(vel_per_p) * bc_w * bc_mass
+              * (accum[:, None] + lane_c(ppw) * bc_w))[..., None] * bc_n
         fb = torch.where(bc_ok[..., None], fb, 0.0)
-        vel = vel - inv_mass * rsum(fb)
+        vel = vel - lane_c(inv_mass) * rsum(fb)
         body_dv, body_dw = apply_body_impulse(body_dv, body_dw, fb, bc_ok)
         if use_kernel:
-            vel = vel + pk.window_pass(pos_c, skey, alive,
-                                       accum.contiguous(), zcol, scal_k,
-                                       pk.PH_PRESSURE)
+            vel = vel + k3(accum.contiguous(), zcol, pk.PH_PRESSURE)
         else:
             # window form: a-side broadcasts, same-row partners by shifts,
             # row-above partners by one gather
             acc_b_s = _partner_same(accum, ks)
             acc_b_u = accum[pw.cand_up]
-            f_s = (vel_per_p * pw.w_same
+            f_s = (lane_c(vel_per_p) * pw.w_same
                    * (accum[:, None] + acc_b_s))[..., None] * pw.n_same
-            f_u = (vel_per_p * pw.w_up
+            f_u = (lane_c(vel_per_p) * pw.w_up
                    * (accum[:, None] + acc_b_u))[..., None] * pw.n_up
             vel = vel + _pair_accum(-f_s, -f_u, f_s, f_u, pw.cand_up, n,
-                                    plan_up)
+                                    plan_up, n_worlds)
 
         # ---- damping (ref SolveDamping, :1177-1205) ----
         vn = m.dot(body_vel_at() - vel[:, None, :], bc_n)
-        damp = torch.maximum(lin_d * bc_w,
-                             torch.clamp(-quad_d * vn, max=0.5))
+        damp = torch.maximum(lane_c(lin_d) * bc_w,
+                             torch.clamp(-lane_c(quad_d) * vn, max=0.5))
         fb = (damp * bc_mass * vn)[..., None] * bc_n
         approach = bc_ok & (vn < 0)
         fb = torch.where(approach[..., None], fb, 0.0)
-        vel = vel + inv_mass * rsum(fb)
+        vel = vel + lane_c(inv_mass) * rsum(fb)
         body_dv, body_dw = apply_body_impulse(body_dv, body_dw, -fb,
                                               approach)
         if use_kernel:
-            vel = vel + pk.window_pass(pos_c, skey, alive,
-                                       vel[:, 0].contiguous(),
-                                       vel[:, 1].contiguous(), scal_k,
-                                       pk.PH_DAMPING)
+            vel = vel + k3(vel[:, 0].contiguous(), vel[:, 1].contiguous(),
+                           pk.PH_DAMPING)
         else:
             vb_s = _partner_same(vel, ks)
             vb_u = vel[pw.cand_up]
             vn_s = m.dot(vb_s - vel[:, None, :], pw.n_same)
             vn_u = m.dot(vb_u - vel[:, None, :], pw.n_up)
-            damp_s = torch.maximum(lin_d * pw.w_same,
-                                   torch.clamp(-quad_d * vn_s, max=0.5))
-            damp_u = torch.maximum(lin_d * pw.w_up,
-                                   torch.clamp(-quad_d * vn_u, max=0.5))
+            damp_s = torch.maximum(lane_c(lin_d) * pw.w_same,
+                                   torch.clamp(-lane_c(quad_d) * vn_s,
+                                               max=0.5))
+            damp_u = torch.maximum(lane_c(lin_d) * pw.w_up,
+                                   torch.clamp(-lane_c(quad_d) * vn_u,
+                                               max=0.5))
             f_ds = torch.where((pw.v_same & (vn_s < 0))[..., None],
                                (damp_s * vn_s)[..., None] * pw.n_same, 0.0)
             f_du = torch.where((pw.v_up & (vn_u < 0))[..., None],
                                (damp_u * vn_u)[..., None] * pw.n_up, 0.0)
             vel = vel + _pair_accum(f_ds, f_du, -f_ds, -f_du, pw.cand_up, n,
-                                    plan_up)
+                                    plan_up, n_worlds)
 
         if cfg.has_static_pressure:
             # ---- extra damping of static-pressure particles (ref :1978;
@@ -1607,7 +1828,7 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             vn = m.dot(body_vel_at() - vel[:, None, :], bc_n)
             fb = (0.5 * bc_mass * vn)[..., None] * bc_n
             fb = torch.where((ed & (vn < 0))[..., None], fb, 0.0)
-            vel = vel + inv_mass * rsum(fb)
+            vel = vel + lane_c(inv_mass) * rsum(fb)
             body_dv, body_dw = apply_body_impulse(body_dv, body_dw, -fb,
                                                   ed & (vn < 0))
 
@@ -1629,7 +1850,9 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
             rs = (m.cross(pt.triad_pa, pa_) + m.cross(pt.triad_pb, pb_)
                   + m.cross(pt.triad_pc, pc_))
             r = _rot_normalize(torch.stack([rc, rs], dim=-1))
-            strength = prm.elastic_strength * inv_dt * pt.triad_strength
+            strength = W.rows(prm.elastic_strength * inv_dt,
+                              pt.triad_a.shape[0] // n_worlds
+                              ) * pt.triad_strength
             strength = torch.where(el, strength, 0.0)[:, None]
             fa = strength * (m.rot_vec(r, pt.triad_pa) - pa_)
             fbv = strength * (m.rot_vec(r, pt.triad_pb) - pb_)
@@ -1645,7 +1868,8 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
                    & alive[sa] & alive[sb_])
             dvec = (pos[sb_] + dt * vel[sb_]) - (pos[sa] + dt * vel[sa])
             r1 = _sqrt(m.dot(dvec, dvec))
-            fs = (prm.spring_strength * inv_dt * pt.pair_strength
+            fs = (W.rows(prm.spring_strength * inv_dt,
+                         pt.pair_a.shape[0] // n_worlds) * pt.pair_strength
                   * _safe_div(pt.pair_distance - r1, r1))[:, None] * dvec
             fs = torch.where(spr[:, None], fs, 0.0)
             vel = _segment_add(vel, plans["sa"], -fs)
@@ -1653,15 +1877,16 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
 
         # ---- limit velocity (ref LimitVelocity) ----
         v2 = m.dot(vel, vel)
-        vel = torch.where((v2 > crit_v2)[:, None],
-                          vel * root(_safe_div(crit_v2, v2))[:, None],
+        vel = torch.where((v2 > lane_v(crit_v2))[:, None],
+                          vel * root(_safe_div(lane_v(crit_v2), v2))[:, None],
                           vel)
 
         if cfg.has_rigid:
             vel, body_dv, body_dw = _rigid_damping(
-                group, gflags, alive, flags, pos, vel, mass, inv_mass,
-                prm.damping_strength, body_vel_at(), bc_ok, bc_n, bc_w,
-                e_center, e_invm, e_invI, ia, ib, c_ok, c_n, c_w,
+                group, gflags, alive, flags, pos, vel, g_mass,
+                lane_v(inv_mass), lane_v(prm.damping_strength),
+                pair_v(prm.damping_strength), body_vel_at(), bc_ok,
+                bc_n, bc_w, e_center, e_invm, e_invI, ia, ib, c_ok, c_n, c_w,
                 apply_body_impulse, body_dv, body_dw, plan_g, plan_ib)
 
         if cfg.has_wall:
@@ -1670,29 +1895,32 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
 
         if cfg.has_rigid:
             # ---- rigid groups move as rigid bodies (ref SolveRigid) ----
-            vel = _solve_rigid(group, gflags, alive, pos, vel, mass, plan_g)
+            vel = _solve_rigid(group, gflags, alive, pos, vel, g_mass,
+                               plan_g)
 
         # ---- collision anti-tunnelling (ref SolveCollision) ----
         if polygons_only:
             vel = _tunnel_polygons(pos, vel, dt, inv_dt, alive, bs_valid,
                                    s_origin, s_rot, s_verts, s_normals,
-                                   s_count, cull)
+                                   s_count, cull, W)
         else:
             vel = _tunnel_analytic(pos, vel, dt, inv_dt, alive, bs_valid,
                                    s_origin, s_rot, sh.type[bs_idx],
                                    s_verts, s_normals, s_count, s_radius,
-                                   cfg.geom_types)
+                                   cfg.geom_types, W)
 
         # ---- barrier segments block crossing (ref SolveBarrier) ----
         if cfg.has_barrier and bar_lanes.numel():
             vel = _solve_barrier(pr_a[bar_lanes], pr_b[bar_lanes],
                                  pt.pair_flags[bar_lanes], group, alive,
-                                 prm.radius, pos, vel, dt)
+                                 lane_v(prm.radius), pos, vel, dt,
+                                 same_world if batched else None)
 
         if cfg.has_colormix:
             # ---- colour mixing (ref SolveColorMixing :2243; :1359-1365) -
             mix = ((c_flags & P_COLOR_MIXING) != 0) & c_ok
-            dcol = 0.5 * prm.color_mixing_strength * (col[ib] - col[ia])
+            dcol = pair_c(0.5 * prm.color_mixing_strength) * (
+                col[ib] - col[ia])
             dcol = torch.where(mix[:, None], dcol, 0.0)
             col = pair_add(col, dcol, -dcol)
 
@@ -1754,9 +1982,9 @@ def particle_step(pt: Particles, state: WorldState, dt, cfg: ParticleConfig,
 
 
 def _rigid_damping(group, gflags, alive, flags, pos, vel, mass, inv_mass,
-                   damping, body_v, bc_ok, bc_n, bc_w, e_center, e_invm,
-                   e_invI, ia, ib, c_ok, c_n, c_w, apply_body_impulse,
-                   body_dv, body_dw, plan_g, plan_ib):
+                   damping, damping_pairs, body_v, bc_ok, bc_n, bc_w,
+                   e_center, e_invm, e_invI, ia, ib, c_ok, c_n, c_w,
+                   apply_body_impulse, body_dv, body_dw, plan_g, plan_ib):
     """Rigid-group damping (ref SolveRigidDamping :1916-1977;
     box2d_tpu/particles.py:1261-1339): the impulses of (a) rigid-group
     against body contacts and (b) contacts across groups where either side
@@ -1767,7 +1995,9 @@ def _rigid_damping(group, gflags, alive, flags, pos, vel, mass, inv_mass,
     partners' through plan_ib), then per group through plan_g (the
     SegmentPlan of the particles' groups); lanes of a side that is not
     rigid add zeros, where the reference sends them to the last group.
-    Returns (vel, body_dv, body_dw)."""
+    mass is the particle mass at each group, inv_mass and damping at each
+    particle and damping_pairs at each lane of the flat pair view (each
+    0-d in one world). Returns (vel, body_dv, body_dw)."""
     (in_rigid, ngrp, g_center, g_linvel, g_omega, g_invm,
      g_invI) = _rigid_group_stats(group, gflags, alive, pos, vel, mass,
                                   plan_g)
@@ -1795,7 +2025,8 @@ def _rigid_damping(group, gflags, alive, flags, pos, vel, mass, inv_mass,
     td_b = m.cross(pos[:, None, :] - e_center, bc_n)
     ksum = (g_invm[gp][:, None] + g_invI[gp][:, None] * td_a * td_a
             + e_invm + e_invI * td_b * td_b)
-    f = damping * torch.clamp(bc_w, max=1.0) * _safe_div(vn, ksum)
+    f = _lanes(damping, 2) * torch.clamp(bc_w, max=1.0) * _safe_div(vn,
+                                                                     ksum)
     f = torch.where(act & (ksum > 0), f, 0.0)
     glin_d = _segment_add(glin_d, plan_g, _tree_sum(
         (f * g_invm[gp][:, None])[..., None] * bc_n))
@@ -1829,7 +2060,7 @@ def _rigid_damping(group, gflags, alive, flags, pos, vel, mass, inv_mass,
     vn_p = m.dot(vb_l - va_l, c_n)
     actp = c_ok & (ga != gb) & (a_r | b_r) & (vn_p < 0)
     ksum_p = ima + iia * tda * tda + imb + iib * tdb * tdb
-    fp = damping * c_w * _safe_div(vn_p, ksum_p)
+    fp = damping_pairs * c_w * _safe_div(vn_p, ksum_p)
     fp = torch.where(actp & (ksum_p > 0), fp, 0.0)
     # side A gets +fp, side B gets -fp (ref ApplyDamping)
     glin_d = _segment_add(glin_d, plan_g, rows(

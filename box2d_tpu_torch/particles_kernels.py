@@ -13,6 +13,11 @@ csrc/particles.cu run inside each particle sub-iteration:
   overflow count is always 0). The kernel stages each 256-lane block's
   union of ranges in shared memory when it fits (`k3_block_paths` says
   which blocks do).
+- `window_pass_batched` (K3 batched, replaces `window_pass` as jax.vmap of
+  the particle step traces it, with a batch axis on its grid and one
+  scalar row a world): the same kernel over W worlds' tables in one
+  launch, a world a row of the grid; world w's result is what
+  `window_pass` gives on world w's table.
 - `rank_pass` (K4, replaces `particles_pallas._rank_kernel` / `rank_pass`):
   the nearly-sorted rank repair, the new sorted position of every lane as
   a windowed rank over the previously sorted key table; with
@@ -32,7 +37,7 @@ import os
 
 import torch
 
-from .cuda_build import HERE, nvcc_build
+from .cuda_build import HERE, nvcc_build, twin
 
 B_BLK = 256
 # the candidate records a K3 block stages in shared memory
@@ -44,6 +49,7 @@ INT32_MAX = (1 << 31) - 1
 
 # kernel launches made by the wrappers (the twins do not count)
 K3_LAUNCHES = 0
+K3_BATCHED_LAUNCHES = 0
 K4_LAUNCHES = 0
 
 SOURCE = os.path.join(HERE, "csrc", "particles.cu")
@@ -61,6 +67,9 @@ def build() -> ctypes.CDLL:
     lib.b2t_particle_window.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.b2t_particle_window.restype = ctypes.c_int
+    lib.b2t_particle_window_batched.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.b2t_particle_window_batched.restype = ctypes.c_int
     lib.b2t_particle_rank.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.b2t_particle_rank.restype = ctypes.c_int
@@ -138,13 +147,61 @@ def window_pass(pos, skey, alive, p0, p1, scalars, phase: int,
     return out
 
 
+def window_pass_batched(pos, skey, alive, p0, p1, scalars, phase: int,
+                        paths=None):
+    """window_pass over W worlds' tables in one launch: pos (W, n, 2) f32,
+    skey (W, n) i32 (each world's row ascending), alive (W, n) bool, p0 /
+    p1 (W, n) f32, scalars (W, 8) f32, one row a world. Returns (W, n, 2)
+    f32; world w's rows are what window_pass returns for world w's table
+    and scalar row, and no particle sees another world's neighbour. paths
+    counts the blocks of all worlds."""
+    global K3_BATCHED_LAUNCHES
+    n_w, n = skey.shape
+    dev = pos.device
+    f32 = torch.float32
+    _check("window_pass_batched", dev, [
+        (pos, (n_w, n, 2), f32), (skey, (n_w, n), torch.int32),
+        (alive, (n_w, n), torch.bool), (p0, (n_w, n), f32),
+        (p1, (n_w, n), f32), (scalars, (n_w, 8), f32)])
+    if paths is not None:
+        _check("window_pass_batched", dev, [(paths, (2,), torch.int32)])
+    if phase not in (PH_WEIGHT, PH_PRESSURE, PH_DAMPING):
+        raise ValueError(f"window_pass_batched: unknown phase {phase}")
+    if n_w > 65535:
+        raise ValueError(f"window_pass_batched: {n_w} worlds (at most "
+                         f"65535, the grid's y)")
+    if dev.type == "cpu":
+        if paths is not None:
+            paths += torch.tensor(k3_block_paths(skey, alive),
+                                  dtype=torch.int32)
+        return window_pass_batched_reference(pos, skey, alive, p0, p1,
+                                             scalars, phase)
+    if dev.type != "cuda":
+        raise ValueError(f"window_pass_batched: unsupported device {dev}")
+    lib = build()
+    out = torch.empty((n_w, n, 2), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.b2t_particle_window_batched(
+            pos.data_ptr(), skey.data_ptr(), alive.data_ptr(),
+            p0.data_ptr(), p1.data_ptr(), scalars.data_ptr(),
+            out.data_ptr(), 0 if paths is None else paths.data_ptr(), n,
+            n_w, phase, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"window_pass_batched kernel launch failed: cudaError {rc}")
+    if n > 0 and n_w > 0:
+        K3_BATCHED_LAUNCHES += 1
+    return out
+
+
 def neighbour_ranges(skey, alive):
     """For each sorted lane and each row offset d of (0, +1, -1): the lane
     range [start, end) of the sorted table holding the cells
     (row + d, col - 1) .. (row + d, col + 1). Targets are formed in int64
     and clamped to int32, as particles_pallas.block_offsets clamps them;
     a row outside the 16-bit range, or a dead lane, gets an empty range.
-    Returns a list of three (start, end) int64 pairs."""
+    skey and alive are one table (n,) or W tables (W, n), each searched
+    alone. Returns a list of three (start, end) int64 pairs."""
     row = (skey >> 16).to(torch.int64)
     col = (skey & 0xFFFF).to(torch.int64)
     lo_c = torch.clamp(col - 1, min=0)
@@ -167,69 +224,105 @@ def k3_block_paths(skey, alive):
     memory, by the kernel's rule: a block stages when its three unions of
     neighbour ranges (one lane range per row offset, from the least lower
     key to the largest upper key of its lanes) hold at most K3_STAGE lanes
-    together."""
-    n = skey.shape[0]
+    together. skey and alive are one table (n,) or W tables (W, n), whose
+    blocks are counted together."""
+    n = skey.shape[-1]
     nbk = -(-n // B_BLK)
-    total = torch.zeros(nbk, dtype=torch.int64, device=skey.device)
+    skey, alive = skey.reshape(-1, n), alive.reshape(-1, n)
+    total = torch.zeros((skey.shape[0], nbk), dtype=torch.int64,
+                        device=skey.device)
     blocks = lambda x: torch.nn.functional.pad(
-        x, (0, nbk * B_BLK - n)).view(nbk, B_BLK)
+        x, (0, nbk * B_BLK - n)).view(x.shape[0], nbk, B_BLK)
     row = (skey >> 16).to(torch.int64)
     for d, (start, end) in zip((0, 1, -1), neighbour_ranges(skey, alive)):
         # the lanes that search row + d (an empty range counts too)
         has = blocks(alive & (row + d >= -32768) & (row + d <= 32767))
-        lo = torch.where(has, blocks(start), n).min(dim=1).values
-        hi = torch.where(has, blocks(end), -1).max(dim=1).values
-        total += torch.where(has.any(dim=1), hi - lo, 0)
+        lo = torch.where(has, blocks(start), n).min(dim=2).values
+        hi = torch.where(has, blocks(end), -1).max(dim=2).values
+        total += torch.where(has.any(dim=2), hi - lo, 0)
     staged = int((total <= K3_STAGE).sum())
-    return staged, nbk - staged
+    return staged, total.numel() - staged
 
 
 def window_pass_reference(pos, skey, alive, p0, p1, scalars, phase: int):
     """The kernel's function in plain PyTorch: the same ranges
     (torch.searchsorted), the candidates of each range visited in lane
     order (padded to the widest range and masked), the same arithmetic in
-    the same order, so it sums exactly as the kernel does."""
-    n = skey.shape[0]
-    inv_d, d2max, lin_d, quad_d, vel_per_p = (scalars[k] for k in range(5))
-    lane = torch.arange(n, device=pos.device)
-    px, py = pos[:, 0], pos[:, 1]
-    zero = torch.zeros(n, dtype=torch.float32, device=pos.device)
+    the same order, so it sums exactly as the kernel does. It is the
+    one-world case of window_pass_batched_reference."""
+    return window_pass_batched_reference(
+        pos[None], skey[None], alive[None], p0[None], p1[None],
+        scalars[None], phase)[0]
+
+
+@twin
+def window_pass_batched_reference(pos, skey, alive, p0, p1, scalars,
+                                  phase: int):
+    """window_pass_batched in plain PyTorch: W tables (W, n), each with its
+    scalar row, their ranges searched in their own table. The terms of
+    every candidate of a range (up to the widest range of any world,
+    masked past each lane's own) are computed at once, then added to each
+    lane's sum in lane order, one candidate after the other: the kernel's
+    operations and order. A world whose ranges are narrower adds masked
+    zeros past its own widest, which leave its sums as they are (a
+    running sum that starts at +0 never holds -0), so world w equals the
+    one-world twin on world w bit for bit."""
+    n_w, n = skey.shape
+    dev = pos.device
+    inv_d, d2max, lin_d, quad_d, vel_per_p = (scalars[:, k, None, None]
+                                              for k in range(5))
+    lane = torch.arange(n, device=dev)[:, None]
+    # one row a lane of every world: (x, y, p0, p1) and alive
+    table = torch.stack([pos[..., 0], pos[..., 1], p0, p1],
+                        dim=-1).reshape(n_w * n, 4)
+    alive_all = alive.reshape(-1)
+    base = (torch.arange(n_w, device=dev) * n)[:, None, None]
+    px, py = pos[..., 0, None], pos[..., 1, None]
+    my0, my1 = p0[..., None], p1[..., None]
+    zero = torch.zeros((n_w, n), dtype=torch.float32, device=dev)
     ox, oy = zero, zero
     for start, end in neighbour_ranges(skey, alive):
         width = int((end - start).max()) if n else 0
         sx, sy = zero, zero
-        for k in range(width):
-            j = start + k
+        if width > 0:
+            j = start[..., None] + torch.arange(width, device=dev)
             jc = torch.clamp(j, max=n - 1)
-            dx = px[jc] - px
-            dy = py[jc] - py
+            at = (jc + base).reshape(-1)
+            c = table[at].reshape(n_w, n, width, 4)
+            dx = c[..., 0] - px
+            dy = c[..., 1] - py
             d2 = dx * dx + dy * dy
-            valid = (j < end) & (jc != lane) & alive[jc] & (d2 < d2max)
+            valid = ((j < end[..., None]) & (jc != lane)
+                     & alive_all[at].reshape(n_w, n, width) & (d2 < d2max))
             invdist = torch.where(
                 d2 > 0, 1.0 / torch.sqrt(torch.clamp(d2, min=1e-30)), 0.0)
             w = 1.0 - d2 * invdist * inv_d
             if phase == PH_WEIGHT:
-                sx = sx + torch.where(valid, w, 0.0)
-                continue
-            nx = dx * invdist
-            ny = dy * invdist
-            if phase == PH_PRESSURE:
-                fh = vel_per_p * w * (p0 + p0[jc])
-                fx, fy = fh * nx, fh * ny
+                tx, ty = torch.where(valid, w, 0.0), None
             else:
-                vn = (p0[jc] - p0) * nx + (p1[jc] - p1) * ny
-                valid = valid & (vn < 0)
-                damp = torch.maximum(lin_d * w,
-                                     torch.clamp(-quad_d * vn, max=0.5))
-                f = damp * vn
-                fx, fy = f * nx, f * ny
-            sx = sx + torch.where(valid, fx, 0.0)
-            sy = sy + torch.where(valid, fy, 0.0)
+                nx = dx * invdist
+                ny = dy * invdist
+                if phase == PH_PRESSURE:
+                    fh = vel_per_p * w * (my0 + c[..., 2])
+                    fx, fy = fh * nx, fh * ny
+                else:
+                    vn = (c[..., 2] - my0) * nx + (c[..., 3] - my1) * ny
+                    valid = valid & (vn < 0)
+                    damp = torch.maximum(lin_d * w,
+                                         torch.clamp(-quad_d * vn, max=0.5))
+                    f = damp * vn
+                    fx, fy = f * nx, f * ny
+                tx = torch.where(valid, fx, 0.0)
+                ty = torch.where(valid, fy, 0.0)
+            for k in range(width):
+                sx = sx + tx[..., k]
+                if ty is not None:
+                    sy = sy + ty[..., k]
         if phase == PH_PRESSURE:
             ox, oy = ox + -sx, oy + -sy
         else:
             ox, oy = ox + sx, oy + sy
-    return torch.stack([ox, oy], dim=1)
+    return torch.stack([ox, oy], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +395,7 @@ def rank_pass(newkey, offs, rb: int):
     return out
 
 
+@twin
 def rank_pass_reference(newkey, offs, rb: int, blocks_per_chunk: int = 8):
     """The kernel's windowed count in plain PyTorch, a few blocks at a time
     so that the (blocks, 256, rb) compare stays bounded."""

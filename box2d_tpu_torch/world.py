@@ -155,7 +155,7 @@ def make_batched_step(capacity: Capacity, classes_present: frozenset,
     """The step of a batch of worlds of one configuration, each tensor of
     its state with a leading world axis: the counterpart of jax.vmap of
     the JAX step (batch.py; `kw` are make_step's joint_types, sensor_ids,
-    custom_filter and pre_solve, and particle_cfg, which it refuses)."""
+    custom_filter, pre_solve and particle_cfg)."""
     from .batch import make_batched_step as make
 
     return make(capacity, classes_present, substeps, continuous, **kw)

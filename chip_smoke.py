@@ -90,7 +90,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    joint sweep, and 64 x dam_break(500) and 8 x dam_break(12000) through
    K3 and K4 with per-block shape culling (a culled step held to the
    CPU's, overflow count included; at 64 x dam_break(500) the culled
-   coupling held to the dense one with slots enough for every block).
+   coupling held to the dense one with slots enough for every block);
+   then the vmapped particle worlds (make_batched_step with a
+   particle_cfg): (h) 64 x dam_break(500) for 120 steps and (i) 8 x
+   dam_break(12000) for 60, each world perturbed (particles jittered,
+   pressure, damping and density scaled apart), from spawn after a warm
+   run: one batched K3 launch a phase for all worlds (12 a step), no K4;
+   steps/s, particle-steps/s, reads, launches and the device's idle share
+   a step beside the flat batch of the same size; the batched launch
+   against its W single launches and itself (bit for bit) and its twin
+   (1e-5), timed; worlds 0, 1 and W - 1 in lockstep with the single-world
+   step for 30 steps (counts, alive and overflow equal, floats 1e-5);
+   and 8 worlds of every_gate_tank(600) (groups, a barrier, a box) equal
+   bit for bit to the single-world gated step, running free, at each of
+   10 steps, one batched solver launch a rigid work step.
 7. particle groups (the gated particle path: the windowed neighbour
    pipeline and every flag-gated pass, no K3 or K4; the tank's boxes
    through the solver kernel): (a) groups_tank(100000), BASELINE.json
@@ -226,6 +239,21 @@ FLAT_PARTICLE_STEPS = 30
 # the culled coupling against the dense one, the CPU test's bound
 # (tests/test_particles.py test_block_culled_body_coupling_matches_dense)
 CULL_RTOL, CULL_ATOL = 1e-5, 5e-5
+# the vmapped particle worlds, phase 6 (h) and (i): bench.py's two flat
+# particle batches (:173-186, :238-241) as batches of worlds (worlds,
+# particles a world, timed steps), each world a perturbed dam_break (its
+# particles jittered, its pressure, damping and density scaled apart by up
+# to VPART_SPREAD), stepped through make_batched_step; the worlds of
+# VPART_LOCKSTEP held to the single-world step in lockstep for
+# VPART_LOCKSTEP_STEPS steps. Then the gated batch: VPART_GATED worlds of
+# port_fixtures.every_gate_tank at a small count, running free beside
+# the single-world gated step for VPART_GATED_STEPS steps
+VPART = ((64, 500, 120), (8, 12000, 60))
+VPART_WARM = 5
+VPART_SPREAD = 0.2
+VPART_LOCKSTEP_STEPS = 30
+VPART_GATED = (8, 600)
+VPART_GATED_STEPS = 10
 
 
 def phase_device():
@@ -293,9 +321,7 @@ def _bound_ms(args):
         jlive = int((joints.idx[0] >= 0).sum())
         nbytes += 4 * (jlive * (2 + 39 + 9 + 9 + 1) + joints.offsets.numel())
         flops += jlive * 3 * nsub * FLOP_JOINT_LANE_STAGE
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound_of(nbytes, flops)
 
 
 def _ptxas_kernels(log):
@@ -628,6 +654,31 @@ def _k3_bound_ms(args, phase):
     phase's terms for every neighbour within one diameter). Returns (ms,
     "bytes" or "operations", live lanes, candidates, neighbours, widest
     range)."""
+    nbytes, flops, *counts = _k3_work(args, phase)
+    return _bound_of(nbytes, flops) + tuple(counts)
+
+
+def _k3_batched_bound_ms(args, phase):
+    """_k3_bound_ms of one batched K3 call: the bytes and operations of all
+    its worlds' tables, each read once. Returns (ms, "bytes" or
+    "operations", candidates)."""
+    work = [_k3_work(tuple(a[w] for a in args[:6]), phase)
+            for w in range(args[1].shape[0])]
+    return _bound_of(sum(x[0] for x in work), sum(x[1] for x in work)) + (
+        sum(x[3] for x in work),)
+
+
+def _bound_of(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of bytes over the memory
+    rate and operations over the float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k3_work(args, phase):
+    """(bytes, float operations, live lanes, candidates, neighbours, widest
+    range) of one K3 call on one table (see _k3_bound_ms)."""
     from box2d_tpu_torch import particles_kernels as pk
 
     pos, skey, alive = args[0], args[1], args[2]
@@ -650,10 +701,7 @@ def _k3_bound_ms(args, phase):
     nbytes = n * (reads + 8) + 32
     flops = (candidates * FLOP_K3_CANDIDATE
              + neighbours * FLOP_K3_NEIGHBOUR[phase])
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return by + (live, candidates, neighbours, widest)
+    return nbytes, flops, live, candidates, neighbours, widest
 
 
 def phase_particle_kernels():
@@ -752,14 +800,11 @@ def phase_particle_kernels():
     # (int32 compares, counted at the float32 rate: the card's published
     # peaks give no int32 rate)
     ops = n + moved * math.ceil(math.log2(rb))
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_PER_S * 1e3
     k4 = dict(err=err, ms=_time_ms(lambda: pk.rank_pass(newkey, offs, rb)),
               plain_ms=_time_ms(
                   lambda: pk.rank_pass_reference(newkey, offs, rb)),
               library_ms=_time_ms(lambda: library_rank(newkey)))
-    k4["bound_ms"], k4["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                                      else (t_ops, "operations"))
+    k4["bound_ms"], k4["bound_by"] = _bound_of(nbytes, ops)
     print(f"[kernel] K4, {cases[0][0]}: n={n} blocks={offs.shape[0]} "
           f"window={rb} lanes that move={moved}; median of {TIMED_CALLS} "
           f"calls: kernel {k4['ms']:.4f} ms, twin {k4['plain_ms']:.4f} ms, "
@@ -930,6 +975,16 @@ TANK = (((0.0, -0.25), (4.0, 0.25)), ((-4.0, 2.75), (0.25, 3.0)),
         ((4.0, 2.75), (0.25, 3.0)))
 
 
+def _in_tank_box(p, r):
+    """The particles of p (..., 2) inside a box of the dam_break tank
+    shrunk by the radius r."""
+    hit = np.zeros(p.shape[:-1], bool)
+    for (cx, cy), (hx, hy) in TANK:
+        hit |= ((np.abs(p[..., 0] - cx) < hx - r)
+                & (np.abs(p[..., 1] - cy) < hy - r))
+    return hit
+
+
 def phase_particle_path():
     """dam_break(PARTICLES) from spawn: one warm run, then the timed run of
     PARTICLE_STEPS steps with the launch counts set to 0 just before it and
@@ -974,16 +1029,8 @@ def phase_particle_path():
     # wall; they are counted, and must have been pushed out by the end
     r = float(leaves["particles.params.radius"])
     spawn = state0.particles.pos.cpu().numpy()
-
-    def in_tank_box(p):
-        hit = np.zeros(len(p), bool)
-        for (cx, cy), (hx, hy) in TANK:
-            hit |= ((np.abs(p[:, 0] - cx) < hx - r)
-                    & (np.abs(p[:, 1] - cy) < hy - r))
-        return hit
-
-    born_inside = in_tank_box(spawn)
-    now_inside = in_tank_box(pos)
+    born_inside = _in_tank_box(spawn, r)
+    now_inside = _in_tank_box(pos, r)
     tunnelled = int((now_inside & ~born_inside).sum())
     assert tunnelled == 0, f"{tag}: {tunnelled} particles tunnelled"
     assert not now_inside.any(), (
@@ -1639,8 +1686,9 @@ def _small_worlds_against_cpu():
 def phase_batching():
     """Batches of worlds (box2d_tpu_torch/batch.py) and flat batches
     (scenes.replicate). Returns the batched solver's row of the kernels
-    line, the batched joint launch's rows at 64 and 1,024 worlds, and the
-    launches of the other kernels on these paths."""
+    line, the batched joint launch's rows at 64 and 1,024 worlds, the
+    batched window pass's rows at (h) and (i), and the launches of the
+    other kernels on these paths."""
     t0 = time.perf_counter()
     row = _vmapped_batch()
     print(f"[batch] vmapped batch done in {time.perf_counter() - t0:.1f} s")
@@ -1648,9 +1696,15 @@ def phase_batching():
     t1 = time.perf_counter()
     launches = _flat_batches()
     launches.update(_rl_loop())
-    launches.update(_flat_particle_batches())
+    flat_launches, flat_rates = _flat_particle_batches()
+    launches.update(flat_launches)
     print(f"[batch] flat batches done in {time.perf_counter() - t1:.1f} s")
-    return row, jrows, launches
+    t2 = time.perf_counter()
+    prows, plaunches = _vmapped_particles(flat_rates)
+    launches.update(plaunches)
+    print(f"[batch] vmapped particle worlds done in "
+          f"{time.perf_counter() - t2:.1f} s")
+    return row, jrows, prows, launches
 
 
 def _batch_setup(rows, device="cuda"):
@@ -1700,9 +1754,7 @@ def _batched_bound_ms(args):
         nbytes += 4 * (jlive * (2 + 39 + 9 + 9 + 1) + joints.offsets.numel()
                        + joints.overflow.numel())
         flops += jlive * 3 * nsub * FLOP_JOINT_LANE_STAGE
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return _bound_of(nbytes, flops)
 
 
 def _perturbed_args(base, n_w, seed, bstep, kick_body=5):
@@ -2439,13 +2491,14 @@ def _rl_loop():
 def _flat_particle_batches():
     """64 x dam_break(500) and 8 x dam_break(12000) tiled into one world
     each: per-block shape culling on, K3 and K4; then the culled coupling
-    held to the dense one for one step."""
+    held to the dense one for one step. Returns (launches, steps/s of
+    each)."""
     from box2d_tpu_torch import particles as tpart
     from box2d_tpu_torch import particles_kernels as pk
     from box2d_tpu_torch import scenes, world
     from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
 
-    out = {}
+    out, rates = {}, {}
     for n_w, n in FLAT_PARTICLES:
         tag = f"{n_w} x dam_break-{n} flat"
         w = scenes.replicate(scenes.dam_break(n, device="cuda"), n_w)
@@ -2531,7 +2584,257 @@ def _flat_particle_batches():
               f"ROADMAP section 3); {note}")
         out[f"{tag} K3"] = k3
         out[f"{tag} K4"] = k4
-    return out
+        rates[(n_w, n)] = (sps, st.syncs / st.steps)
+    return out, rates
+
+
+def _compare_worlds(got, want, exact_only=False):
+    """Two single-world states leaf by leaf: discrete leaves (counts, ids,
+    flags, alive) must be equal; returns (the largest float difference,
+    whether every float leaf is equal bit for bit)."""
+    from box2d_tpu_torch.state import state_to_numpy
+
+    a, b = state_to_numpy(got), state_to_numpy(want)
+    assert sorted(a) == sorted(b)
+    worst, same = 0.0, True
+    for key in b:
+        if b[key].dtype.kind != "f":
+            assert np.array_equal(a[key], b[key]), f"{key} differs"
+            continue
+        if a[key].tobytes() != b[key].tobytes():
+            same = False
+            assert not exact_only, f"{key} differs"
+            if a[key].size:
+                worst = max(worst, float(np.abs(a[key] - b[key]).max()))
+    return worst, same
+
+
+def _record_batched_k3(bstep, batch):
+    """The three batched K3 calls (weight, pressure, damping) of the first
+    sub-iteration of one step of `bstep` from `batch`."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    calls = []
+    window = pk.window_pass_batched
+    pk.window_pass_batched = lambda *a: calls.append(a) or window(*a)
+    try:
+        bstep(batch, 1 / 60)
+    finally:
+        pk.window_pass_batched = window
+    assert [a[6] for a in calls[:3]] == [0, 1, 2], "K3 phases not recorded"
+    return calls[:3]
+
+
+def _batched_k3_check(tag, calls, row):
+    """The batched K3 launch on recorded inputs against its W single
+    launches and itself (bit for bit) and its twin run on the card (1e-5),
+    with the blocks of each path counted; then timed against the twin and
+    the W single launches one after another. Adds to `row`."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    for args, pname in zip(calls, ("weight", "pressure", "damping")):
+        n_w, phase = args[1].shape[0], args[6]
+        paths = torch.zeros(2, dtype=torch.int32, device="cuda")
+        kern = pk.window_pass_batched(*args, paths=paths)
+        again = pk.window_pass_batched(*args)
+
+        def singles():
+            return torch.stack([pk.window_pass(*(a[w] for a in args[:6]),
+                                               phase) for w in range(n_w)])
+
+        one = singles()
+        twin = pk.window_pass_batched_reference(*args)
+        torch.cuda.synchronize()
+        err = float((kern - twin).abs().max())
+        assert torch.equal(kern, again), f"{tag} K3 {pname}: not repeatable"
+        assert torch.equal(kern, one), f"{tag} K3 {pname}: not the singles'"
+        torch.testing.assert_close(kern, twin, atol=1e-5, rtol=0)
+        assert float(kern.abs().max()) > 0, f"{tag} K3 {pname}: all zero"
+        assert paths.tolist() == list(pk.k3_block_paths(args[1], args[2]))
+        bound_ms, bound_by, cand = _k3_batched_bound_ms(args, phase)
+        ms = _time_ms(lambda: pk.window_pass_batched(*args))
+        plain_ms = _time_ms(lambda: pk.window_pass_batched_reference(*args))
+        loop_ms = _time_ms(singles)
+        print(f"[batch] K3 batched {pname}, {tag}: {n_w} worlds x "
+              f"{args[1].shape[1]} lanes, candidates {cand}, blocks staged "
+              f"/ global {paths.tolist()}; equal bit for bit to its "
+              f"{n_w} single launches and to itself, max |kernel - twin| "
+              f"{err:.3e}; median of {TIMED_CALLS} calls: kernel {ms:.4f} "
+              f"ms, the {n_w} single launches {loop_ms:.4f} ms, twin "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+        row["err"] = max(row["err"], err)
+        row["ms"].append(ms)
+        row["plain_ms"].append(plain_ms)
+        row["bound_ms"].append(bound_ms)
+        row["bound_by"].add(bound_by)
+
+
+def _vmapped_particles(flat_rates):
+    """Phase 6 (h), (i): VPART's batches of dam_break worlds through
+    make_batched_step: the timed run from spawn (one batched K3 launch a
+    phase for all worlds, 12 a step, no K4, no single K3), its rates
+    beside the flat batch of the same size from this run, its launches,
+    reads and device share a step; the batched K3 launch against single
+    launches, itself and its twin; the worlds of VPART_LOCKSTEP in
+    lockstep with the single-world step. Then the gated batch. Returns the
+    kernels line's rows and the launches."""
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.state import (state_from_numpy, state_to_numpy,
+                                       unstack_state)
+
+    rows, launches = [], {}
+    for n_w, n, steps in VPART:
+        tag = f"{n_w} x dam_break-{n} vmapped"
+        w = scenes.dam_break(n, device="cuda")
+        w.compile()
+        cfg = w._step.particle_cfg
+        r = float(w.state.particles.params.radius)
+        leaves0 = perturbed_leaves(state_to_numpy(w.state), n_w, seed=11,
+                                   particle_jitter=0.005,
+                                   param_spread=VPART_SPREAD / n_w)
+        batch0 = state_from_numpy(leaves0, "cuda")
+        n_live = int(batch0.particles.alive.sum())
+
+        def make():
+            return world.make_batched_step(w.capacity, w._classes, 4,
+                                           w._step.continuous,
+                                           particle_cfg=cfg)
+
+        bstep = make()
+        b = batch0
+        for _ in range(VPART_WARM):
+            b = bstep(b, 1 / 60)
+        torch.cuda.synchronize()
+        bstep = make()
+        pk.K3_LAUNCHES = pk.K3_BATCHED_LAUNCHES = pk.K4_LAUNCHES = 0
+        t0 = time.perf_counter()
+        b = batch0
+        for _ in range(steps):
+            b = bstep(b, 1 / 60)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k3b, k3, k4 = pk.K3_BATCHED_LAUNCHES, pk.K3_LAUNCHES, pk.K4_LAUNCHES
+        st = bstep.stats
+        assert k3b == 12 * steps, f"{tag}: {k3b} batched K3 launches"
+        assert k3 == 0 and k4 == 0, f"{tag}: K3 {k3}, K4 {k4} launches"
+        assert st.rank_repairs == 0 and st.full_sorts == 4 * steps
+        leaves = state_to_numpy(b)
+        for key, v in leaves.items():
+            if v.dtype.kind == "f":
+                assert np.isfinite(v).all(), f"{tag}: non-finite {key}"
+        alive = leaves["particles.alive"]
+        assert alive.sum() == n_live, f"{tag}: particles died"
+        ov = leaves["profile.overflow_particles"]
+        assert (ov == 0).all(), f"{tag}: particle overflow {ov}"
+        tunnelled = int((_in_tank_box(leaves["particles.pos"], r)
+                         & ~_in_tank_box(leaves0["particles.pos"], r)
+                         & alive).sum())
+        assert tunnelled == 0, f"{tag}: {tunnelled} particles tunnelled"
+        kernels, busy = _device_work(lambda: bstep(b, 1 / 60))
+        sps = steps / wall
+        flat_sps, flat_reads = flat_rates[(n_w, n)]
+        ms_step = 1e3 * wall / steps
+        idle = ("not measured" if busy is None else
+                f"{100 * max(0.0, 1 - busy / ms_step):.1f}%")
+        print(f"[batch] ({'h' if n_w == VPART[0][0] else 'i'}) {tag}: "
+              f"{n_live} live particles in {n_w} worlds; {steps} steps from "
+              f"spawn in {wall:.3f} s: {sps:.2f} steps/s, "
+              f"{sps * n_live:.1f} particle-steps/s (the flat batch of the "
+              f"same size in this run: {flat_sps:.2f} steps/s, "
+              f"{flat_reads:.2f} reads a step); reads/step "
+              f"{st.syncs / st.steps:.2f}; batched K3 launches {k3b} "
+              f"({k3b / steps:.0f}/step), single K3 0, K4 0; rigid work "
+              f"steps {st.steps - st.idle_steps}, solver launches "
+              f"{st.solver_launches}; one step: {kernels} kernels, device "
+              f"busy {busy if busy is None else round(busy, 3)} ms of "
+              f"{ms_step:.3f}, idle {idle}; overflow 0, tunnelled 0")
+        launches[f"{tag} K3 batched"] = k3b
+        row = dict(err=0.0, ms=[], plain_ms=[], bound_ms=[],
+                   bound_by=set(), launches=k3b, tag=tag)
+        _batched_k3_check(tag, _record_batched_k3(bstep, b), row)
+        rows.append(row)
+
+        # lockstep: each world of VPART_LOCKSTEP stepped alone from the
+        # batch's state before each step (the single step without the
+        # rank repair, which the batch never takes)
+        one = world.make_step(w.capacity, w._classes, 4, w._step.continuous,
+                              w._jtypes, cfg._replace(rank_repair=False))
+        lock = tuple(sorted({0, 1, n_w - 1}))
+        b, worst, same = batch0, 0.0, True
+        for _ in range(VPART_LOCKSTEP_STEPS):
+            prev, b = b, bstep(b, 1 / 60)
+            for k in lock:
+                d, eq = _compare_worlds(unstack_state(b, k),
+                                        one(unstack_state(prev, k), 1 / 60))
+                worst, same = max(worst, d), same and eq
+        print(f"[batch] {tag}: worlds {lock} in lockstep with the "
+              f"single-world step for {VPART_LOCKSTEP_STEPS} steps: counts, "
+              f"alive and overflow equal; floats max |d| {worst:.3e}, bit "
+              f"for bit: {same} (the path's index_add_ of the body "
+              f"impulses and its row reductions are float sums)")
+        assert worst <= 1e-5, f"{tag}: lockstep {worst}"
+    launches.update(_vmapped_gated())
+    return rows, launches
+
+
+def _vmapped_gated():
+    """VPART_GATED worlds of every_gate_tank (each with every particle
+    flag, spring, elastic and barrier groups, a solid and a rigid group
+    and a dynamic box) through make_batched_step, running free beside the
+    single-world gated step of each world for VPART_GATED_STEPS steps:
+    equal bit for bit (the gated path's sums run in a fixed order), one
+    batched solver launch a rigid work step, no K3 or K4."""
+    from box2d_tpu_torch import api
+    from box2d_tpu_torch import geometry as g
+    from box2d_tpu_torch import particles_kernels as pk
+    from box2d_tpu_torch import types as t
+    from box2d_tpu_torch import world
+    from box2d_tpu_torch.state import (state_from_numpy, state_to_numpy,
+                                       unstack_state)
+
+    n_w, n = VPART_GATED
+    wg = every_gate_tank(api.World, t, g, particles=n, device="cuda")
+    wg.compile()
+    cfg = wg._step.particle_cfg
+    assert cfg.has_barrier and cfg.has_rigid and cfg.has_solid
+    tag = (f"{n_w} x every_gate_tank-"
+           f"{int(wg.state.particles.alive.sum())} vmapped")
+    b = state_from_numpy(perturbed_leaves(
+        state_to_numpy(wg.state), n_w, seed=13, particle_jitter=0.005,
+        param_spread=VPART_SPREAD / n_w), "cuda")
+    bstep = world.make_batched_step(wg.capacity, wg._classes, 4,
+                                    wg._step.continuous,
+                                    joint_types=wg._jtypes,
+                                    particle_cfg=cfg)
+    singles = [unstack_state(b, k) for k in range(n_w)]
+    ones = [world.make_step(wg.capacity, wg._classes, 4, wg._step.continuous,
+                            wg._jtypes, cfg) for _ in range(n_w)]
+    pk.K3_LAUNCHES = pk.K3_BATCHED_LAUNCHES = pk.K4_LAUNCHES = 0
+    wall = 0.0
+    for _ in range(VPART_GATED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = bstep(b, 1 / 60)
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        for k in range(n_w):
+            singles[k] = ones[k](singles[k], 1 / 60)
+            _compare_worlds(unstack_state(b, k), singles[k], exact_only=True)
+    st = bstep.stats
+    k3 = pk.K3_LAUNCHES + pk.K3_BATCHED_LAUNCHES + pk.K4_LAUNCHES
+    work = st.steps - st.idle_steps
+    assert k3 == 0, f"{tag}: {k3} K3 / K4 launches"
+    assert work > 0 and st.solver_launches == work, (
+        f"{tag}: {st.solver_launches} solver launches, {work} work steps")
+    print(f"[batch] {tag}: {VPART_GATED_STEPS} batched steps in {wall:.3f} "
+          f"s ({VPART_GATED_STEPS / wall:.2f} steps/s), reads/step "
+          f"{st.syncs / st.steps:.2f}, depth rounds {st.rounds['depth']}; "
+          f"every world equal bit for bit to its single-world gated step, "
+          f"running free, at each of the {VPART_GATED_STEPS} steps; batched "
+          f"solver launches {st.solver_launches} in {work} work steps; K3 "
+          f"0, K4 0")
+    return {f"{tag} solver batched": st.solver_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2865,7 +3168,7 @@ def main():
     print(f"[main] kernel launches on the queries and host-API paths: "
           f"{api_launches}")
     t6 = time.perf_counter()
-    batched, (jbatch, jbatch_big), batch_launches = phase_batching()
+    batched, (jbatch, jbatch_big), prows, batch_launches = phase_batching()
     print(f"[main] kernel launches on the batching paths: {batch_launches}; "
           f"phase 6 in {time.perf_counter() - t6:.1f} s")
     group_launches = phase_particle_groups()
@@ -2977,7 +3280,25 @@ def main():
         "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"],
         "library_ms": None,
-    } for n_w, r in ((RL_WORLDS, jbatch), (RL_BIG_WORLDS, jbatch_big))]}))
+    } for n_w, r in ((RL_WORLDS, jbatch), (RL_BIG_WORLDS, jbatch_big))] + [{
+        # K3 under jax.vmap: one launch a phase for W worlds' tables, at
+        # (h) 64 x dam_break-500 and (i) 8 x dam_break-12000; per launch,
+        # the mean over its three phases; bound from all worlds' tables;
+        # no single PyTorch call computes a neighbour sum
+        "name": name,
+        "route": "cuda",
+        "source": "box2d_tpu_torch/csrc/particles.cu",
+        "replaces": "box2d_tpu/particles_pallas.py:396 (window_pass under "
+                    "jax.vmap, box2d_tpu/particles.py:855-877)",
+        "launches": r["launches"],
+        "max_abs_err": r["err"],
+        "ms": mean(r["ms"]),
+        "plain_ms": mean(r["plain_ms"]),
+        "bound_ms": mean(r["bound_ms"]),
+        "bound_by": "/".join(sorted(r["bound_by"])),
+        "library_ms": None,
+    } for name, r in zip(("particle_window_batched",
+                          "particle_window_batched_8x12000"), prows)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -679,6 +679,33 @@ def every_gate_tank(World, t, g, particles=700, **kw):
     return w
 
 
+def box_tank(World, t, g, particles=300, **kw):
+    """dam_break's tank (box2d_tpu_torch/scenes.py dam_break) with a
+    column of about `particles` particles against its left wall and one
+    dynamic 0.3 m box (density 0.5) resting on the ground at x = 2, clear
+    of the water for the first steps; continuous collision off. A batch
+    of its worlds (perturbed_leaves) moves the box onto the column in one
+    world and puts it to sleep in another. Built through the modules it
+    is given, so both packages build it."""
+    w = World(t.WorldDef(enable_continuous=False), **kw)
+    tank = w.create_body(t.BodyDef(type=0))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(4.0, 0.25, center=(0, -0.25)))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(0.25, 3.0, center=(-4.0, 2.75)))
+    w.create_polygon_shape(tank, t.ShapeDef(),
+                           g.box(0.25, 3.0, center=(4.0, 2.75)))
+    box = w.create_body(t.BodyDef(type=2, position=(2.0, 0.15)))
+    w.create_polygon_shape(box, t.ShapeDef(density=0.5), g.box(0.15, 0.15))
+    radius = 0.05
+    ps = w.create_particle_system(radius=radius)
+    stride = 0.75 * 2.0 * radius
+    side = math.sqrt(particles) * stride
+    ps.create_group_box(center=(-4.0 + side / 2 + 0.3, side / 2 + 0.05),
+                        half_w=side / 2, half_h=side / 2)
+    return w
+
+
 PARTICLE_API = ("destroy_particle", "destroy_particles_in_aabb",
                 "apply_particle_force", "join_particle_groups",
                 "split_particle_group", "stuck_particles")
@@ -729,7 +756,8 @@ def particle_api_case(w, name, numpy_of, put, seed=9):
 
 
 def perturbed_leaves(leaves, n_worlds, seed=0, jitter=0.01, kick=None,
-                     asleep=(), fast=None):
+                     asleep=(), fast=None, particle_jitter=0.0,
+                     param_spread=0.0):
     """A batch of n_worlds copies of one world, as {dotted path: array}
     with a leading world axis (state_to_numpy's layout, so both packages
     can load it). Every copy's dynamic bodies move by up to `jitter` m in
@@ -737,7 +765,12 @@ def perturbed_leaves(leaves, n_worlds, seed=0, jitter=0.01, kick=None,
     kick = (world, body, (vx, vy)) adds that velocity to one body; the
     worlds in `asleep` have every body asleep; fast = (world, body, (vx,
     vy), (x, y)) moves one body's centre there and sets its velocity (a
-    fast body opens the CCD gate)."""
+    fast body opens the CCD gate). A world with particles: every copy's
+    live particles move by up to particle_jitter m (from the same
+    generator, after the bodies), and copy w's pressure and damping
+    strengths and density are scaled by 1 + param_spread * w, 1 -
+    param_spread * w / 2 and 1 + param_spread * w / 4 (each world its own
+    window-pass scalars)."""
     out = {k: np.stack([np.array(v, copy=True)] * n_worlds)
            for k, v in leaves.items()}
     dyn = leaves["bodies.type"] == 2
@@ -745,6 +778,17 @@ def perturbed_leaves(leaves, n_worlds, seed=0, jitter=0.01, kick=None,
         rng = np.random.default_rng(seed + w)
         out["bodies.center"][w][dyn] += rng.uniform(
             -jitter, jitter, (int(dyn.sum()), 2)).astype(np.float32)
+        if particle_jitter:
+            live = out["particles.alive"][w]
+            out["particles.pos"][w][live] += rng.uniform(
+                -particle_jitter, particle_jitter,
+                (int(live.sum()), 2)).astype(np.float32)
+        if param_spread:
+            for key, scale in (("pressure_strength", 1.0),
+                               ("damping_strength", -0.5),
+                               ("density", 0.25)):
+                out["particles.params." + key][w] *= np.float32(
+                    1.0 + scale * param_spread * w)
     if kick is not None:
         w, body, vel = kick
         out["bodies.v"][w, body] += np.asarray(vel, np.float32)

@@ -16,10 +16,10 @@
   worlds'.
 - The batched solver twin against per-world calls of the single twin, on
   the layouts the batched step packs (which equal the single step's).
-- The refusal of particles, and the RL loop of tests/test_rl_demo.py on a
-  flat batch of 8 ragdolls.
+- The RL loop of tests/test_rl_demo.py on a flat batch of 8 ragdolls.
 Jointed, sensor and hooked batches against jax.vmap of the JAX step:
-tests/test_torch_batch_features.py.
+tests/test_torch_batch_features.py; particle worlds:
+tests/test_torch_batch_particles.py.
 Worlds differ from a numpy seed (port_fixtures.perturbed_leaves): identical
 worlds would hide a wrong offset between them. The JAX step compiles once.
 """
@@ -39,7 +39,6 @@ from box2d_tpu_torch import contact_solver as cs
 from box2d_tpu_torch import scenes as tscenes
 from box2d_tpu_torch import world as tworld
 from box2d_tpu_torch.batch import batched_kernel_args
-from box2d_tpu_torch.particles import ParticleConfig
 from box2d_tpu_torch.state import (Capacity, broadcast_state, stack_states,
                                    state_from_numpy, state_to_numpy,
                                    unstack_state)
@@ -228,18 +227,6 @@ def test_batched_twin_matches_single_twins(base):
         rb, ra = cs.contact_solve_reference(*one[:10], single.tail_w)
         assert torch.equal(ob[w], rb) and torch.equal(oa[w], ra), w
     assert int((args[1][:, 0] >= 0).sum()) > 0
-
-
-@pytest.mark.parametrize("what", ["particles"])
-def test_make_batched_step_refuses(base, what):
-    """Particles raise, naming their ROADMAP.md item (joints, sensor
-    shapes and the hooks step: tests/test_torch_batch_features.py)."""
-    cap, classes = base["tcap"], base["classes"]
-    kw, item = {
-        "particles": (dict(particle_cfg=ParticleConfig()), "queue 12b"),
-    }[what]
-    with pytest.raises(NotImplementedError, match=item):
-        tworld.make_batched_step(cap, classes, 4, True, **kw)
 
 
 def test_rl_loop_flat_batch():
