@@ -45,9 +45,12 @@ launches the kernel or raises; there is no fallback.
 in one launch (the counterpart of the mode-1 Pallas kernel under
 jax.vmap, whose grid gains a batch axis): every array gains a leading
 world axis, and world w of the result is what `contact_solve` returns
-for world w's arrays. Its twin, `contact_solve_batched_reference`, sweeps
-all worlds' lanes of a window together: no two worlds share a body, so
-that is each world's own sweep.
+for world w's arrays. `batched_plan` picks its kernel from the capacity:
+the small-world kernel (a group of warps a world, several worlds an SM,
+body rows in shared memory) for worlds whose every pass fits in 1,024
+lanes, else the cluster kernel, a cluster a world. Its twin,
+`contact_solve_batched_reference`, sweeps all worlds' lanes of a window
+together: no two worlds share a body, so that is each world's own sweep.
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -98,6 +102,8 @@ LAUNCHES = 0
 JOINT_LAUNCHES = 0
 BATCHED_LAUNCHES = 0
 BATCHED_JOINT_LAUNCHES = 0
+# batched launches that took the small-world kernel (batched_plan)
+SMALL_LAUNCHES = 0
 
 SOURCE = os.path.join(HERE, "csrc", "contact_solver.cu")
 JOINT_SOURCE = os.path.join(HERE, "csrc", "joint_sweep.cuh")
@@ -123,26 +129,37 @@ def build() -> ctypes.CDLL:
         ctypes.c_void_p]
     fnj.restype = ctypes.c_int
     fnb = lib.b2t_contact_solve_batched
-    fnb.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    fnb.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [
         ctypes.c_void_p]
     fnb.restype = ctypes.c_int
     fnjb = lib.b2t_contact_solve_joints_batched
-    fnjb.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [
+    fnjb.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12 + [
         ctypes.c_void_p]
     fnjb.restype = ctypes.c_int
     lib.b2t_launch_shape.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.b2t_launch_shape.restype = ctypes.c_int
+    lib.b2t_small_shape.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.b2t_small_shape.restype = ctypes.c_int
     lib.ptxas_log = log
     _LIB = lib
     return lib
 
 
-def launch_shape(joints: bool, batched: bool = False) -> dict:
+def launch_shape(joints: bool, batched: bool = False,
+                 plan: BatchedPlan | None = None) -> dict:
     """The kernel's launch on the current card: `cluster` CTAs of `threads`
     threads, one cluster a launch (a world, in a batched launch), and
     `max_active_clusters`, how many such clusters the card can hold at
     once (cudaOccupancyMaxActiveClusters). Raises if the cluster does not
-    fit. Asked once per process and instance (joints, batched)."""
+    fit. For a batched plan on the small-world path: `threads_per_world`,
+    `worlds_per_cta`, `threads` a CTA, `smem_per_cta`, `ctas_per_sm` the
+    card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+    `sms`, `resident_ctas` and `resident_worlds`, and the kernel
+    instance's `registers` and `local_bytes` a thread (spills land in
+    local memory). Raises if no such CTA fits. Asked once per process and
+    instance (joints, batched, plan)."""
+    if plan is not None and plan.path == "small":
+        return _small_shape(bool(joints), plan)
     key = (3 if joints else 2) if batched else int(bool(joints))
     if key not in _SHAPES:
         out = (ctypes.c_int * 3)()
@@ -155,6 +172,83 @@ def launch_shape(joints: bool, batched: bool = False) -> dict:
                                f"card (cudaError {rc}, {out[2]} clusters)")
         _SHAPES[key] = shape
     return _SHAPES[key]
+
+
+def _small_shape(joints: bool, plan: BatchedPlan) -> dict:
+    key = (joints, plan)
+    if key not in _SHAPES:
+        out = (ctypes.c_int * 5)()
+        threads = plan.threads_per_world * plan.worlds_per_cta
+        rc = build().b2t_small_shape(int(joints), plan.threads_per_world,
+                                     plan.worlds_per_cta, plan.nb,
+                                     ctypes.addressof(out))
+        if rc != 0 or out[0] < 1:
+            raise RuntimeError(
+                f"contact_solve_batched: a small-world CTA of {threads} "
+                f"threads and {out[4]} bytes of shared memory does not fit "
+                f"on this card (cudaError {rc}, {out[0]} CTAs an SM)")
+        _SHAPES[key] = dict(
+            threads_per_world=plan.threads_per_world,
+            worlds_per_cta=plan.worlds_per_cta, threads=threads,
+            smem_per_cta=out[4], ctas_per_sm=out[0], sms=out[1],
+            resident_ctas=out[0] * out[1],
+            resident_worlds=out[0] * out[1] * plan.worlds_per_cta,
+            registers=out[2], local_bytes=out[3])
+    return _SHAPES[key]
+
+
+# ---------------------------------------------------------------------------
+# which kernel a batched launch takes
+# ---------------------------------------------------------------------------
+# The small-world kernel (csrc/contact_solver.cu, solve_small_kernel) and
+# the figures its plan is reckoned with.
+# the widest pass the small kernel takes: at 4 worlds it is faster than
+# the cluster kernel up to 821 lanes (pyramid-40) and slower from 1,584
+# lanes on (joint_farm(300); time_solver.py --paths); more worlds favour
+# it, as the cluster kernel holds 15 worlds at once
+SMALL_LANES = 1024
+GROUP_MAX = 128            # kGroupMax: the small kernel's launch bound
+CTA_THREADS = 128          # a CTA's threads, where a world takes fewer
+
+
+class BatchedPlan(NamedTuple):
+    path: str                # "small" or "cluster"
+    nb: int                  # bodies a world
+    bound: int               # lanes of the capacity's widest pass
+    threads_per_world: int   # the world's group (0 on the cluster path)
+    worlds_per_cta: int
+
+
+@functools.lru_cache(maxsize=None)
+def batched_plan(nb: int, chunk: int, tail_w: int, lj: int = 0) -> BatchedPlan:
+    """The kernel of a batched launch for worlds of this capacity: nb
+    bodies, color chunk `chunk`, tail windows of tail_w lanes and, with
+    joint regions, lj joint lanes (the capacity's max_joints). The bound
+    of the capacity's widest pass is max(nb, chunk + lj, tail_w) (the
+    bodies; a color's bucket and joint segment, one window; a tail
+    window). Where it is at most SMALL_LANES, the small-world kernel,
+    the faster there: a group of threads_per_world threads a world, nb
+    rounded up to a warp (at most GROUP_MAX): a colored window holds at
+    most one live lane a dynamic body, so its lanes and the bodies'
+    passes take one round; worlds_per_cta groups fill a CTA of
+    CTA_THREADS. Its shared memory (the kernel's small_world_bytes: 64
+    bytes a body and a window table, about 66 KB a CTA at nb 1,024) then
+    fits the card's 227 KB opt-in; launch_shape gives it. Else the
+    cluster kernel. Decided once for each capacity."""
+    bound = max(nb, chunk + lj, tail_w)
+    if bound > SMALL_LANES:
+        return BatchedPlan("cluster", nb, bound, 0, 0)
+    group = min(GROUP_MAX, max(32, -(-nb // 32) * 32))
+    return BatchedPlan("small", nb, bound, group, CTA_THREADS // group)
+
+
+def plan_for(args) -> BatchedPlan:
+    """The plan contact_solve_batched takes for its arguments `args`
+    (scalars, idx, data, acc, body, params, nsub, chunk, l0, n_colors,
+    tail_w[, jrows]): batched_plan of their capacity."""
+    jrows = args[11] if len(args) > 11 else None
+    lj = 0 if jrows is None else jrows.data.shape[2]
+    return batched_plan(args[4].shape[2], args[7], args[10], lj)
 
 
 def _check(scalars, idx, data, acc, body, params, chunk, l0, n_colors,
@@ -252,8 +346,9 @@ def contact_solve_batched(scalars, idx, data, acc, body, params, nsub: int,
     NA, L)), and the joint accumulators (W, NAJ, LJ) as a third value when
     `jrows` is given: each world's joint region (JointRows with a leading
     world axis on every array, its `overflow` a (W,) int32 tensor of each
-    world's flag). World w is contact_solve of world w's arrays, each
-    world on a cluster of its own."""
+    world's flag). World w is contact_solve of world w's arrays; the
+    kernel is batched_plan's for the arrays' capacity (on the cluster
+    path, each world on a cluster of its own)."""
     if idx.dim() != 3 or body.dim() != 3:
         raise ValueError("contact_solve_batched takes a leading world axis")
     n_w = body.shape[0]
@@ -281,37 +376,52 @@ def contact_solve_batched(scalars, idx, data, acc, body, params, nsub: int,
     if body.device.type != "cuda":
         raise ValueError(f"contact_solve_batched: unsupported device "
                          f"{body.device}")
-    global BATCHED_LAUNCHES, BATCHED_JOINT_LAUNCHES
+    args = (scalars, idx, data, acc, body, params, nsub, chunk, l0,
+            n_colors, tail_w, jrows)
+    return _launch_batched(args, plan_for(args))
+
+
+def _launch_batched(args, plan: BatchedPlan):
+    """contact_solve_batched's launch of CUDA tensors `args` by `plan`."""
+    global BATCHED_LAUNCHES, BATCHED_JOINT_LAUNCHES, SMALL_LAUNCHES
+    (scalars, idx, data, acc, body, params, nsub, chunk, l0, n_colors,
+     tail_w, jrows) = args
     lib = build()
-    L = data.shape[2]
+    n_w, _, L = data.shape
     nb = body.shape[2]
+    small = plan.path == "small"
     out_body = torch.empty_like(body)
     out_acc = torch.empty_like(acc)
-    jsum = torch.empty((n_w, 4, nb), dtype=torch.int64, device=body.device)
+    # the cluster kernel's Jacobi sums; the small one keeps them in shared
+    # memory
+    jsum = None if small else torch.empty((n_w, 4, nb), dtype=torch.int64,
+                                          device=body.device)
+    shape = (plan.threads_per_world, plan.worlds_per_cta)
     with torch.cuda.device(body.device):
-        launch_shape(jrows is not None, batched=True)
+        launch_shape(jrows is not None, batched=True, plan=plan)
         stream = torch.cuda.current_stream(body.device).cuda_stream
+        common = (scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
+                  acc.data_ptr(), body.data_ptr(), params.data_ptr(),
+                  out_body.data_ptr(), out_acc.data_ptr(),
+                  None if small else jsum.data_ptr())
         if jrows is None:
             rc = lib.b2t_contact_solve_batched(
-                scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
-                acc.data_ptr(), body.data_ptr(), params.data_ptr(),
-                out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
-                n_w, nb, L, chunk, l0, n_colors, nsub, tail_w, stream)
+                *common, n_w, nb, L, chunk, l0, n_colors, nsub, tail_w,
+                *shape, stream)
         else:
             out_jacc = torch.empty_like(jrows.acc)
             rc = lib.b2t_contact_solve_joints_batched(
-                scalars.data_ptr(), idx.data_ptr(), data.data_ptr(),
-                acc.data_ptr(), body.data_ptr(), params.data_ptr(),
-                out_body.data_ptr(), out_acc.data_ptr(), jsum.data_ptr(),
-                jrows.idx.data_ptr(), jrows.data.data_ptr(),
+                *common, jrows.idx.data_ptr(), jrows.data.data_ptr(),
                 jrows.acc.data_ptr(), jrows.type.data_ptr(),
                 jrows.offsets.data_ptr(), out_jacc.data_ptr(),
                 jrows.overflow.data_ptr(), n_w, nb, L, chunk, l0, n_colors,
-                nsub, tail_w, jrows.data.shape[2], JOINT_WINDOW, stream)
+                nsub, tail_w, jrows.data.shape[2], JOINT_WINDOW, *shape,
+                stream)
     if rc != 0:
         raise RuntimeError(f"contact_solve_batched kernel launch failed: "
                            f"cudaError {rc}")
     BATCHED_LAUNCHES += 1
+    SMALL_LAUNCHES += small
     if jrows is None:
         return out_body, out_acc
     BATCHED_JOINT_LAUNCHES += 1

@@ -85,16 +85,42 @@
 // host-bound step are the next levers (ROADMAP.md section 2).
 //
 // Batches: b2t_contact_solve_batched solves W worlds of one capacity in
-// one launch, the arrays stacked world after world, one cluster of
-// kCluster CTAs a world. Each world runs exactly what a single call on its
-// own arrays runs (its own window table, its own choice of the cluster or
-// CTA 0). A small world frees seven of its CTAs after the prologue, so
-// the clusters the card holds at once do not queue for long.
-// b2t_contact_solve_joints_batched does the same with each world's joint
-// region (solve_kernel<true, true>): the joint arrays are stacked world
-// after world too, at one LJ, and each world reads its own overflow flag,
-// so a world whose coloring overflowed sweeps its overflow color as
-// kind-pure Jacobi windows beside worlds that did not.
+// one launch, the arrays stacked world after world. Each world runs exactly
+// what a single call on its own arrays runs (its own window table, stages,
+// windows and arithmetic), so world w equals a single call on world w's
+// arrays, bit for bit. b2t_contact_solve_joints_batched does the same with
+// each world's joint region: the joint arrays are stacked world after world
+// too, at one LJ, and each world reads its own overflow flag, so a world
+// whose coloring overflowed sweeps its overflow color as kind-pure Jacobi
+// windows beside worlds that did not. The host picks one of two kernels,
+// once for each capacity (contact_solver.batched_plan):
+// - small worlds, whose every pass fits in 1,024 lanes (joint_farm(1): 5
+//   bodies, 3,200 capacity lanes and about ten live ones; pyramid-20: 211
+//   bodies; pyramid-40: 821), take solve_small_kernel. A world is solved by a
+//   group of warps sized to its bodies (a colored window holds at most one
+//   live lane a dynamic body), several groups a CTA, several CTAs an SM, with
+//   no cluster: a batch of 1,024 joint_farm(1) worlds is resident at once,
+//   where one cluster of eight 512-thread CTAs a world held 15 worlds at a
+//   time. The world's body rows, Jacobi sums, window table and list of the
+//   colors in use live in its group's slice of shared memory, so a lane
+//   gathers its bodies and adds its deltas there, not in L2, a window's
+//   barrier is the group's named barrier, not a 512-thread CTA barrier, and a
+//   stage walks only the colors in use. The group scans its world's lanes for
+//   the table once and copies its live lanes' accumulators to out_acc; the
+//   grid's last CTAs copy every other lane of out_acc (dead lanes: the
+//   contract writes every lane), four lanes a load, beside the solves. What
+//   bounds it: a world's serial chain of windows (13 stages of its colored and
+//   Jacobi windows), each one lane's dependent loads and arithmetic; and, at
+//   1,024 worlds, the dead lanes' copy, whose CTAs wait for SMs that the
+//   solves leave (two CTAs an SM at this instance's registers).
+// - the others (pyramid-60: 1,831 bodies) take solve_kernel<*, true>, one
+//   cluster of kCluster CTAs a world, each choosing the whole cluster or
+//   CTA 0 as a single call does: past about 1,024 lanes a world's windows
+//   are many rounds of a 128-thread group, and the cluster's 4,096
+//   threads are faster (time_solver.py --paths).
+// Both keep every add of the single kernel: a colored window adds at most
+// one float to a body, rounded as the single kernel's L2 atomic rounds it
+// (InShared::add), and a Jacobi window's sums are fixed point.
 //
 // Joints: a jointed world launches the second instance of the kernel
 // (solve_kernel<true>), which sweeps a joint segment with each color's
@@ -105,6 +131,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "joint_sweep.cuh"
 
@@ -178,29 +206,84 @@ __device__ __forceinline__ int cluster_lane(unsigned rank) {
 struct Pass {
   int first, step;
   bool cluster;
+  int bar;   // a world group's named barrier (the small-world kernel)
 };
 
-// The barrier behind a pass. The cluster barrier is
-// barrier.cluster.arrive.release / wait.acquire: what an SM wrote to L2
-// before it is seen by every SM of the cluster after it.
-__device__ __forceinline__ void pass_barrier(const Pass& pass,
-                                             cg::cluster_group cluster) {
-  if (pass.cluster) cluster.sync(); else __syncthreads();
-}
+// Where a call keeps its body rows and Jacobi sums, and the barrier behind
+// a pass. InL2: device memory, read and written through L2 only (the
+// cluster kernel); the barrier is the cluster's
+// (barrier.cluster.arrive.release / wait.acquire: what an SM wrote to L2
+// before it is seen by every SM of the cluster after it), or the CTA's.
+// InShared: the world group's slice of its CTA's shared memory (the
+// small-world kernel); the barrier is the group's, the named barrier
+// pass.bar of pass.step threads (for a one-warp group too: it costs a
+// third of a __syncwarp's cycles there, PERF.md). add: a velocity delta added
+// to a body, by one lane at a time (a colored window adds at most once to
+// a body, the phase 2 of a Jacobi window once for each body): a float
+// atomic in L2, which rounds to nearest and flushes subnormals (PTX
+// atom.add.f32); the same rounding as one add.rn.ftz.f32 in shared memory,
+// where an atomic costs hundreds of cycles more. add_sum: a Jacobi
+// window's fixed-point sums, which lanes share: integer atomics. ld_acc /
+// st_acc: a lane's accumulators in out_acc, which after the prologue only
+// the thread that solves the lane reads and writes: through L2 in the
+// cluster kernel (its CTAs share them), through the SM's L1 in the small
+// kernel (its group's barrier orders the prologue's copy before them).
+struct InL2 {
+  static constexpr bool kColorList = false;   // run_stages walks every color
+  __device__ static float ld_acc(const float* p) { return __ldcg(p); }
+  __device__ static void st_acc(float* p, float v) { __stcg(p, v); }
+  __device__ static float ld(const float* p) { return __ldcg(p); }
+  __device__ static long long ld(const long long* p) { return __ldcg(p); }
+  __device__ static void st(float* p, float v) { __stcg(p, v); }
+  __device__ static void st(long long* p, long long v) { __stcg(p, v); }
+  __device__ static void add(float* p, float v) { atomicAdd(p, v); }
+  __device__ static void add_sum(long long* p, long long v) {
+    atomicAdd(reinterpret_cast<unsigned long long*>(p),
+              static_cast<unsigned long long>(v));
+  }
+  __device__ static void sync(const Pass& pass, cg::cluster_group cluster) {
+    if (pass.cluster) cluster.sync(); else __syncthreads();
+  }
+};
+
+struct InShared {
+  static constexpr bool kColorList = true;    // only the colors in use
+  __device__ static float ld_acc(const float* p) { return __ldca(p); }
+  __device__ static void st_acc(float* p, float v) { __stwb(p, v); }
+  __device__ static float ld(const float* p) { return *p; }
+  __device__ static long long ld(const long long* p) { return *p; }
+  __device__ static void st(float* p, float v) { *p = v; }
+  __device__ static void st(long long* p, long long v) { *p = v; }
+  __device__ static void add(float* p, float v) {
+    float r;
+    asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(*p), "f"(v));
+    *p = r;
+  }
+  __device__ static void add_sum(long long* p, long long v) {
+    asm volatile("red.shared.add.u64 [%0], %1;"
+                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))),
+                    "l"(v) : "memory");
+  }
+  __device__ static void sync(const Pass& pass, cg::cluster_group) {
+    asm volatile("bar.sync %0, %1;" :: "r"(pass.bar), "r"(pass.step)
+                 : "memory");
+  }
+};
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
+template <class M>
 __device__ void integrate_velocities(const Problem& q, float max_lin,
                                      const Pass& pass) {
   const int nb = q.nb;
   for (int i = pass.first; i < nb; i += pass.step) {
     const float* prm = q.params;
     if (!(prm[11 * nb + i] > 0.0f)) continue;
-    float bx = __ldcg(q.body + 0 * nb + i);
-    float by = __ldcg(q.body + 1 * nb + i);
-    float bw = __ldcg(q.body + 2 * nb + i);
+    float bx = M::ld(q.body + 0 * nb + i);
+    float by = M::ld(q.body + 1 * nb + i);
+    float bw = M::ld(q.body + 2 * nb + i);
     float vx = prm[2 * nb + i] + prm[5 * nb + i] * bx;
     float vy = prm[3 * nb + i] + prm[5 * nb + i] * by;
     float w = prm[4 * nb + i] + prm[6 * nb + i] * bw;
@@ -214,32 +297,33 @@ __device__ void integrate_velocities(const Problem& q, float max_lin,
     vx = vx * (1.0f - prm[7 * nb + i]);
     vy = vy * (1.0f - prm[8 * nb + i]);
     w = w * (1.0f - prm[9 * nb + i]);
-    __stcg(q.body + 0 * nb + i, vx);
-    __stcg(q.body + 1 * nb + i, vy);
-    __stcg(q.body + 2 * nb + i, w);
+    M::st(q.body + 0 * nb + i, vx);
+    M::st(q.body + 1 * nb + i, vy);
+    M::st(q.body + 2 * nb + i, w);
   }
 }
 
+template <class M>
 __device__ void integrate_positions(const Problem& q, float h,
                                     const Pass& pass) {
   const int nb = q.nb;
   for (int i = pass.first; i < nb; i += pass.step) {
-    if (!(__ldcg(q.body + 7 * nb + i) > 0.0f)) continue;
-    float vx = __ldcg(q.body + 0 * nb + i);
-    float vy = __ldcg(q.body + 1 * nb + i);
-    float w = __ldcg(q.body + 2 * nb + i);
-    float dpx = __ldcg(q.body + 3 * nb + i) + h * vx;
-    float dpy = __ldcg(q.body + 4 * nb + i) + h * vy;
+    if (!(M::ld(q.body + 7 * nb + i) > 0.0f)) continue;
+    float vx = M::ld(q.body + 0 * nb + i);
+    float vy = M::ld(q.body + 1 * nb + i);
+    float w = M::ld(q.body + 2 * nb + i);
+    float dpx = M::ld(q.body + 3 * nb + i) + h * vx;
+    float dpy = M::ld(q.body + 4 * nb + i) + h * vy;
     float da = h * w;
-    float c0 = __ldcg(q.body + 5 * nb + i);
-    float s0 = __ldcg(q.body + 6 * nb + i);
+    float c0 = M::ld(q.body + 5 * nb + i);
+    float s0 = M::ld(q.body + 6 * nb + i);
     float c1 = c0 - da * s0;
     float s1 = s0 + da * c0;
     float inv = rsqrtf(fmaxf(c1 * c1 + s1 * s1, 1e-12f));
-    __stcg(q.body + 3 * nb + i, dpx);
-    __stcg(q.body + 4 * nb + i, dpy);
-    __stcg(q.body + 5 * nb + i, c1 * inv);
-    __stcg(q.body + 6 * nb + i, s1 * inv);
+    M::st(q.body + 3 * nb + i, dpx);
+    M::st(q.body + 4 * nb + i, dpy);
+    M::st(q.body + 5 * nb + i, c1 * inv);
+    M::st(q.body + 6 * nb + i, s1 * inv);
   }
 }
 
@@ -247,6 +331,7 @@ __device__ void integrate_positions(const Problem& q, float h,
 // (a: vx, vy, w; b: vx, vy, w) and, for p != 0, writes the lane's
 // accumulator column (through L2). The arithmetic follows _solver_kernel's
 // contact_sweep operation by operation, including its 0/1 stage flags.
+template <class M>
 __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
                            float inv_h, float contact_speed,
                            float restitution_threshold, float out[6]) {
@@ -260,10 +345,10 @@ __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
   const float tx = ny, ty = -nx;
   const float inv_ma = row(INV_MA), inv_mb = row(INV_MB);
   const float inv_ia = row(INV_IA), inv_ib = row(INV_IB);
-  float ni[2] = {__ldcg(a + 0 * L), __ldcg(a + 1 * L)};
-  float ti[2] = {__ldcg(a + 2 * L), __ldcg(a + 3 * L)};
-  float tni[2] = {__ldcg(a + 4 * L), __ldcg(a + 5 * L)};
-  const float roll = __ldcg(a + 6 * L);
+  float ni[2] = {M::ld_acc(a + 0 * L), M::ld_acc(a + 1 * L)};
+  float ti[2] = {M::ld_acc(a + 2 * L), M::ld_acc(a + 3 * L)};
+  float tni[2] = {M::ld_acc(a + 4 * L), M::ld_acc(a + 5 * L)};
+  const float roll = M::ld_acc(a + 6 * L);
 
   if (p == 0) {  // warm start: deltas from the stored impulses only
     float dvax = 0.0f, dvay = 0.0f, dwa = 0.0f;
@@ -295,12 +380,12 @@ __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
   const float solve_f = 1.0f - rest_f;
   const float* ba = q.body + ia;
   const float* bb = q.body + ib;
-  const float va0 = __ldcg(ba), va1 = __ldcg(ba + nb), wa0 = __ldcg(ba + 2 * nb);
-  const float vb0 = __ldcg(bb), vb1 = __ldcg(bb + nb), wb0 = __ldcg(bb + 2 * nb);
-  const float dpx = __ldcg(bb + 3 * nb) - __ldcg(ba + 3 * nb);
-  const float dpy = __ldcg(bb + 4 * nb) - __ldcg(ba + 4 * nb);
-  const float dqca = __ldcg(ba + 5 * nb), dqsa = __ldcg(ba + 6 * nb);
-  const float dqcb = __ldcg(bb + 5 * nb), dqsb = __ldcg(bb + 6 * nb);
+  const float va0 = M::ld(ba), va1 = M::ld(ba + nb), wa0 = M::ld(ba + 2 * nb);
+  const float vb0 = M::ld(bb), vb1 = M::ld(bb + nb), wb0 = M::ld(bb + 2 * nb);
+  const float dpx = M::ld(bb + 3 * nb) - M::ld(ba + 3 * nb);
+  const float dpy = M::ld(bb + 4 * nb) - M::ld(ba + 4 * nb);
+  const float dqca = M::ld(ba + 5 * nb), dqsa = M::ld(ba + 6 * nb);
+  const float dqcb = M::ld(bb + 5 * nb), dqsb = M::ld(bb + 6 * nb);
   float vax = va0, vay = va1, wa = wa0;
   float vbx = vb0, vby = vb1, wb = wb0;
 
@@ -395,13 +480,13 @@ __device__ void solve_lane(const Problem& q, int lane, int ia, int ib, int p,
   wa = wa - inv_ia * dl;
   wb = wb + inv_ib * dl;
 
-  __stcg(a + 0 * L, ni[0]);
-  __stcg(a + 1 * L, ni[1]);
-  __stcg(a + 2 * L, ti[0]);
-  __stcg(a + 3 * L, ti[1]);
-  __stcg(a + 4 * L, tni[0]);
-  __stcg(a + 5 * L, tni[1]);
-  __stcg(a + 6 * L, roll + dl);
+  M::st_acc(a + 0 * L, ni[0]);
+  M::st_acc(a + 1 * L, ni[1]);
+  M::st_acc(a + 2 * L, ti[0]);
+  M::st_acc(a + 3 * L, ti[1]);
+  M::st_acc(a + 4 * L, tni[0]);
+  M::st_acc(a + 5 * L, tni[1]);
+  M::st_acc(a + 6 * L, roll + dl);
 
   out[0] = vax - va0; out[1] = vay - va1; out[2] = wa - wa0;
   out[3] = vbx - vb0; out[4] = vby - vb1; out[5] = wb - wb0;
@@ -431,31 +516,33 @@ __device__ __forceinline__ bool endpoints(const Problem& q,
 
 // Solve lane `lane` of stage s into o (joints only for p != 3); false for
 // a dead lane.
-template <bool kJoint>
+template <bool kJoint, class M>
 __device__ __forceinline__ bool solve(const Problem& q, const JointRegion& jr,
                                       int lane, const Stage& s, LaneOut& o) {
   if (!endpoints<kJoint>(q, jr, lane, o)) return false;
   if constexpr (kJoint) {
-    joint_lane(jr, q.body, q.nb, lane, o.ia, o.ib, s.p, s.h, s.inv_h, o.d);
+    joint_lane<M>(jr, q.body, q.nb, lane, o.ia, o.ib, s.p, s.h, s.inv_h,
+                  o.d);
   } else {
-    solve_lane(q, lane, o.ia, o.ib, s.p, s.inv_h, s.contact_speed,
-               s.restitution_threshold, o.d);
+    solve_lane<M>(q, lane, o.ia, o.ib, s.p, s.inv_h, s.contact_speed,
+                  s.restitution_threshold, o.d);
   }
   return true;
 }
 
-// Add a lane's velocity deltas to its dynamic endpoints, in L2.
+// Add a lane's velocity deltas to its dynamic endpoints.
+template <class M>
 __device__ __forceinline__ void add_deltas(float* body, int nb,
                                            const LaneOut& o) {
   if (o.dyn_a) {
-    atomicAdd(body + 0 * nb + o.ia, o.d[0]);
-    atomicAdd(body + 1 * nb + o.ia, o.d[1]);
-    atomicAdd(body + 2 * nb + o.ia, o.d[2]);
+    M::add(body + 0 * nb + o.ia, o.d[0]);
+    M::add(body + 1 * nb + o.ia, o.d[1]);
+    M::add(body + 2 * nb + o.ia, o.d[2]);
   }
   if (o.dyn_b) {
-    atomicAdd(body + 0 * nb + o.ib, o.d[3]);
-    atomicAdd(body + 1 * nb + o.ib, o.d[4]);
-    atomicAdd(body + 2 * nb + o.ib, o.d[5]);
+    M::add(body + 0 * nb + o.ib, o.d[3]);
+    M::add(body + 1 * nb + o.ib, o.d[4]);
+    M::add(body + 2 * nb + o.ib, o.d[5]);
   }
 }
 
@@ -463,17 +550,18 @@ __device__ __forceinline__ void add_deltas(float* body, int nb,
 // [clo, clo + nc), then joint lanes [jlo, jlo + nj). Each lane adds its
 // deltas at once; the caller puts one barrier behind the window. Contacts
 // come first so that a contact lane keeps its thread in every stage.
-template <bool kJoints>
+template <bool kJoints, class M>
 __device__ void colored_window(const Problem& q, const JointRegion& jr,
                                int clo, int nc, int jlo, int nj,
                                const Stage& s, const Pass& pass) {
   for (int i = pass.first; i < nc + nj; i += pass.step) {
     LaneOut o;
     if (i < nc) {
-      if (solve<false>(q, jr, clo + i, s, o)) add_deltas(q.body, q.nb, o);
+      if (solve<false, M>(q, jr, clo + i, s, o))
+        add_deltas<M>(q.body, q.nb, o);
     } else if constexpr (kJoints) {
-      if (solve<true>(q, jr, jlo + i - nc, s, o))
-        add_deltas(q.body, q.nb, o);
+      if (solve<true, M>(q, jr, jlo + i - nc, s, o))
+        add_deltas<M>(q.body, q.nb, o);
     }
   }
 }
@@ -485,13 +573,13 @@ constexpr float kFixMax = 1073741824.0f;         // 2^30
 // Add one delta to a body's fixed-point sum (d * 2^32 is exact in float,
 // then rounded to an integer; an integer add that returns nothing), or
 // flag it when it is out of range.
+template <class M>
 __device__ __forceinline__ void add_fixed(long long* sum, long long* flag,
                                           float d) {
   if (fabsf(d) < kFixMax) {
-    atomicAdd(reinterpret_cast<unsigned long long*>(sum),
-              static_cast<unsigned long long>(__float2ll_rn(d * kFixScale)));
+    M::add_sum(sum, __float2ll_rn(d * kFixScale));
   } else {
-    __stcg(flag, 1ll);
+    M::st(flag, 1ll);
   }
 }
 
@@ -504,6 +592,7 @@ __device__ __forceinline__ void add_fixed(long long* sum, long long* flag,
 // add to that velocity in the pass).
 constexpr int kApply = 4;
 
+template <class M>
 __device__ void apply_sums(const Problem& q, const Pass& pass) {
   const int nb = q.nb;
   const float nan = __int_as_float(0x7fc00000);
@@ -514,7 +603,7 @@ __device__ void apply_sums(const Problem& q, const Pass& pass) {
       const int b = base + j * pass.step;
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        t[j][r] = b < nb ? __ldcg(q.jsum + r * nb + b) : 0ll;
+        t[j][r] = b < nb ? M::ld(q.jsum + r * nb + b) : 0ll;
     }
 #pragma unroll
     for (int j = 0; j < kApply; ++j) {
@@ -523,11 +612,11 @@ __device__ void apply_sums(const Problem& q, const Pass& pass) {
 #pragma unroll
       for (int r = 0; r < 3; ++r) {
         if (t[j][r] == 0 && !bad) continue;
-        atomicAdd(q.body + r * nb + b,
-                  bad ? nan : __ll2float_rn(t[j][r]) * kFixUnit);
-        __stcg(q.jsum + r * nb + b, 0ll);
+        M::add(q.body + r * nb + b,
+               bad ? nan : __ll2float_rn(t[j][r]) * kFixUnit);
+        M::st(q.jsum + r * nb + b, 0ll);
       }
-      if (bad) __stcg(q.jsum + 3 * nb + b, 0ll);
+      if (bad) M::st(q.jsum + 3 * nb + b, 0ll);
     }
   }
 }
@@ -536,7 +625,7 @@ __device__ void apply_sums(const Problem& q, const Pass& pass) {
 // body state at the window's start and adds its deltas to the bodies'
 // fixed-point sums (phase 1), then each body adds its sums to its
 // velocity (phase 2). Contact lanes, or joint lanes when kJoint.
-template <bool kJoint>
+template <bool kJoint, class M>
 __device__ void jacobi_window(const Problem& q, const JointRegion& jr,
                               int lo, int n, const Stage& s,
                               const Pass& pass, cg::cluster_group cluster) {
@@ -544,21 +633,23 @@ __device__ void jacobi_window(const Problem& q, const JointRegion& jr,
   long long* flag = q.jsum + 3 * nb;
   for (int i = pass.first; i < n; i += pass.step) {
     LaneOut o;
-    if (!solve<kJoint>(q, jr, lo + i, s, o)) continue;
+    if (!solve<kJoint, M>(q, jr, lo + i, s, o)) continue;
     for (int r = 0; r < 3; ++r) {
-      if (o.dyn_a) add_fixed(q.jsum + r * nb + o.ia, flag + o.ia, o.d[r]);
+      if (o.dyn_a)
+        add_fixed<M>(q.jsum + r * nb + o.ia, flag + o.ia, o.d[r]);
       if (o.dyn_b)
-        add_fixed(q.jsum + r * nb + o.ib, flag + o.ib, o.d[3 + r]);
+        add_fixed<M>(q.jsum + r * nb + o.ib, flag + o.ib, o.d[3 + r]);
     }
   }
-  pass_barrier(pass, cluster);
-  apply_sums(q, pass);
-  pass_barrier(pass, cluster);
+  M::sync(pass, cluster);
+  apply_sums<M>(q, pass);
+  M::sync(pass, cluster);
 }
 
 // The overflow color's joint segment [lo, hi), as the tiled Pallas kernel
 // sweeps it: a Jacobi window for each run of one joint type (the lanes are
 // sorted by type), cut every jr.jwin lanes.
+template <class M>
 __device__ void overflow_joint_windows(const Problem& q,
                                        const JointRegion& jr, int lo, int hi,
                                        const Stage& s, const Pass& pass,
@@ -572,15 +663,117 @@ __device__ void overflow_joint_windows(const Problem& q,
       const int mid = (l + r) >> 1;
       if (__ldg(jr.type + mid) == ty) l = mid + 1; else r = mid;
     }
-    jacobi_window<true>(q, jr, a, l - a, s, pass, cluster);
+    jacobi_window<true, M>(q, jr, a, l - a, s, pass, cluster);
     a = l;
   }
 }
 
-// kBatch: the arrays hold one world after another, each at its own
-// stride, and world w is solved by cluster w of the grid: every world has
-// its own window table, its own on_cluster choice, its own output rows and
-// scratch.
+// World w's arrays in a batched launch: every array holds one world after
+// another, each at its own stride, the joint arrays at one LJ, and each
+// world has its own overflow flag. (The Jacobi sums, where a kernel keeps
+// them in device memory, are offset by the caller.)
+template <bool kJoints>
+__device__ __forceinline__ void at_world(Problem& q, JointRegion& jr,
+                                         const float*& acc_in,
+                                         const float*& body_in,
+                                         const float*& jacc_in, long w) {
+  q.scal += 8 * w;
+  q.idx += 2 * w * q.L;
+  q.data += long(NF_ROWS) * w * q.L;
+  q.acc += long(NA_ROWS) * w * q.L;
+  acc_in += long(NA_ROWS) * w * q.L;
+  q.body += 8 * w * q.nb;
+  body_in += 8 * w * q.nb;
+  q.params += 12 * w * q.nb;
+  if constexpr (kJoints) {
+    const long lj = jr.LJ;
+    jr.idx += 2 * w * lj;
+    jr.data += long(JRELAX + 1) * w * lj;
+    jr.acc += long(S2Y + 1) * w * lj;
+    jacc_in += long(S2Y + 1) * w * lj;
+    jr.type += w * lj;
+    jr.off += w * (q.n_colors + 1);
+    jr.overflow = __ldg(jr.overflow_w + w);
+  }
+}
+
+// The joint color swept as Jacobi windows, or -1: the overflow color is
+// the highest in use, so when the coloring overflowed it owns the last
+// non-empty joint segment (if it holds joints at all); sweeping a segment
+// without shared bodies as Jacobi windows changes nothing.
+template <bool kJoints>
+__device__ __forceinline__ int joint_split(const JointRegion& jr,
+                                           const Table& tab, int ncol) {
+  int split = -1;
+  if constexpr (kJoints) {
+    if (jr.overflow) {
+      for (int c = ncol - 1; c >= 0 && split < 0; --c)
+        if (tab.joff[c + 1] > tab.joff[c]) split = c;
+    }
+  }
+  return split;
+}
+
+// The stages of a solve over the window table; M: where the body rows and
+// Jacobi sums live and which barrier follows a pass. Where M::kColorList,
+// a stage walks the n_live colors of `live` (those whose bucket or joint
+// segment holds a live lane, in order) instead of every color.
+template <bool kJoints, class M>
+__device__ __forceinline__ void run_stages(const Problem& q,
+                                           const JointRegion& jr, Stage s,
+                                           float max_lin, const Table& tab,
+                                           const int* live, int n_live,
+                                           const Pass& pass,
+                                           cg::cluster_group cluster) {
+  const int ncol = q.n_colors;
+  const int stages = 3 * q.nsub + 1;
+  const int n_walk = M::kColorList ? n_live : ncol;
+  for (int k = 0; k < stages; ++k) {
+    s.p = (k == stages - 1) ? 3 : k % 3;
+    if (s.p == 0 || s.p == 2) {
+      if (s.p == 0) integrate_velocities<M>(q, max_lin, pass);
+      else integrate_positions<M>(q, s.h, pass);
+      M::sync(pass, cluster);
+    }
+    for (int kc = 0; kc < n_walk; ++kc) {
+      const int c = M::kColorList ? live[kc] : kc;
+      const int clo = c * q.chunk;
+      const int nc = tab.end[c] - clo;
+      int jlo = 0, nj = 0;
+      if constexpr (kJoints) {
+        if (s.p != 3) {
+          jlo = tab.joff[c];
+          nj = tab.joff[c + 1] - jlo;
+          if (c == tab.split) {
+            overflow_joint_windows<M>(q, jr, jlo, jlo + nj, s, pass,
+                                      cluster);
+            nj = 0;
+          }
+        }
+      }
+      if (nc + nj > 0) {
+        colored_window<kJoints, M>(q, jr, clo, nc, jlo, nj, s, pass);
+        M::sync(pass, cluster);
+      }
+    }
+    // The tail's windows. A tail of one window is swept apart from the
+    // loop: the same work, but the kernel built this way runs its colored
+    // windows 10% faster than the loop alone, on inputs with no tail at all
+    // (code layout; time_solver.py --one-process, PERF.md).
+    const int nt = tab.end[ncol] - q.l0;
+    if (nt > 0 && nt <= q.tail_w) {
+      jacobi_window<false, M>(q, jr, q.l0, nt, s, pass, cluster);
+    } else if (nt > 0) {
+      for (int a = 0; a < nt; a += q.tail_w)
+        jacobi_window<false, M>(q, jr, q.l0 + a, min(q.tail_w, nt - a), s,
+                                pass, cluster);
+    }
+  }
+}
+
+// kBatch: the arrays hold one world after another (at_world), and world w
+// is solved by cluster w of the grid: every world has its own window
+// table, its own on_cluster choice, its own output rows and scratch.
 template <bool kJoints, bool kBatch>
 __global__ void __launch_bounds__(kThreads, 1)
 solve_kernel(Problem q, JointRegion jr, const float* acc_in,
@@ -590,25 +783,8 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
   const int t0 = cluster_lane(rank);
   if constexpr (kBatch) {
     const long w = blockIdx.x / kCluster;
-    q.scal += 8 * w;
-    q.idx += 2 * w * q.L;
-    q.data += long(NF_ROWS) * w * q.L;
-    q.acc += long(NA_ROWS) * w * q.L;
-    acc_in += long(NA_ROWS) * w * q.L;
-    q.body += 8 * w * q.nb;
-    body_in += 8 * w * q.nb;
-    q.params += 12 * w * q.nb;
+    at_world<kJoints>(q, jr, acc_in, body_in, jacc_in, w);
     q.jsum += 4 * w * q.nb;
-    if constexpr (kJoints) {
-      const long lj = jr.LJ;
-      jr.idx += 2 * w * lj;
-      jr.data += long(JRELAX + 1) * w * lj;
-      jr.acc += long(S2Y + 1) * w * lj;
-      jacc_in += long(S2Y + 1) * w * lj;
-      jr.type += w * lj;
-      jr.off += w * (q.n_colors + 1);
-      jr.overflow = __ldg(jr.overflow_w + w);
-    }
   }
   __shared__ Table tab;
   Stage s;
@@ -668,18 +844,7 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
       widest = max(widest, n);
     }
     tab.widest = widest;
-    // the overflow color is the highest in use, so when the coloring
-    // overflowed it owns the last non-empty joint segment (if it holds
-    // joints at all); sweeping a segment without shared bodies as Jacobi
-    // windows changes nothing
-    int split = -1;
-    if constexpr (kJoints) {
-      if (jr.overflow) {
-        for (int c = ncol - 1; c >= 0 && split < 0; --c)
-          if (tab.joff[c + 1] > tab.joff[c]) split = c;
-      }
-    }
-    tab.split = split;
+    tab.split = joint_split<kJoints>(jr, tab, ncol);
   }
   // the table is complete in every CTA, and no CTA reads another's shared
   // memory after this barrier
@@ -691,55 +856,255 @@ solve_kernel(Problem q, JointRegion jr, const float* acc_in,
   const bool on_cluster = tab.widest > kThreads;
   if (!on_cluster && rank != 0) return;
   const Pass pass = on_cluster
-      ? Pass{t0, kClusterThreads, true}
-      : Pass{static_cast<int>(threadIdx.x), kThreads, false};
+      ? Pass{t0, kClusterThreads, true, 0}
+      : Pass{static_cast<int>(threadIdx.x), kThreads, false, 0};
   // The Jacobi windows' sums start at zero, and each window leaves them
   // so; a call without such windows never touches them.
   if (tab.end[ncol] > q.l0 || tab.split >= 0) {
     for (int i = pass.first; i < 4 * q.nb; i += pass.step)
       __stcg(q.jsum + i, 0ll);
-    pass_barrier(pass, cluster);
+    InL2::sync(pass, cluster);
   }
-  const int stages = 3 * q.nsub + 1;
-  for (int k = 0; k < stages; ++k) {
-    s.p = (k == stages - 1) ? 3 : k % 3;
-    if (s.p == 0 || s.p == 2) {
-      if (s.p == 0) integrate_velocities(q, max_lin, pass);
-      else integrate_positions(q, s.h, pass);
-      pass_barrier(pass, cluster);
+  run_stages<kJoints, InL2>(q, jr, s, max_lin, tab, nullptr, 0, pass,
+                            cluster);
+}
+
+// ---------------------------------------------------------------------------
+// The small-world kernel: a batch of worlds whose every pass fits in 512
+// lanes (contact_solver.batched_plan decides, from the capacity), several
+// worlds an SM.
+// ---------------------------------------------------------------------------
+
+// Threads of a small-world CTA at most. Its launch bound (one CTA an SM at
+// least) leaves a thread up to 255 registers, and neither instance spills.
+constexpr int kGroupMax = 128;
+constexpr int kScan = 16;          // lanes a thread loads at once in the scan
+constexpr int kCopyCtasMax = 4096;
+
+// A small-world launch, from the host's plan: `group` threads a world (a
+// multiple of 32), `per_cta` worlds a CTA, and `world_bytes` of shared
+// memory a world (small_world_bytes); CTAs [0, solve_ctas) solve, the
+// others copy.
+struct Small {
+  int worlds, group, per_cta, solve_ctas, world_bytes;
+};
+
+// The shared memory a world takes: its Jacobi sums (4, nb) int64, its body
+// rows (8, nb), its window table and its list of the colors in use (a
+// count, then the colors), rounded to 16 bytes.
+__host__ __device__ constexpr int small_world_bytes(int nb) {
+  return (4 * nb * 8 + 8 * nb * 4 + int(sizeof(Table))
+          + 4 * (kMaxColors + 1) + 15) / 16 * 16;
+}
+
+// The copy CTAs: every lane of out_acc that no world group writes, each
+// lane that is dead or live in a bucket at or above n_colors (no window
+// visits one), copied from acc_in, four lanes a load where the layout
+// allows it. These lanes are disjoint from the groups', so the copy needs
+// no barrier with the solves and runs beside them on the SMs they leave.
+__device__ void copy_idle_lanes(const Problem& q, const float* acc_in,
+                                int worlds, long first, long step) {
+  const int L = q.L;
+  const int lc = q.n_colors * q.chunk;
+  auto idle = [&](int v, int lane) {
+    return int(v < 0 || (lane >= lc && lane < q.l0));
+  };
+  const auto bits = reinterpret_cast<unsigned long long>(q.idx)
+      | reinterpret_cast<unsigned long long>(q.acc)
+      | reinterpret_cast<unsigned long long>(acc_in);
+  if (L % 4 == 0 && (bits & 15) == 0) {
+    const int quads = L / 4;
+    const long n = long(worlds) * quads;
+    for (long k = first; k < n; k += step) {
+      const long w = k / quads;
+      const int lane = int(k - w * quads) * 4;
+      const int4 v = __ldg(reinterpret_cast<const int4*>(q.idx + 2 * w * L
+                                                         + lane));
+      const int m = idle(v.x, lane) | idle(v.y, lane + 1) << 1
+          | idle(v.z, lane + 2) << 2 | idle(v.w, lane + 3) << 3;
+      if (m == 0) continue;
+      const float* src = acc_in + long(NA_ROWS) * w * L + lane;
+      float* dst = q.acc + long(NA_ROWS) * w * L + lane;
+      if (m == 15) {
+        float4 r[NA_ROWS];
+#pragma unroll
+        for (int i = 0; i < NA_ROWS; ++i)
+          r[i] = __ldcs(reinterpret_cast<const float4*>(src + long(i) * L));
+#pragma unroll
+        for (int i = 0; i < NA_ROWS; ++i)
+          __stcs(reinterpret_cast<float4*>(dst + long(i) * L), r[i]);
+      } else {
+        for (int i = 0; i < NA_ROWS; ++i)
+          for (int j = 0; j < 4; ++j)
+            if (m >> j & 1) dst[long(i) * L + j] = src[long(i) * L + j];
+      }
     }
+  } else {
+    const long n = long(worlds) * L;
+    for (long k = first; k < n; k += step) {
+      const long w = k / L;
+      const int lane = int(k - w * L);
+      if (!idle(__ldg(q.idx + 2 * w * L + lane), lane)) continue;
+      for (int i = 0; i < NA_ROWS; ++i)
+        q.acc[(long(NA_ROWS) * w + i) * L + lane] =
+            acc_in[(long(NA_ROWS) * w + i) * L + lane];
+    }
+  }
+}
+
+// The group's window table, as the cluster kernel's prologue finds it: the
+// end of the live lanes of each bucket and of the tail. A thread loads
+// kScan quads of lanes at once (single lanes where the layout is not cut
+// in quads), a warp's 32 loads on contiguous lanes.
+__device__ void scan_windows(const Problem& q, Table& tab, const Pass& pass) {
+  const int L = q.L;
+  const int ncol = q.n_colors;
+  const int lc = ncol * q.chunk;
+  const int wl = pass.first & 31;
+  const bool quads = L % 4 == 0 && q.chunk % 4 == 0 && q.l0 % 4 == 0
+      && (reinterpret_cast<unsigned long long>(q.idx) & 15) == 0;
+  const int width = quads ? 4 : 1;   // a quad lies in one window
+  for (int b0 = 0; b0 < L; b0 += kScan * width * pass.step) {
+    int4 v[kScan];
+#pragma unroll
+    for (int j = 0; j < kScan; ++j) {
+      const int lane = b0 + (j * pass.step + pass.first) * width;
+      v[j] = make_int4(-1, -1, -1, -1);
+      if (lane < L) {
+        if (quads) v[j] = __ldg(reinterpret_cast<const int4*>(q.idx + lane));
+        else v[j].x = __ldg(q.idx + lane);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kScan; ++j) {
+      const int lane = b0 + (j * pass.step + pass.first) * width;
+      const int win = lane < lc ? lane / q.chunk
+                                : (lane >= q.l0 && lane < L ? ncol : -1);
+      const int e = win < 0 ? 0
+          : v[j].w >= 0 ? lane + 4 : v[j].z >= 0 ? lane + 3
+          : v[j].y >= 0 ? lane + 2 : v[j].x >= 0 ? lane + 1 : 0;
+      const int win_next = __shfl_down_sync(0xffffffffu, win, 1);
+      const int e_next = __shfl_down_sync(0xffffffffu, e, 1);
+      if (e > 0 && (wl == 31 || win_next != win || e_next == 0))
+        atomicMax(&tab.end[win], e);
+    }
+  }
+}
+
+// Each live lane of a window, copied from acc_in to out_acc, where the
+// stages read and write it (the copy CTAs take every other lane). The
+// windows' lanes are numbered one after another, and a thread copies
+// kCopyLanes of them at once, their loads all issued before its stores.
+constexpr int kCopyLanes = 4;
+
+__device__ void copy_window_lanes(const Problem& q, const float* acc_in,
+                                  const Table& tab, const Pass& pass) {
+  const int L = q.L;
+  const int ncol = q.n_colors;
+  int c = 0, start = 0;   // window c holds numbers [start, start + n(c))
+  auto lo = [&](int c) { return c < ncol ? c * q.chunk : q.l0; };
+  auto lane_of = [&](int k) {
+    while (c <= ncol && k >= start + tab.end[c] - lo(c)) {
+      start += tab.end[c] - lo(c);
+      ++c;
+    }
+    return c <= ncol ? lo(c) + k - start : -1;
+  };
+  for (int k0 = pass.first;; k0 += kCopyLanes * pass.step) {
+    int lane[kCopyLanes];
+#pragma unroll
+    for (int j = 0; j < kCopyLanes; ++j)
+      lane[j] = lane_of(k0 + j * pass.step);
+    if (lane[0] < 0) break;
+    bool live[kCopyLanes];
+#pragma unroll
+    for (int j = 0; j < kCopyLanes; ++j)
+      live[j] = lane[j] >= 0 && __ldg(q.idx + lane[j]) >= 0;
+    float r[kCopyLanes][NA_ROWS];
+#pragma unroll
+    for (int j = 0; j < kCopyLanes; ++j)
+#pragma unroll
+      for (int i = 0; i < NA_ROWS; ++i)
+        r[j][i] = live[j] ? __ldg(acc_in + i * L + lane[j]) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < kCopyLanes; ++j)
+#pragma unroll
+      for (int i = 0; i < NA_ROWS; ++i)
+        if (live[j]) __stwb(q.acc + i * L + lane[j], r[j][i]);
+  }
+}
+
+// World w of the batch on its group of `sm.group` threads: its body rows,
+// Jacobi sums and window table in the group's slice of shared memory, its
+// constraint rows, accumulators and parameters in device memory; the
+// stages are the cluster kernel's (run_stages), behind the group's
+// barrier. The first world of a CTA uses named barrier 0, the next 1, ...
+template <bool kJoints>
+__global__ void __launch_bounds__(kGroupMax, 1)
+solve_small_kernel(Problem q, JointRegion jr, const float* acc_in,
+                   const float* body_in, const float* jacc_in, Small sm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (static_cast<int>(blockIdx.x) >= sm.solve_ctas) {
+    copy_idle_lanes(q, acc_in, sm.worlds,
+                    long(blockIdx.x - sm.solve_ctas) * blockDim.x
+                        + threadIdx.x,
+                    long(gridDim.x - sm.solve_ctas) * blockDim.x);
+    return;
+  }
+  const int g = static_cast<int>(threadIdx.x) / sm.group;
+  const long w = long(blockIdx.x) * sm.per_cta + g;
+  if (w >= sm.worlds) return;
+  at_world<kJoints>(q, jr, acc_in, body_in, jacc_in, w);
+  const Pass pass{static_cast<int>(threadIdx.x) - g * sm.group, sm.group,
+                  false, g};
+  const int t = pass.first;
+  const int nb = q.nb;
+  const int ncol = q.n_colors;
+  unsigned char* mine = smem + long(g) * sm.world_bytes;
+  long long* jsum = reinterpret_cast<long long*>(mine);
+  float* body = reinterpret_cast<float*>(jsum + 4 * nb);
+  Table& tab = *reinterpret_cast<Table*>(body + 8 * nb);
+  int* live = reinterpret_cast<int*>(&tab + 1);   // [0]: the count
+  float* out_body = q.body;
+  q.body = body;
+  q.jsum = jsum;
+  cg::cluster_group cluster = cg::this_cluster();
+  Stage s;
+  s.h = q.scal[0];
+  s.inv_h = q.scal[1];
+  s.contact_speed = q.scal[2];
+  s.restitution_threshold = q.scal[3];
+  const float max_lin = q.scal[4];
+
+  for (int i = t; i < 8 * nb; i += sm.group) body[i] = __ldg(body_in + i);
+  for (int i = t; i < 4 * nb; i += sm.group) jsum[i] = 0ll;
+  for (int c = t; c <= ncol; c += sm.group) {
+    tab.end[c] = c < ncol ? c * q.chunk : q.l0;
+    if constexpr (kJoints) tab.joff[c] = __ldg(jr.off + c);
+  }
+  if constexpr (kJoints) {
+    for (int i = t; i < (S2Y + 1) * jr.LJ; i += sm.group)
+      __stwb(jr.acc + i, __ldg(jacc_in + i));
+  }
+  InShared::sync(pass, cluster);
+  scan_windows(q, tab, pass);
+  InShared::sync(pass, cluster);
+  if (t == 0) {
+    tab.split = joint_split<kJoints>(jr, tab, ncol);
+    int n = 0;
     for (int c = 0; c < ncol; ++c) {
-      const int clo = c * q.chunk;
-      const int nc = tab.end[c] - clo;
-      int jlo = 0, nj = 0;
-      if constexpr (kJoints) {
-        if (s.p != 3) {
-          jlo = tab.joff[c];
-          nj = tab.joff[c + 1] - jlo;
-          if (c == tab.split) {
-            overflow_joint_windows(q, jr, jlo, jlo + nj, s, pass, cluster);
-            nj = 0;
-          }
-        }
-      }
-      if (nc + nj > 0) {
-        colored_window<kJoints>(q, jr, clo, nc, jlo, nj, s, pass);
-        pass_barrier(pass, cluster);
-      }
+      bool used = tab.end[c] > c * q.chunk;
+      if constexpr (kJoints) used = used || tab.joff[c + 1] > tab.joff[c];
+      if (used) live[1 + n++] = c;
     }
-    // The tail's windows. A tail of one window is swept apart from the
-    // loop: the same work, but the kernel built this way runs its colored
-    // windows 10% faster than the loop alone, on inputs with no tail at all
-    // (code layout; time_solver.py --one-process, PERF.md).
-    const int nt = tab.end[ncol] - q.l0;
-    if (nt > 0 && nt <= q.tail_w) {
-      jacobi_window<false>(q, jr, q.l0, nt, s, pass, cluster);
-    } else if (nt > 0) {
-      for (int a = 0; a < nt; a += q.tail_w)
-        jacobi_window<false>(q, jr, q.l0 + a, min(q.tail_w, nt - a), s,
-                             pass, cluster);
-    }
+    live[0] = n;
   }
+  copy_window_lanes(q, acc_in, tab, pass);
+  InShared::sync(pass, cluster);
+  run_stages<kJoints, InShared>(q, jr, s, max_lin, tab, live + 1, live[0],
+                                pass, cluster);
+  InShared::sync(pass, cluster);
+  for (int i = t; i < 8 * nb; i += sm.group) __stcg(out_body + i, body[i]);
 }
 
 // The launch: one cluster of kCluster CTAs per world, `worlds` worlds (1
@@ -773,6 +1138,48 @@ int launch(const Problem& q, const JointRegion& jr, const float* acc_in,
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
+// The dynamic shared memory of a small-world CTA; above 48 KB it needs the
+// kernel's opt-in.
+template <bool kJoints>
+cudaError_t small_smem(int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(solve_small_kernel<kJoints>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+// A batched launch: the small-world kernel where the host's plan gives a
+// group (group > 0), else the cluster kernel, a cluster a world.
+template <bool kJoints>
+int launch_batched(const Problem& q, const JointRegion& jr,
+                   const float* acc_in, const float* body_in,
+                   const float* jacc_in, int worlds, int group, int per_cta,
+                   void* stream) {
+  if (group == 0)
+    return launch<kJoints, true>(q, jr, acc_in, body_in, jacc_in, worlds,
+                                 stream);
+  const int threads = group * per_cta;
+  if (group % 32 != 0 || group < 32 || per_cta < 1 || threads > kGroupMax
+      || per_cta > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int world_bytes = small_world_bytes(q.nb);
+  const int smem = per_cta * world_bytes;
+  cudaError_t err = small_smem<kJoints>(smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int solve_ctas = (worlds + per_cta - 1) / per_cta;
+  const long items = q.L % 4 == 0 ? long(worlds) * (q.L / 4)
+                                  : long(worlds) * q.L;
+  const long copy_ctas = std::min(
+      std::max((items + 4L * threads - 1) / (4L * threads), 1L),
+      long(kCopyCtasMax));
+  const Small sm{worlds, group, per_cta, solve_ctas, world_bytes};
+  solve_small_kernel<kJoints>
+      <<<solve_ctas + int(copy_ctas), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(q, jr, acc_in, body_in,
+                                              jacc_in, sm);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. tail_w: the width of the tail's Jacobi
@@ -803,6 +1210,37 @@ extern "C" int b2t_launch_shape(int kind, int* out) {
   return static_cast<int>(err);
 }
 
+// The small-world kernel (joints: its instance with the joint sweep) at
+// `group` threads a world, `per_cta` worlds of nb bodies a CTA: out[0]
+// CTAs an SM can hold at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] the card's SMs,
+// out[2] registers a thread, out[3] local memory a thread (bytes; spills
+// land there), out[4] the CTA's dynamic shared memory (bytes).
+extern "C" int b2t_small_shape(int joints, int group, int per_cta, int nb,
+                               int* out) {
+  const int threads = group * per_cta;
+  const int smem = per_cta * small_world_bytes(nb);
+  const void* fn = joints
+      ? reinterpret_cast<const void*>(solve_small_kernel<true>)
+      : reinterpret_cast<const void*>(solve_small_kernel<false>);
+  cudaError_t err = joints ? small_smem<true>(smem) : small_smem<false>(smem);
+  cudaFuncAttributes a = {};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&a, fn);
+  int n = 0, dev = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                        smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  out[0] = n;
+  out[1] = sms;
+  out[2] = a.numRegs;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  out[4] = smem;
+  return static_cast<int>(err);
+}
+
 extern "C" int b2t_contact_solve(
     const float* scalars, const int* idx, const float* data,
     const float* acc_in, const float* body_in, const float* params,
@@ -819,22 +1257,25 @@ extern "C" int b2t_contact_solve(
 // The contact-only pipeline for `worlds` worlds in one launch. Every array
 // holds one world after another: scalars (W, 8), idx (W, 2, L), data
 // (W, 33, L), acc_in / out_acc (W, 9, L), body_in / out_body (W, 8, nb),
-// params (W, 12, nb), jsum (W, 4, nb); every world has the same
-// nb, L, chunk, l0, n_colors, nsub and tail_w. Each world takes a cluster
-// of kCluster CTAs (gridDim W x kCluster) and chooses the whole cluster or
-// CTA 0 as a single call does.
+// params (W, 12, nb), jsum (W, 4, nb; unused, and may be null, on the
+// small-world path); every world has the same nb, L, chunk, l0, n_colors,
+// nsub and tail_w. group, per_cta: the host's plan
+// (contact_solver.batched_plan); group 0 takes the cluster kernel, a
+// cluster of kCluster CTAs a world (gridDim W x kCluster), each choosing
+// the whole cluster or CTA 0 as a single call does; else the small-world
+// kernel, `group` threads a world, `per_cta` worlds a CTA.
 extern "C" int b2t_contact_solve_batched(
     const float* scalars, const int* idx, const float* data,
     const float* acc_in, const float* body_in, const float* params,
     float* out_body, float* out_acc, long long* jsum, int worlds,
     int nb, int L, int chunk, int l0, int n_colors, int nsub, int tail_w,
-    void* stream) {
+    int group, int per_cta, void* stream) {
   const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
                   nb, L, chunk, l0, n_colors, nsub, tail_w};
   const JointRegion none{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0,
                          0, nullptr};
-  return launch<false, true>(q, none, acc_in, body_in, nullptr, worlds,
-                             stream);
+  return launch_batched<false>(q, none, acc_in, body_in, nullptr, worlds,
+                               group, per_cta, stream);
 }
 
 // The same pipeline with a joint region: jidx (2, LJ), jdata (39, LJ),
@@ -870,11 +1311,11 @@ extern "C" int b2t_contact_solve_joints_batched(
     const int* jtype, const int* joff, float* out_jacc,
     const int* overflow, int worlds,
     int nb, int L, int chunk, int l0, int n_colors, int nsub, int tail_w,
-    int LJ, int jwin, void* stream) {
+    int LJ, int jwin, int group, int per_cta, void* stream) {
   const Problem q{scalars, idx, data, params, out_body, out_acc, jsum,
                   nb, L, chunk, l0, n_colors, nsub, tail_w};
   const JointRegion jr{jidx, jdata, out_jacc, jtype, joff, LJ, 0, jwin,
                        overflow};
-  return launch<true, true>(q, jr, acc_in, body_in, jacc_in, worlds,
-                            stream);
+  return launch_batched<true>(q, jr, acc_in, body_in, jacc_in, worlds,
+                              group, per_cta, stream);
 }

@@ -22,7 +22,8 @@
 // primitive.
 //
 // What bounds it: like the contact sweep, latency. The cluster walks the
-// windows in order, each lane gathers sixteen body floats and up to 39 data
+// windows in order, each lane gathers sixteen body floats (from L2, or from
+// its world's shared memory in a batch of small worlds) and up to 39 data
 // rows, and a color's joint segment rides in one window with its contact
 // bucket, one pass of the cluster's 8,192 threads before one barrier. Lanes
 // are sorted by type inside a color so a warp runs one branch. The
@@ -87,13 +88,15 @@ __device__ __forceinline__ float unwind(float angle) {
 
 // One joint lane of stage p (0, 1 or 2): writes the six velocity deltas
 // (a: vx, vy, w; b: vx, vy, w) to out and, for p != 0, the lane's
-// accumulator column.
+// accumulator column. Rows: where the body rows live (contact_solver.cu,
+// InL2 or InShared).
+template <class Rows>
 __device__ void joint_lane(const JointRegion& jr, const float* body, int nb,
                            int lane, int ia_, int ib_, int p, float h,
                            float inv_h, float out[6]) {
   const int LJ = jr.LJ;
   const float* d = jr.data + lane;
-  float* a = jr.acc + lane;
+  float* a = jr.acc + lane;   // through Rows::ld_acc / st_acc
   auto R = [&](int r) { return __ldg(d + r * LJ); };
   const int jtype = jr.type[lane];
   const float bias_f = p == 1 ? 1.0f : 0.0f;
@@ -103,14 +106,14 @@ __device__ void joint_lane(const JointRegion& jr, const float* body, int nb,
   const float ia = R(JINV_IA), ib = R(JINV_IB);
   const float* ba = body + ia_;
   const float* bb = body + ib_;
-  const float vax0 = __ldcg(ba), vay0 = __ldcg(ba + nb);
-  const float wa0 = __ldcg(ba + 2 * nb);
-  const float vbx0 = __ldcg(bb), vby0 = __ldcg(bb + nb);
-  const float wb0 = __ldcg(bb + 2 * nb);
-  const float dpax = __ldcg(ba + 3 * nb), dpay = __ldcg(ba + 4 * nb);
-  const float dpbx = __ldcg(bb + 3 * nb), dpby = __ldcg(bb + 4 * nb);
-  const float dqca = __ldcg(ba + 5 * nb), dqsa = __ldcg(ba + 6 * nb);
-  const float dqcb = __ldcg(bb + 5 * nb), dqsb = __ldcg(bb + 6 * nb);
+  const float vax0 = Rows::ld(ba), vay0 = Rows::ld(ba + nb);
+  const float wa0 = Rows::ld(ba + 2 * nb);
+  const float vbx0 = Rows::ld(bb), vby0 = Rows::ld(bb + nb);
+  const float wb0 = Rows::ld(bb + 2 * nb);
+  const float dpax = Rows::ld(ba + 3 * nb), dpay = Rows::ld(ba + 4 * nb);
+  const float dpbx = Rows::ld(bb + 3 * nb), dpby = Rows::ld(bb + 4 * nb);
+  const float dqca = Rows::ld(ba + 5 * nb), dqsa = Rows::ld(ba + 6 * nb);
+  const float dqcb = Rows::ld(bb + 5 * nb), dqsb = Rows::ld(bb + 6 * nb);
 
   const float fapx = R(FAPX), fapy = R(FAPY);
   const float fbpx = R(FBPX), fbpy = R(FBPY);
@@ -123,11 +126,15 @@ __device__ void joint_lane(const JointRegion& jr, const float* body, int nb,
   const float dy = dpby - dpay + dcy + rby - ray;
 
   const float axial = R(AXIAL_MASS);
-  float imp_x = __ldcg(a + IX * LJ), imp_y = __ldcg(a + IY * LJ);
-  float spr_i = __ldcg(a + A_SPRING * LJ), mot_i = __ldcg(a + A_MOTOR * LJ);
-  float low_i = __ldcg(a + A_LOWER * LJ), up_i = __ldcg(a + A_UPPER * LJ);
-  float ang_i = __ldcg(a + A_ANGULAR * LJ);
-  float s2x = __ldcg(a + S2X * LJ), s2y = __ldcg(a + S2Y * LJ);
+  float imp_x = Rows::ld_acc(a + IX * LJ);
+  float imp_y = Rows::ld_acc(a + IY * LJ);
+  float spr_i = Rows::ld_acc(a + A_SPRING * LJ);
+  float mot_i = Rows::ld_acc(a + A_MOTOR * LJ);
+  float low_i = Rows::ld_acc(a + A_LOWER * LJ);
+  float up_i = Rows::ld_acc(a + A_UPPER * LJ);
+  float ang_i = Rows::ld_acc(a + A_ANGULAR * LJ);
+  float s2x = Rows::ld_acc(a + S2X * LJ);
+  float s2y = Rows::ld_acc(a + S2Y * LJ);
   // new accumulator values (start as the old ones)
   float n_ix = imp_x, n_iy = imp_y, n_spr = spr_i, n_mot = mot_i;
   float n_low = low_i, n_up = up_i, n_ang = ang_i, n_s2x = s2x, n_s2y = s2y;
@@ -541,15 +548,15 @@ __device__ void joint_lane(const JointRegion& jr, const float* body, int nb,
   }
 
   if (!warm) {
-    __stcg(a + IX * LJ, n_ix);
-    __stcg(a + IY * LJ, n_iy);
-    __stcg(a + A_SPRING * LJ, n_spr);
-    __stcg(a + A_MOTOR * LJ, n_mot);
-    __stcg(a + A_LOWER * LJ, n_low);
-    __stcg(a + A_UPPER * LJ, n_up);
-    __stcg(a + A_ANGULAR * LJ, n_ang);
-    __stcg(a + S2X * LJ, n_s2x);
-    __stcg(a + S2Y * LJ, n_s2y);
+    Rows::st_acc(a + IX * LJ, n_ix);
+    Rows::st_acc(a + IY * LJ, n_iy);
+    Rows::st_acc(a + A_SPRING * LJ, n_spr);
+    Rows::st_acc(a + A_MOTOR * LJ, n_mot);
+    Rows::st_acc(a + A_LOWER * LJ, n_low);
+    Rows::st_acc(a + A_UPPER * LJ, n_up);
+    Rows::st_acc(a + A_ANGULAR * LJ, n_ang);
+    Rows::st_acc(a + S2X * LJ, n_s2x);
+    Rows::st_acc(a + S2Y * LJ, n_s2y);
   }
   out[0] = vax - vax0; out[1] = vay - vay0; out[2] = wa - wa0;
   out[3] = vbx - vbx0; out[4] = vby - vby0; out[5] = wb - wb0;

@@ -59,9 +59,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 6. batching: 64 x pyramid-20 as a batch of worlds (make_batched_step,
    Capacity.batched, bp_repair_cap 0: the JAX package's vmapped bench),
    120 steps from spawn after one warm run, one solver launch a step for
-   all 64 worlds; that launch against 64 single-world launches (bit for
-   bit) and its twin, each launched ten times (every launch equal to the
-   first, bit for bit), on a perturbed batch's inputs at spawn
+   all 64 worlds, each batched launch through the kernel its capacity's
+   plan picks (contact_solver.batched_plan: every batch below but one
+   takes the small-world kernel, a group of warps a world; the count of
+   launches it took is held to the batched launches); that launch
+   against 64 single-world launches (bit for bit) and its twin, each
+   launched ten times (every launch equal to the first, bit for bit), on
+   a perturbed batch's inputs at spawn
    (a live Jacobi window in every world's tail) and after 30 steps, and
    with three buckets moved into every world's tail for three seeds,
    then timed; worlds 0 and 63 of a perturbed batch held to the single-world
@@ -70,20 +74,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    tests/test_rl_demo.py as a batch of 64 joint_farm(1) worlds (the
    default repair tier), a torso motor speed a world written into the
    (W, J) joint arrays every step, 256 steps from spawn after a warm
-   run of 30: one jointed solver launch (solve_kernel<true, true>) a work
-   step, the actions splitting the torsos by parity; that launch against
+   run of 30: one jointed solver launch (solve_small_kernel<true>) a
+   work step, the actions splitting the torsos by parity; that launch against
    64 single launches and itself (bit for bit) and its twin, ten times
    each, at a perturbed seed and on three hub worlds whose joint
    coloring overflows in two and not in the third, then timed against
    the 64 single launches; (f) the same at 1,024 worlds, 120 steps, the
    batched launch once against the 1,024 single launches (bit for bit),
-   timed, with the clusters the card holds at once; (g) 64 perturbed api_scene worlds
+   timed, with the worlds the card holds at once; (g) 64 perturbed
+   api_scene worlds
    (every joint type, a sensor box, a filtered box, an open chain, every
    event kind on) with both hooks of tests/test_torch_api.py and the
    default repair tier, 60 steps, worlds 0-2 and 63 held to the
    single-world step in lockstep at every step and all 64 at the last
    (1e-5; events, pairs and tiers equal), a repair tier
-   taken and pairs dropped by the filter;
+   taken and pairs dropped by the filter; 4 x pyramid-60 and 4 x
+   joint_farm(300), whose capacities keep the cluster kernel (both its
+   batched instances), each launch against its 4 single launches and
+   itself (bit for bit) and its twin; each batched launch against
+   single launches prints its path, threads a world, worlds a CTA,
+   resident CTAs, what ptxas said of the instance, and its time beside
+   world 0's single launch and beside the other kernel's on the same
+   arrays (equal bit for bit);
    then the flat batches (scenes.replicate) 64 x pyramid-20 and 1,024 x
    pyramid-8 through the solver kernel, the RL loop (64 x joint_farm(1),
    128 steps, per-world motor speeds written on the card) through the
@@ -143,7 +155,7 @@ from port_fixtures import (PARTICLE_API, all_types_scene, api_scene,
                            api_sequence, chain_sensor_scene, every_gate_tank,
                            groups_tank, hub_scene, k3_table, library_rank,
                            QUEUE_CYCLES, median_ms, move_buckets_to_tail,
-                           obstacle_tank,
+                           obstacle_tank, other_plan,
                            particle_api_case, perturbed_leaves, rank_table,
                            record_particle_calls, with_all_events)
 
@@ -159,6 +171,7 @@ TIMED_CALLS = 20
 # lanes add in, so two launches on the same inputs, and a world of a
 # batched launch against its single launch, must agree bit for bit
 ATOL, RTOL = 1e-5, 1e-4
+SMEM_OPT_IN = 232448    # the H100's opt-in shared memory a CTA (227 KB)
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate and float32 rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -327,10 +340,15 @@ def _bound_ms(args):
 def _ptxas_kernels(log):
     """What `ptxas -v` reported for each instance of the solver kernel:
     registers, static shared memory and spill stores / loads. Keyed by
-    whether it holds the joint sweep (the single-world instances), and
-    "batched" for the batched one."""
-    instances = {"ILb0ELb0E": False, "ILb1ELb0E": True,
-                 "ILb0ELb1E": "batched"}
+    whether it holds the joint sweep (the single-world instances),
+    "batched" and "batched_joints" for the cluster kernel's batched ones,
+    and "small" and "small_joints" for the small-world kernel's."""
+    instances = {"solve_kernelILb0ELb0E": False,
+                 "solve_kernelILb1ELb0E": True,
+                 "solve_kernelILb0ELb1E": "batched",
+                 "solve_kernelILb1ELb1E": "batched_joints",
+                 "solve_small_kernelILb0E": "small",
+                 "solve_small_kernelILb1E": "small_joints"}
     out, entry, props = {}, None, {}
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -346,7 +364,7 @@ def _ptxas_kernels(log):
             spill = props.get(entry, "no spill line")
             key = next((v for k, v in instances.items() if k in entry),
                        None)
-            if "solve_kernel" in entry and key is not None:
+            if key is not None:
                 out[key] = f"{regs[0].strip()}, {smem}, {spill}"
             entry = None
     return out
@@ -1692,6 +1710,10 @@ def phase_batching():
     t0 = time.perf_counter()
     row = _vmapped_batch()
     print(f"[batch] vmapped batch done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _cluster_path_batch()
+    print(f"[batch] cluster-path batch done in "
+          f"{time.perf_counter() - t0:.1f} s")
     jrows = _vmapped_jointed()
     t1 = time.perf_counter()
     launches = _flat_batches()
@@ -1736,9 +1758,12 @@ def _spread(leaves):
                if v.dtype.kind == "f" and v.size)
 
 
-def _batched_bound_ms(args):
+def _batched_bound_ms(args, dead_lanes=False):
     """_bound_ms of the batched call: the bytes and operations of all its
-    worlds (live lanes only), joint regions included."""
+    worlds (live lanes only), joint regions included. dead_lanes: also the
+    bytes the contract moves for every dead lane (its idx read, its
+    accumulators read and written: out_acc and the joint accumulators are
+    written whole)."""
     scalars, idx, data, acc, body, params, nsub = args[:7]
     live = int((idx[:, 0] >= 0).sum())
     nb = body.shape[0] * body.shape[2]
@@ -1754,6 +1779,10 @@ def _batched_bound_ms(args):
         nbytes += 4 * (jlive * (2 + 39 + 9 + 9 + 1) + joints.offsets.numel()
                        + joints.overflow.numel())
         flops += jlive * 3 * nsub * FLOP_JOINT_LANE_STAGE
+        if dead_lanes:
+            nbytes += 4 * (joints.idx[:, 0].numel() - jlive) * (1 + 9 + 9)
+    if dead_lanes:
+        nbytes += 4 * (idx[:, 0].numel() - live) * (1 + 9 + 9)
     return _bound_of(nbytes, flops)
 
 
@@ -1785,6 +1814,87 @@ def _single_args(args, w):
     return tuple(a[w] for a in args[:6]) + tuple(args[6:11]) + (jr,)
 
 
+def _plan_of(args):
+    """The batched launch's plan for these arguments (as
+    contact_solve_batched picks it) and its launch shape."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    plan = cs.plan_for(args)
+    return plan, cs.launch_shape(len(args) > 11, batched=True, plan=plan)
+
+
+def _other_path(args, plan):
+    """The batched launch on `args` by the kernel its plan does not take
+    (the cluster kernel for a small-world plan; else the small-world
+    kernel at GROUP_MAX threads, one world a CTA): its outputs, their
+    median device time, and its launch shape. The launch counters are
+    left as they were: these launches only compare the two kernels."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    other = other_plan(plan, cs.GROUP_MAX)
+    full = args[:11] + ((args[11] if len(args) > 11 else None),)
+    counts = (cs.BATCHED_LAUNCHES, cs.BATCHED_JOINT_LAUNCHES,
+              cs.SMALL_LAUNCHES)
+    try:
+        out = cs._launch_batched(full, other)
+        ms = median_ms(lambda: cs._launch_batched(full, other))
+    finally:
+        (cs.BATCHED_LAUNCHES, cs.BATCHED_JOINT_LAUNCHES,
+         cs.SMALL_LAUNCHES) = counts
+    return out, ms, cs.launch_shape(len(args) > 11, batched=True, plan=other)
+
+
+def _path_note(tag, args):
+    """One line on the batched launch at these arguments: the kernel its
+    plan picks, threads a world, worlds a CTA, the CTAs the card holds at
+    once, what ptxas said of the instance, and its device time beside
+    world 0's single launch and beside the other kernel's on the same
+    arrays, whose result must be the same bit for bit (both equal the
+    single launches). Returns the plan."""
+    from box2d_tpu_torch import contact_solver as cs
+
+    joints = len(args) > 11
+    plan, sh = _plan_of(args)
+    ptx = _ptxas_kernels(cs.build().ptxas_log)
+    single = _single_args(args, 0)
+    got = cs.contact_solve_batched(*args)
+    ms = median_ms(lambda: cs.contact_solve_batched(*args))
+    one_ms = median_ms(lambda: cs.contact_solve(*single))
+    other, other_ms, other_sh = _other_path(args, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, other)), (
+        f"{tag}: the small-world and the cluster kernel differ")
+    suffix = "_joints" if joints else ""
+    if plan.path == "small":
+        assert sh["smem_per_cta"] <= SMEM_OPT_IN, sh
+        where = (f"the small-world kernel: {plan.threads_per_world} threads "
+                 f"a world, {plan.worlds_per_cta} worlds a CTA, "
+                 f"{sh['smem_per_cta']} bytes of shared memory a CTA, "
+                 f"{sh['ctas_per_sm']} CTAs an SM ({sh['resident_ctas']} "
+                 f"resident, {sh['resident_worlds']} worlds), "
+                 f"{sh['registers']} registers and {sh['local_bytes']} "
+                 f"bytes of local memory a thread; ptxas "
+                 f"{ptx.get('small' + suffix, 'not reported')}")
+        other_where = (f"the cluster kernel "
+                       f"({other_sh['max_active_clusters']} clusters "
+                       f"resident)")
+    else:
+        where = (f"the cluster kernel: a cluster of {sh['cluster']} CTAs x "
+                 f"{sh['threads']} threads a world "
+                 f"({sh['max_active_clusters']} resident); ptxas "
+                 f"{ptx.get('batched' + suffix, 'not reported')}")
+        other_where = (f"the small-world kernel at "
+                       f"{other_sh['threads_per_world']} threads a world "
+                       f"({other_sh['smem_per_cta']} bytes of shared memory "
+                       f"a CTA, {other_sh['resident_worlds']} worlds "
+                       f"resident)")
+    print(f"[batch] path {tag}: capacity bound {plan.bound} lanes, "
+          f"{where}; median {ms:.4f} ms for {args[0].shape[0]} worlds, "
+          f"world 0's single launch {one_ms:.4f} ms; {other_where} on the "
+          f"same arrays {other_ms:.4f} ms, equal bit for bit")
+    return plan
+
+
 def _batched_against_single(tag, args):
     """The batched launch on `args` against the W single launches on each
     world's arrays and against the batched twin, each launch made
@@ -1800,6 +1910,7 @@ def _batched_against_single(tag, args):
     from box2d_tpu_torch import contact_solver as cs
 
     n_w, l0 = args[0].shape[0], args[8]
+    _path_note(tag, args)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         twin = cs.contact_solve_batched_reference(*args)
@@ -1872,7 +1983,7 @@ def _vmapped_batch():
         b = bstep(b, 1 / 60)
     torch.cuda.synchronize()
     bstep.stats = bt.BatchStats()
-    cs.BATCHED_LAUNCHES = 0
+    cs.BATCHED_LAUNCHES = cs.SMALL_LAUNCHES = 0
     cs.LAUNCHES = 0
     t0 = time.perf_counter()
     b = batch0
@@ -1885,6 +1996,9 @@ def _vmapped_batch():
     work = st.steps - st.idle_steps
     assert n_batched == work == st.solver_launches > 0, (
         f"{n_batched} batched launches for {work} work steps")
+    assert cs.SMALL_LAUNCHES == n_batched, (
+        f"{cs.SMALL_LAUNCHES} of {n_batched} batched launches took the "
+        f"small-world kernel")
     assert n_single == 0, f"{n_single} single-world launches in the batch"
     assert st.ccd_gate_openings == 0, "CCD gate opened"
     leaves = state_to_numpy(b)
@@ -1975,18 +2089,20 @@ def _vmapped_batch():
     err_twin = max(r["bt"] for r in results)
     live = int((args[1][:, 0] >= 0).sum())
     ms = _time_ms(lambda: cs.contact_solve_batched(*args))
-    sh = cs.launch_shape(False, batched=True)
-    ptx = _ptxas_kernels(cs.build().ptxas_log).get("batched", "not reported")
+    plan, sh = _plan_of(args)
     plain_ms = _time_ms(lambda: cs.contact_solve_batched_reference(*args))
-    one_ms = _time_ms(lambda: cs.contact_solve(*_single_args(args, 0)))
+    single = _single_args(args, 0)
+    one_ms = _time_ms(lambda: cs.contact_solve(*single))
     bound_ms, bound_by = _batched_bound_ms(args)
+    contract_ms = _batched_bound_ms(args, dead_lanes=True)[0]
     print(f"[batch] {n_w} worlds after {WARM_STEPS} perturbed steps: "
-          f"{live} live lanes; the batched launch, a cluster of "
-          f"{sh['cluster']} CTAs x {sh['threads']} threads a world "
-          f"({sh['max_active_clusters']} resident at once): median of "
+          f"{live} live lanes; the batched launch ({plan.path} kernel, "
+          f"{plan.threads_per_world} threads a world, "
+          f"{sh.get('resident_worlds')} worlds resident at once): median of "
           f"{TIMED_CALLS} calls {ms:.4f} ms, one world alone {one_ms:.4f} "
           f"ms, twin {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
-          f"({bound_by}); ptxas {ptx}")
+          f"({bound_by}; live lanes), {contract_ms:.6f} ms from the bytes "
+          f"the contract moves (every lane's accumulators in and out)")
 
     # worlds 0 and 63 of a perturbed batch against the single-world step,
     # in lockstep (each single step starts from the batch's world)
@@ -2014,7 +2130,48 @@ def _vmapped_batch():
           f"|d| {worst:.3e} (bound 1e-5), discrete fields equal")
     return {"launches": n_batched, "max_abs_err": err_twin,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "single_ms": one_ms,
+            "contract_ms": contract_ms}
+
+
+# worlds of the batches whose capacity keeps the cluster kernel, and their
+# scenes: pyramid-60 (1,831 bodies) and joint_farm(300) (1,500 bodies; a
+# color's bucket and its 1,200 joint lanes take 1,584)
+CLUSTER_WORLDS = 4
+CLUSTER_ROWS = 60
+CLUSTER_RAGDOLLS = 300
+
+
+def _cluster_path_batch():
+    """CLUSTER_WORLDS perturbed pyramid-60 and joint_farm(300) worlds,
+    whose capacities' plans keep the cluster kernel (its contact-only and
+    its jointed instance), after WARM_STEPS steps: each batched launch
+    against its single launches and itself, bit for bit, and its twin; no
+    launch takes the small-world kernel."""
+    from box2d_tpu_torch import contact_solver as cs
+    from box2d_tpu_torch.state import state_to_numpy
+
+    n_w = CLUSTER_WORLDS
+    state, _, _, bstep = _batch_setup(CLUSTER_ROWS)
+    cases = [(f"{n_w} x pyramid-{CLUSTER_ROWS}", _perturbed_args(
+        state_to_numpy(state), n_w, JACOBI_SEEDS[0], bstep))]
+    state, _, bstep = _rl_batch(1, ragdolls=CLUSTER_RAGDOLLS)
+    args = _perturbed_args(state_to_numpy(state), n_w, JACOBI_SEEDS[0],
+                           bstep, kick_body=1)
+    assert len(args) == 12, "the batched step packed no joint region"
+    cases.append((f"with joint regions, {n_w} x joint_farm("
+                  f"{CLUSTER_RAGDOLLS})", args))
+    for tag, args in cases:
+        plan, _ = _plan_of(args)
+        assert plan.path == "cluster", f"{tag}: {plan}"
+        small0 = cs.SMALL_LAUNCHES
+        r = _batched_against_single(f"{tag} after {WARM_STEPS} steps", args)
+        assert cs.SMALL_LAUNCHES == small0, (
+            f"{tag}: a launch took the small kernel")
+        assert not r["unequal"], (f"{tag}: launches not bit for bit: "
+                                  f"{r['unequal'][:3]}")
+        assert r["out_bt"] == 0, (f"{tag}: {r['out_bt']} values outside "
+                                  f"atol {ATOL} / rtol {RTOL} of the twin")
 
 
 def _batch_statics(builder):
@@ -2029,17 +2186,16 @@ def _batch_statics(builder):
             sensor_shape_ids(builder._shapes))
 
 
-def _rl_batch(n_w, device="cuda"):
-    """joint_farm(1) built on `device` with Capacity.batched (the default
-    repair tier), n_w copies of its spawn state, its batched step and
-    tests/test_rl_demo.py's action schedule (a torso motor speed a world
-    a step, whose sign follows the parity of the world)."""
+def _rl_batch(n_w, device="cuda", ragdolls=1):
+    """joint_farm(ragdolls) built on `device` with Capacity.batched (the
+    default repair tier): its spawn state, n_w copies of it and its
+    batched step."""
     import dataclasses
 
     from box2d_tpu_torch import scenes, world
     from box2d_tpu_torch.state import broadcast_state
 
-    w = scenes.joint_farm(ragdolls=1, device=device)
+    w = scenes.joint_farm(ragdolls=ragdolls, device=device)
     state, cap = w.builder.build(device=device)
     cap = dataclasses.replace(cap, batched=True)
     classes, jtypes, sensors = _batch_statics(w.builder)
@@ -2088,7 +2244,7 @@ def _vmapped_rl(n_w, steps):
     _rl_run(bstep, batch0, min(steps, WARM_STEPS))      # warm run
     torch.cuda.synchronize()
     bstep.stats = bt.BatchStats()
-    cs.BATCHED_LAUNCHES = cs.BATCHED_JOINT_LAUNCHES = 0
+    cs.BATCHED_LAUNCHES = cs.BATCHED_JOINT_LAUNCHES = cs.SMALL_LAUNCHES = 0
     cs.LAUNCHES = cs.JOINT_LAUNCHES = 0
     t0 = time.perf_counter()
     b = _rl_run(bstep, batch0, steps)
@@ -2099,6 +2255,9 @@ def _vmapped_rl(n_w, steps):
     work = st.steps - st.idle_steps
     assert n_joint == cs.BATCHED_LAUNCHES == work == st.solver_launches > 0, (
         f"{tag}: {n_joint} joint-region launches for {work} work steps")
+    assert cs.SMALL_LAUNCHES == n_joint, (
+        f"{tag}: {cs.SMALL_LAUNCHES} of {n_joint} launches took the "
+        f"small-world kernel")
     assert n_single == 0, f"{tag}: {n_single} single-world launches"
     leaves = state_to_numpy(b)
     for k, v in leaves.items():
@@ -2167,23 +2326,26 @@ def _joint_batch_row(tag, args, calls, plain_ms=None, loop_ms=None):
         loop_ms = median_ms(all_single, max(1, calls // 5))
     one_ms = median_ms(lambda: cs.contact_solve(*singles[0]), calls)
     bound_ms, bound_by = _batched_bound_ms(args)
-    sh = cs.launch_shape(True, batched=True)
+    contract_ms = _batched_bound_ms(args, dead_lanes=True)[0]
+    plan, sh = _plan_of(args)
     jr = args[11]
-    print(f"[batch] {tag}: the batched joint launch (solve_kernel<true, "
-          f"true>, a cluster of {sh['cluster']} CTAs x {sh['threads']} "
-          f"threads a world, {sh['max_active_clusters']} clusters resident "
-          f"at once, {n_w * sh['cluster']} CTAs in all): "
+    print(f"[batch] {tag}: the batched joint launch ({plan.path} kernel, "
+          f"{plan.threads_per_world} threads a world, "
+          f"{plan.worlds_per_cta} worlds a CTA, {sh.get('resident_worlds')} "
+          f"worlds resident at once): "
           f"{int((args[1][:, 0] >= 0).sum())} "
           f"live contact lanes, {int((jr.idx[:, 0] >= 0).sum())} live joint "
           f"lanes, worlds whose coloring overflowed "
           f"{int(jr.overflow.sum())}; median {ms:.4f} ms; the {n_w} single "
           f"launches {loop_ms:.4f} ms one after another ({n_w} x world 0's "
           f"{one_ms:.4f} ms = {n_w * one_ms:.4f} ms); twin {plain_ms:.4f} "
-          f"ms; bound {bound_ms:.6f} ms ({bound_by})")
+          f"ms; bound {bound_ms:.6f} ms ({bound_by}; live lanes), "
+          f"{contract_ms:.6f} ms from the bytes the contract moves")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, single_loop_ms=loop_ms,
-                single_sum_ms=n_w * one_ms,
-                clusters=sh["max_active_clusters"])
+                single_sum_ms=n_w * one_ms, single_ms=one_ms,
+                contract_ms=contract_ms,
+                resident_worlds=sh.get("resident_worlds"))
 
 
 def _hub_batch_args():
@@ -2293,6 +2455,7 @@ def _vmapped_api_scene():
     import dataclasses
 
     from box2d_tpu_torch import api, geometry, types, world
+    from box2d_tpu_torch import contact_solver as cs
     from box2d_tpu_torch.state import (state_from_numpy, state_to_numpy,
                                        unstack_state)
 
@@ -2319,6 +2482,7 @@ def _vmapped_api_scene():
         state_to_numpy(state), API_WORLDS, seed=21, kick=API_KICK,
         asleep=(API_ASLEEP,)), "cuda")
     worst = 0.0
+    small0 = cs.SMALL_LAUNCHES
     kinds = np.zeros((API_STEPS, API_WORLDS), np.int64)
     dropped = 0
     n_events = dict(contact=0, hit=0, sensor=0, joint=0)
@@ -2357,6 +2521,9 @@ def _vmapped_api_scene():
                           ("joint", "joint_force_count")):
             n_events[name] += int(got_all[f"events.{key}"].sum())
         b = nxt
+    assert cs.SMALL_LAUNCHES - small0 == bstep.stats.solver_launches > 0, (
+        f"{tag}: {cs.SMALL_LAUNCHES - small0} small-kernel launches, "
+        f"{bstep.stats.solver_launches} solver launches")
     assert (kinds == 1).any(), f"{tag}: no world took the repair tier"
     assert dropped > 0, f"{tag}: the custom filter dropped no pair"
     assert all(n > 0 for n in n_events.values()), f"{tag}: {n_events}"
@@ -2786,6 +2953,7 @@ def _vmapped_gated():
     equal bit for bit (the gated path's sums run in a fixed order), one
     batched solver launch a rigid work step, no K3 or K4."""
     from box2d_tpu_torch import api
+    from box2d_tpu_torch import contact_solver as cs
     from box2d_tpu_torch import geometry as g
     from box2d_tpu_torch import particles_kernels as pk
     from box2d_tpu_torch import types as t
@@ -2811,6 +2979,7 @@ def _vmapped_gated():
     ones = [world.make_step(wg.capacity, wg._classes, 4, wg._step.continuous,
                             wg._jtypes, cfg) for _ in range(n_w)]
     pk.K3_LAUNCHES = pk.K3_BATCHED_LAUNCHES = pk.K4_LAUNCHES = 0
+    cs.SMALL_LAUNCHES = 0
     wall = 0.0
     for _ in range(VPART_GATED_STEPS):
         torch.cuda.synchronize()
@@ -2825,15 +2994,16 @@ def _vmapped_gated():
     k3 = pk.K3_LAUNCHES + pk.K3_BATCHED_LAUNCHES + pk.K4_LAUNCHES
     work = st.steps - st.idle_steps
     assert k3 == 0, f"{tag}: {k3} K3 / K4 launches"
-    assert work > 0 and st.solver_launches == work, (
-        f"{tag}: {st.solver_launches} solver launches, {work} work steps")
+    assert work > 0 and st.solver_launches == work == cs.SMALL_LAUNCHES, (
+        f"{tag}: {st.solver_launches} solver launches ({cs.SMALL_LAUNCHES} "
+        f"on the small-world kernel), {work} work steps")
     print(f"[batch] {tag}: {VPART_GATED_STEPS} batched steps in {wall:.3f} "
           f"s ({VPART_GATED_STEPS / wall:.2f} steps/s), reads/step "
           f"{st.syncs / st.steps:.2f}, depth rounds {st.rounds['depth']}; "
           f"every world equal bit for bit to its single-world gated step, "
           f"running free, at each of the {VPART_GATED_STEPS} steps; batched "
-          f"solver launches {st.solver_launches} in {work} work steps; K3 "
-          f"0, K4 0")
+          f"solver launches {st.solver_launches} in {work} work steps, all "
+          f"on the small-world kernel; K3 0, K4 0")
     return {f"{tag} solver batched": st.solver_launches}
 
 

@@ -335,6 +335,18 @@ def median_ms(fn, calls=TIMED_CALLS):
     return statistics.median(times)
 
 
+def other_plan(plan, group_max):
+    """The batched solver plan (contact_solver.BatchedPlan) that takes the
+    kernel `plan` does not: the cluster kernel for a small-world plan;
+    else the small-world kernel at group_max threads a world, one world a
+    CTA."""
+    if plan.path == "small":
+        return plan._replace(path="cluster", threads_per_world=0,
+                             worlds_per_cta=0)
+    return plan._replace(path="small", threads_per_world=group_max,
+                         worlds_per_cta=1)
+
+
 def library_rank(newkey):
     """The rank of every lane by one library sort: the inverse permutation
     of torch.argsort(newkey, stable=True)."""

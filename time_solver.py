@@ -20,7 +20,9 @@ the inputs that checkout's own step gives it:
   three color buckets moved into its tail (three 128-lane windows), and,
   where the checkout has `contact_solve_batched`, the batched launch on
   64 perturbed pyramid-20 worlds after WARM_STEPS steps, as it is and
-  with three buckets moved into every world's tail.
+  with three buckets moved into every world's tail, and, where it takes
+  joint regions, on 64 and 1,024 perturbed joint_farm(1) worlds (the RL
+  batches of chip_smoke.py phase 6 (e), (f)) after WARM_STEPS steps.
 To compare two versions on one card, give them in turns, e.g. parent,
 change, change, parent, with the parent unpacked by `git archive` into a
 directory that .gitignore lists. The first line is the card's name and
@@ -34,9 +36,22 @@ times the solver kernel of every ROOT in one process, on the same inputs
 WARM_STEPS steps, whose overflow tails are empty, so that every version
 does the same work), in turns over ROUNDS rounds (in the order given,
 then backward); each ROOT's package is loaded under a name of its own and
-called through its own `contact_solve`. It also counts the SASS
+called through its own `contact_solve`. It then times the batched launch
+of every ROOT that has one the same way, on this checkout's batches (64
+x pyramid-20, 64 and 1,024 x joint_farm(1)), every version's result
+equal to the first's bit for bit. It also counts the SASS
 instructions of each build's contact-only kernel (cuobjdump). It tells a
 difference in a kernel's code from one in its inputs or its process.
+
+    python3 time_solver.py --paths
+
+times this checkout's batched launch on both its kernels, the one
+contact_solver.batched_plan picks and the other (the cluster kernel, or
+the small-world kernel at GROUP_MAX threads a world, one world a CTA),
+at PATH_CASES: PATH_WORLDS perturbed worlds of pyramids and joint farms
+of growing width after WARM_STEPS steps, the two kernels' results equal
+bit for bit, in turns over ROUNDS rounds. It shows where the plan's
+choice of kernel turns.
 """
 
 import concurrent.futures
@@ -48,15 +63,26 @@ import subprocess
 import sys
 
 from port_fixtures import (TIMED_CALLS, WARM_STEPS, library_rank, median_ms,
-                           move_buckets_to_tail, perturbed_leaves,
-                           record_particle_calls)
+                           move_buckets_to_tail, other_plan,
+                           perturbed_leaves, record_particle_calls)
 
 ROUNDS = 4
 CASES = ("pyramid-20", "pyramid-140", "joint_farm-1000",
          "K3 weight", "K3 pressure", "K3 damping", "K4",
          "K4 library (argsort + scatter)",
          "pyramid-140 at spawn", "pyramid-20 tail",
-         "64 x pyramid-20 batched", "64 x pyramid-20 batched tail")
+         "64 x pyramid-20 batched", "64 x pyramid-20 batched tail",
+         "64 x joint_farm(1) batched", "1,024 x joint_farm(1) batched")
+# the batched cases of --one-process: (case, worlds, scene, seed)
+BATCHED = (("64 x pyramid-20 batched", 64, "pyramid", 7),
+           ("64 x joint_farm(1) batched", 64, "joint_farm", 7),
+           ("1,024 x joint_farm(1) batched", 1024, "joint_farm", 11))
+# the batches of --paths: (scene, rows or ragdolls), PATH_WORLDS worlds
+PATH_CASES = (("pyramid", 20), ("pyramid", 30), ("pyramid", 40),
+              ("pyramid", 60), ("pyramid", 80), ("pyramid", 84),
+              ("joint_farm", 1), ("joint_farm", 100), ("joint_farm", 300),
+              ("joint_farm", 700))
+PATH_WORLDS = 4
 # the Jacobi cases: the color buckets moved into the overflow tail
 TAIL_BUCKETS = 3
 BATCH_WORLDS = 64
@@ -74,26 +100,43 @@ def _layout(w, steps):
                             until="layout", joint_types=st.joint_types)
 
 
-def _batch_args():
-    """The batched solver's arguments for a perturbed batch of
-    BATCH_WORLDS pyramid-20 worlds (chip_smoke.py phase 6's, seed 7) after
-    WARM_STEPS steps."""
+def _batch_args(n_w=BATCH_WORLDS, scene="pyramid", seed=7, size=None):
+    """The batched solver's arguments for a perturbed batch of n_w worlds
+    after WARM_STEPS steps: pyramid-20 (or pyramid-`size`) as
+    chip_smoke.py phase 6 batches it (bp_repair_cap 0; the last world's
+    box 5 kicked), or joint_farm(1) (or joint_farm(size)) as its RL
+    batches (e), (f) do (the default repair tier; the last world's body 1
+    kicked)."""
     import dataclasses
 
     from box2d_tpu_torch import batch as bt
     from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.joints import joint_types_present
     from box2d_tpu_torch.narrowphase import classes_for_shape_types
+    from box2d_tpu_torch.sensors import sensor_shape_ids
     from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
 
-    w = scenes.pyramid(rows=20, device="cuda")
+    w = (scenes.pyramid(rows=size or 20, device="cuda")
+         if scene == "pyramid"
+         else scenes.joint_farm(ragdolls=size or 1, device="cuda"))
     state, cap = w.builder.build(device="cuda")
-    cap = dataclasses.replace(cap, bp_repair_cap=0, batched=True)
     classes = classes_for_shape_types(
         s["geom"].type for s in w.builder._shapes)
-    bstep = world.make_batched_step(cap, classes, 4, True)
+    if scene == "pyramid":
+        cap = dataclasses.replace(cap, bp_repair_cap=0, batched=True)
+        bstep = world.make_batched_step(cap, classes, 4, True)
+        kick = 5
+    else:
+        bstep = world.make_batched_step(
+            dataclasses.replace(cap, batched=True), classes, 4,
+            w.builder.def_.enable_continuous,
+            joint_types=joint_types_present(
+                j["_type"] for j in w.builder._joints),
+            sensor_ids=sensor_shape_ids(w.builder._shapes))
+        kick = 1
     b = state_from_numpy(perturbed_leaves(
-        state_to_numpy(state), BATCH_WORLDS, seed=7,
-        kick=(BATCH_WORLDS - 1, 5, (2.0, 1.0))), "cuda")
+        state_to_numpy(state), n_w, seed=seed,
+        kick=(n_w - 1, kick, (2.0, 1.0))), "cuda")
     for _ in range(WARM_STEPS):
         b = bstep(b, 1 / 60)
     return bt.batched_kernel_args(b, 1 / 60, bstep)
@@ -148,6 +191,11 @@ def worker(root):
         targs = tuple(torch.stack([t[i] for t in tails])
                       for i in range(6)) + bargs[6:11]
         out[CASES[11]] = median_ms(lambda: cs.contact_solve_batched(*targs))
+        if "jrows" in inspect.signature(cs.contact_solve_batched).parameters:
+            for case, n_w, scene, seed in BATCHED[1:]:
+                jargs = _batch_args(n_w, scene, seed)
+                out[case] = median_ms(
+                    lambda: cs.contact_solve_batched(*jargs))
     print(json.dumps(out))
 
 
@@ -237,11 +285,80 @@ def one_process(roots):
         for name in names:
             print(f"[one_process] {case} {name}: " + " ".join(
                 f"{t:.4f}" for t in times[name]) + " ms", flush=True)
+    for case, n_w, scene, seed in BATCHED:
+        args = _batch_args(n_w, scene, seed)
+        calls, results, which = [], [], []
+        for name, cs in zip(names, solvers):
+            if not hasattr(cs, "contact_solve_batched") or (
+                    len(args) > 11 and "jrows" not in inspect.signature(
+                        cs.contact_solve_batched).parameters):
+                continue
+            calls.append(lambda cs=cs: cs.contact_solve_batched(*args))
+            results.append(calls[-1]())
+            which.append(name)
+        for r in results[1:]:
+            # every version equals the single launches bit for bit
+            assert all(torch.equal(x, y) for x, y in zip(r, results[0]))
+        times = {name: [] for name in which}
+        for k in range(ROUNDS):
+            order = list(zip(which, calls))
+            for name, call in order if k % 2 == 0 else order[::-1]:
+                times[name].append(median_ms(call))
+        out[case] = times
+        for name in which:
+            print(f"[one_process] {case} {name}: " + " ".join(
+                f"{t:.4f}" for t in times[name]) + " ms", flush=True)
     print(json.dumps({"timed_calls": TIMED_CALLS, "rounds": ROUNDS,
                       "ms": out}))
 
 
+def paths():
+    """--paths: the batched launch on both kernels at PATH_CASES."""
+    import torch
+
+    from box2d_tpu_torch import contact_solver as cs
+
+    out = {}
+    for scene, size in PATH_CASES:
+        case = f"{PATH_WORLDS} x {scene}-{size}"
+        args = _batch_args(PATH_WORLDS, scene, 7, size)
+        plan = cs.plan_for(args)
+        other = other_plan(plan, cs.GROUP_MAX)
+        small, cluster = ((plan, other) if plan.path == "small"
+                          else (other, plan))
+        full = args[:11] + ((args[11] if len(args) > 11 else None),)
+        calls = {k: (lambda p=p: cs._launch_batched(full, p))
+                 for k, p in (("small", small), ("cluster", cluster))}
+        a, b = calls["small"](), calls["cluster"]()
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), case
+        times = {k: [] for k in calls}
+        for k in range(ROUNDS):
+            for name in (("small", "cluster") if k % 2 == 0
+                         else ("cluster", "small")):
+                times[name].append(median_ms(calls[name]))
+        shape = cs.launch_shape(len(args) > 11, batched=True, plan=small)
+        out[case] = dict(nb=plan.nb, bound=plan.bound, plan=plan.path,
+                         smem_per_cta=shape["smem_per_cta"], **times)
+        print(f"[paths] {case}: nb {plan.nb}, capacity bound {plan.bound} "
+              f"lanes, plan {plan.path}; small-world kernel at "
+              f"{small.threads_per_world} threads a world ("
+              f"{shape['smem_per_cta']} bytes of shared memory a CTA) "
+              + " ".join(f"{t:.4f}" for t in times["small"])
+              + " ms; cluster kernel "
+              + " ".join(f"{t:.4f}" for t in times["cluster"])
+              + " ms; equal bit for bit", flush=True)
+    print(json.dumps({"timed_calls": TIMED_CALLS, "rounds": ROUNDS,
+                      "worlds": PATH_WORLDS, "ms": out}))
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--paths":
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip(), flush=True)
+        paths()
+        return
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         worker(os.path.abspath(sys.argv[2]))
         return
