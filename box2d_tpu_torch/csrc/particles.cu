@@ -72,6 +72,26 @@
 // launch equals the single launch on world w bit for bit. What bounds it
 // is what bounds one launch, W times over, in one launch's fixed cost.
 //
+// K3 batched for small worlds (b2t_particle_window_small,
+// window_small_kernel): a batch of small worlds (64 x dam_break-500: 484
+// lanes, a 9.7 KB table a world) gave the grid kernel two blocks a world,
+// each running the whole chain above (warp searches over global keys, a
+// barrier, the stage, a barrier) for a table that fits one SM's shared
+// memory: about 8 us of its 13 us was that chain of dependent global
+// loads and barriers, not bytes (the bound is 0.2-0.3 us). This kernel
+// gives a group of threads up to 256 of a world's lanes, three threads a
+// lane, one for each of its ranges (a world of n lanes takes ceil(n /
+// 256) groups, a CTA each; narrower worlds share a CTA). The group copies
+// its world's whole table into shared memory in one coalesced pass; each
+// thread then searches and walks its one range there (a third of a lane's
+// chain), and the three range sums meet in shared memory. A first design,
+// one thread a lane and all three ranges, took 11.4-12.1 us against the
+// grid kernel's 12.9-13.3 at 64 x dam_break-500: 6 us of searches and
+// walks in one thread's chain. particles_kernels.k3_batched_plan picks
+// this kernel from a world's capacity alone, up to K3_SMALL_LANES lanes,
+// where its time meets the grid kernel's at 64 worlds (time_solver.py
+// --k3-paths); wider tables keep the grid kernel. Both give the same bits.
+//
 // ---------------------------------------------------------------------------
 // K4, rank_kernel: replaces box2d_tpu/particles_pallas.py:356 `rank_pass`
 // (its body `_rank_kernel`, :276-320). Particles move at most one cell per
@@ -127,6 +147,25 @@ constexpr bool kStaging = true;
 #endif
 
 enum Phase { PH_WEIGHT = 0, PH_PRESSURE = 1, PH_DAMPING = 2 };
+
+// K3 batched for small worlds: a group's most lanes, a CTA's most threads
+// (three a lane: the launch bound, two CTAs an SM, which holds the kernel
+// to 40 registers: it spills 8-16 bytes, and is faster so than with one
+// CTA an SM at 52 registers and none once a world takes more than one
+// CTA: time_solver.py --k3-paths), and the most dynamic shared memory a
+// CTA can opt in to
+constexpr int kSmallLanes = 256;
+constexpr int kSmallThreads = 3 * kSmallLanes;
+constexpr size_t kSmemMax = 232448;
+
+// A group's shared memory in window_small_kernel: its world's table, a
+// float4 record and an int key a lane (n rounded up to 4 lanes, so that
+// the next table's records stay 16-byte aligned), and a float2 range sum
+// for each of its 3 x lanes threads.
+inline size_t small_group_bytes(int n, int lanes) {
+  return static_cast<size_t>((n + 3) & ~3) * 20 +
+         static_cast<size_t>(3 * lanes) * 8;
+}
 
 // ---------------------------------------------------------------------------
 // K3
@@ -232,15 +271,13 @@ __device__ __forceinline__ void accumulate(const float4 c, float px,
 // of each other, mark the neighbours in a mask; then the neighbours are
 // summed in lane order. A warp's lanes take the costly branch together,
 // as often as the lane with the most neighbours needs, not once for every
-// candidate of any lane. Returns the range's sums.
-template <int PHASE, typename Keys, typename Records>
-__device__ __forceinline__ float2 walk(Keys keys, Records record, int lo,
-                                       int end, int lo_key, int hi_key,
-                                       int own, float px, float py,
-                                       float my0, float my1,
-                                       const K3Scalars& sc) {
-  const int s = bound(keys, lo, end, lo_key, false);
-  const int e = bound(keys, s, end, hi_key, true);
+// candidate of any lane. Returns the range's sums. walk_span: the same
+// over the candidates [s, e), whose keys the caller found in range.
+template <int PHASE, typename Records>
+__device__ __forceinline__ float2 walk_span(Records record, int s, int e,
+                                            int own, float px, float py,
+                                            float my0, float my1,
+                                            const K3Scalars& sc) {
   float sx = 0.0f, sy = 0.0f;
   for (int b = s; b < e; b += 32) {
     const int m_end = min(b + 32, e);
@@ -260,6 +297,60 @@ __device__ __forceinline__ float2 walk(Keys keys, Records record, int lo,
     }
   }
   return make_float2(sx, sy);
+}
+
+template <int PHASE, typename Keys, typename Records>
+__device__ __forceinline__ float2 walk(Keys keys, Records record, int lo,
+                                       int end, int lo_key, int hi_key,
+                                       int own, float px, float py,
+                                       float my0, float my1,
+                                       const K3Scalars& sc) {
+  const int s = bound(keys, lo, end, lo_key, false);
+  const int e = bound(keys, s, end, hi_key, true);
+  return walk_span<PHASE>(record, s, e, own, px, py, my0, my1, sc);
+}
+
+// The key range of row offset drow of a lane with cell key `key`: the
+// cells (row + drow, col - 1) .. (row + drow, col + 1), the column clamped
+// at 0 and 0xFFFF. A dead lane, or a row outside the 16-bit range (the
+// key's row wraps at y = 0: ROADMAP.md section 3), has none (returns false;
+// lo_key INT_MAX, hi_key INT_MIN). neighbour_keys: the three ranges,
+// same row, row above, row below (d = 0, +1, -1, the order the twin sums
+// them in).
+__device__ __forceinline__ bool row_range(int key, bool live, int drow,
+                                          int& lo_key, int& hi_key) {
+  const int row = key >> 16;
+  const int col = key & 0xFFFF;
+  const long long R = static_cast<long long>(row) + drow;
+  const bool open = live && R >= -32768 && R <= 32767;
+  lo_key = open ? static_cast<int>(R * 65536 + (col > 0 ? col - 1 : 0))
+                : INT_MAX;
+  hi_key = open
+      ? static_cast<int>(R * 65536 + (col < 0xFFFF ? col + 1 : 0xFFFF))
+      : INT_MIN;
+  return open;
+}
+
+__device__ __forceinline__ void neighbour_keys(int key, bool live,
+                                               int lo_key[3], int hi_key[3],
+                                               bool open[3]) {
+  const int drow[3] = {0, 1, -1};
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    open[r] = row_range(key, live, drow[r], lo_key[r], hi_key[r]);
+}
+
+// A range's sums into the lane's output, as the twin adds them (the
+// pressure term negated).
+template <int PHASE>
+__device__ __forceinline__ void add_range(float2 v, float& ox, float& oy) {
+  if (PHASE == PH_PRESSURE) {
+    ox = ox + -v.x;
+    oy = oy + -v.y;
+  } else {
+    ox = ox + v.x;
+    oy = oy + v.y;
+  }
 }
 
 // scalars: [inv_diameter, diameter^2, lin_damping, quad_damping, vel_per_p]
@@ -305,21 +396,9 @@ __global__ void __launch_bounds__(kBlock) window_kernel(
     my0 = p0[i];
     my1 = p1[i];
   }
-  const int row = key >> 16;
-  const int col = key & 0xFFFF;
-  const int drow[3] = {0, 1, -1};
   int lo_key[3], hi_key[3];
   bool open[3];
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    const long long R = static_cast<long long>(row) + drow[r];
-    open[r] = live && R >= -32768 && R <= 32767;
-    lo_key[r] = open[r]
-        ? static_cast<int>(R * 65536 + (col > 0 ? col - 1 : 0)) : INT_MAX;
-    hi_key[r] = open[r]
-        ? static_cast<int>(R * 65536 + (col < 0xFFFF ? col + 1 : 0xFFFF))
-        : INT_MIN;
-  }
+  neighbour_keys(key, live, lo_key, hi_key, open);
   if (tid < 3) {
     lim[tid] = INT_MAX;
     lim[3 + tid] = INT_MIN;
@@ -365,15 +444,7 @@ __global__ void __launch_bounds__(kBlock) window_kernel(
   // the sums of the three ranges, in the twin's order (d = 0, +1, -1); a
   // row that does not exist adds nothing
   float ox = 0.0f, oy = 0.0f;
-  auto add = [&](float2 v) {
-    if (PHASE == PH_PRESSURE) {
-      ox = ox + -v.x;
-      oy = oy + -v.y;
-    } else {
-      ox = ox + v.x;
-      oy = oy + v.y;
-    }
-  };
+  auto add = [&](float2 v) { add_range<PHASE>(v, ox, oy); };
   if (staged) {
     // stage index of lane g of union r: g + base[r]
     const int base[3] = {-seg[0][0], seg[0][1] - seg[0][0] - seg[1][0],
@@ -416,6 +487,100 @@ __global__ void __launch_bounds__(kBlock) window_kernel(
     out[2 * i] = ox;
     out[2 * i + 1] = oy;
   }
+}
+
+// K3 batched for small worlds. A group of threads takes `lanes` lanes of
+// one world (a multiple of 32, at most kSmallLanes) with three threads a
+// lane, one for each of its ranges (d = 0, +1, -1; a warp serves one d):
+// 3 x lanes threads. A world of n lanes takes ceil(n / lanes) groups, and
+// groups_per_cta groups share a CTA where one group covers a world. Each
+// group copies its world's whole table into the CTA's dynamic shared
+// memory (a 16-byte record and a key a lane, small_group_bytes), then
+// each thread finds its range by binary search in shared memory and walks
+// it there: no search in global memory, no union bracket, no global path.
+// The brackets follow from the sorted order: the own row's range holds
+// the lane itself, the row above's lies after it and the row below's
+// before it (their keys are all greater or all less than the lane's, the
+// y = 0 wrap included, as a row outside the 16-bit range is never
+// searched). The three range sums meet in shared memory and the d = 0
+// thread adds them in the twin's order; each is the grid kernel's sum of
+// the same candidates in the same order, so a world equals window_kernel's
+// result bit for bit.
+template <int PHASE>
+__global__ void __launch_bounds__(kSmallThreads, 2) window_small_kernel(
+    const float* __restrict__ pos, const int* __restrict__ skey,
+    const bool* __restrict__ alive, const float* __restrict__ p0,
+    const float* __restrict__ p1, const float* __restrict__ scalars,
+    float* __restrict__ out, int n, int n_worlds, int lanes) {
+  extern __shared__ float4 small_table[];
+  const int group_threads = 3 * lanes;
+  const int groups = blockDim.x / group_threads;
+  const int g = threadIdx.x / group_threads;
+  const int t = threadIdx.x - g * group_threads;
+  const int r = t / lanes;  // this thread's range: d = 0, +1, -1
+  const int blocks = (n + lanes - 1) / lanes;  // a world's groups
+  const int q = blockIdx.x * groups + g;
+  const int world = q / blocks;
+  const int i = (q - world * blocks) * lanes + (t - r * lanes);
+  // this group's table (n4 records, then n4 keys), after all of them the
+  // groups' range sums, one a thread
+  const int n4 = (n + 3) & ~3;
+  float4* rec = small_table + static_cast<size_t>(g) * (n4 / 4) * 5;
+  int* keys = reinterpret_cast<int*>(rec + n4);
+  float2* part = reinterpret_cast<float2*>(
+      small_table + static_cast<size_t>(groups) * (n4 / 4) * 5) +
+      g * group_threads;
+  const bool has_world = world < n_worlds;
+  const size_t base = static_cast<size_t>(world) * n;
+  if (has_world) {
+    pos += 2 * base;
+    skey += base;
+    alive += base;
+    p0 += base;
+    p1 += base;
+    out += 2 * base;
+    scalars += 8 * static_cast<size_t>(world);
+#pragma unroll 4
+    for (int k = t; k < n; k += group_threads) {
+      rec[k] = load_record<PHASE>(pos, alive, p0, p1, k);
+      keys[k] = __ldg(skey + k);
+    }
+  }
+  __syncthreads();
+  const bool live = has_world && i < n && alive[i];
+  const int key = live ? keys[i] : 0;
+  float2 v = make_float2(0.0f, 0.0f);
+  int lo_key, hi_key;
+  if (row_range(key, live, r == 0 ? 0 : (r == 1 ? 1 : -1), lo_key,
+                hi_key)) {
+    const K3Scalars sc{scalars[0], scalars[1], scalars[2], scalars[3],
+                       scalars[4]};
+    // the lane's own record holds what the phase reads of it (the
+    // weight reads no p0 / p1, the pressure no p1)
+    const float4 me = rec[i];
+    auto key_at = [&](int k) { return keys[k]; };
+    auto record = [&](int k) { return rec[k]; };
+    // the range [s, e): the own row's starts at or before i and ends
+    // after it, the row above's lies in [i + 1, n), the row below's in
+    // [0, i)
+    const int s = bound(key_at, r == 1 ? i + 1 : 0, r == 1 ? n : i,
+                        lo_key, false);
+    const int e = bound(key_at, r == 0 ? i + 1 : s, r == 2 ? i : n,
+                        hi_key, true);
+    v = walk_span<PHASE>(record, s, e, r == 0 ? i : -1, me.x, me.y, me.z,
+                         me.w, sc);
+  }
+  part[t] = v;
+  __syncthreads();
+  if (r != 0 || !has_world || i >= n) return;
+  float ox = 0.0f, oy = 0.0f;
+  const int drow[3] = {0, 1, -1};
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    if (row_range(key, live, drow[d], lo_key, hi_key))
+      add_range<PHASE>(part[t + d * lanes], ox, oy);
+  }
+  reinterpret_cast<float2*>(out)[i] = make_float2(ox, oy);
 }
 
 // ---------------------------------------------------------------------------
@@ -532,6 +697,77 @@ int launch_window(const float* pos, const int* skey, const bool* alive,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int PHASE>
+cudaError_t launch_small_phase(dim3 grid, int threads, size_t smem,
+                               cudaStream_t s, const float* pos,
+                               const int* skey, const bool* alive,
+                               const float* p0, const float* p1,
+                               const float* scalars, float* out, int n,
+                               int n_worlds, int lanes) {
+  // a CTA's dynamic shared memory above 48 KB must be opted in to: once
+  static bool opted = false;
+  if (!opted) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        window_small_kernel<PHASE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kSmemMax));
+    if (rc != cudaSuccess) return rc;
+    opted = true;
+  }
+  window_small_kernel<PHASE><<<grid, threads, smem, s>>>(
+      pos, skey, alive, p0, p1, scalars, out, n, n_worlds, lanes);
+  return cudaGetLastError();
+}
+
+// The small kernel's CTA at (n, lanes, groups_per_cta): its threads and
+// shared memory; false where the kernel does not take that shape (its
+// shared memory may still be more than a CTA can have).
+bool small_shape(int n, int lanes, int groups_per_cta, int* threads,
+                 size_t* smem) {
+  if (n <= 0 || lanes < 32 || lanes % 32 != 0 || lanes > kSmallLanes
+      || groups_per_cta < 1
+      || 3 * lanes * groups_per_cta > kSmallThreads
+      || (groups_per_cta > 1 && lanes < n))
+    return false;
+  *threads = 3 * lanes * groups_per_cta;
+  *smem = groups_per_cta * small_group_bytes(n, lanes);
+  return true;
+}
+
+int launch_window_small(const float* pos, const int* skey, const bool* alive,
+                        const float* p0, const float* p1,
+                        const float* scalars, float* out, int n,
+                        int n_worlds, int lanes, int groups_per_cta,
+                        int phase, void* stream) {
+  if (n <= 0 || n_worlds <= 0) return 0;
+  int threads;
+  size_t smem;
+  if (!small_shape(n, lanes, groups_per_cta, &threads, &smem)
+      || smem > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long groups =
+      static_cast<long long>(n_worlds) * ((n + lanes - 1) / lanes);
+  const dim3 grid(
+      static_cast<unsigned>((groups + groups_per_cta - 1) / groups_per_cta));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (phase) {
+    case PH_WEIGHT:
+      return static_cast<int>(launch_small_phase<PH_WEIGHT>(
+          grid, threads, smem, s, pos, skey, alive, p0, p1, scalars, out, n,
+          n_worlds, lanes));
+    case PH_PRESSURE:
+      return static_cast<int>(launch_small_phase<PH_PRESSURE>(
+          grid, threads, smem, s, pos, skey, alive, p0, p1, scalars, out, n,
+          n_worlds, lanes));
+    case PH_DAMPING:
+      return static_cast<int>(launch_small_phase<PH_DAMPING>(
+          grid, threads, smem, s, pos, skey, alive, p0, p1, scalars, out, n,
+          n_worlds, lanes));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // pos (n, 2) f32, skey (n) i32 ascending, alive (n) bool, p0 / p1 (n) f32,
@@ -556,6 +792,57 @@ extern "C" int b2t_particle_window_batched(
     int n_worlds, int phase, void* stream) {
   return launch_window(pos, skey, alive, p0, p1, scalars, out, paths, n,
                        n_worlds, phase, stream);
+}
+
+// The same function on window_small_kernel: `lanes` lanes of a world a
+// group of 3 x lanes threads (lanes a multiple of 32, at most 256),
+// groups_per_cta groups a CTA (at most 768 threads; more than one only
+// where a group covers a world), each group's world table and range sums
+// in shared memory (at most 227 KB a CTA); else cudaErrorInvalidValue.
+extern "C" int b2t_particle_window_small(
+    const float* pos, const int* skey, const bool* alive, const float* p0,
+    const float* p1, const float* scalars, float* out, int n, int n_worlds,
+    int lanes, int groups_per_cta, int phase, void* stream) {
+  return launch_window_small(pos, skey, alive, p0, p1, scalars, out, n,
+                             n_worlds, lanes, groups_per_cta, phase, stream);
+}
+
+// How window_small_kernel<phase> runs at that shape: out[0] the shared
+// memory a CTA (bytes), out[1] the CTAs an SM holds at once (0 where
+// out[0] is more than a CTA can have: the kernel does not take it),
+// out[2] the registers a thread, out[3] the local (spill) bytes a thread.
+extern "C" int b2t_particle_window_small_shape(int n, int lanes,
+                                               int groups_per_cta, int phase,
+                                               int* out) {
+  int threads;
+  size_t smem;
+  if (!small_shape(n, lanes, groups_per_cta, &threads, &smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      phase == PH_WEIGHT ? reinterpret_cast<const void*>(
+                               window_small_kernel<PH_WEIGHT>)
+      : phase == PH_PRESSURE ? reinterpret_cast<const void*>(
+                                   window_small_kernel<PH_PRESSURE>)
+                             : reinterpret_cast<const void*>(
+                                   window_small_kernel<PH_DAMPING>);
+  cudaError_t rc = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmemMax));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  int ctas = 0;
+  if (smem <= kSmemMax) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, fn, threads,
+                                                       smem);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  cudaFuncAttributes attr;
+  rc = cudaFuncGetAttributes(&attr, fn);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  out[0] = static_cast<int>(smem);
+  out[1] = ctas;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  return 0;
 }
 
 // newkey (n) i32, offs (n_blocks) i32 with n_blocks = ceil(n / 256),

@@ -15,9 +15,13 @@ csrc/particles.cu run inside each particle sub-iteration:
   which blocks do).
 - `window_pass_batched` (K3 batched, replaces `window_pass` as jax.vmap of
   the particle step traces it, with a batch axis on its grid and one
-  scalar row a world): the same kernel over W worlds' tables in one
-  launch, a world a row of the grid; world w's result is what
-  `window_pass` gives on world w's table.
+  scalar row a world): W worlds' tables in one launch; world w's result
+  is what `window_pass` gives on world w's table. `k3_batched_plan`
+  picks its kernel from a world's capacity: tables of at most
+  K3_SMALL_LANES lanes take the small-world kernel (a group of threads
+  for a world's lanes, three a lane, the world's whole table in shared
+  memory), wider ones the grid kernel (window_pass's kernel, a world a
+  row of the grid).
 - `rank_pass` (K4, replaces `particles_pallas._rank_kernel` / `rank_pass`):
   the nearly-sorted rank repair, the new sorted position of every lane as
   a windowed rank over the previously sorted key table; with
@@ -33,7 +37,9 @@ about it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -49,7 +55,8 @@ INT32_MAX = (1 << 31) - 1
 
 # kernel launches made by the wrappers (the twins do not count)
 K3_LAUNCHES = 0
-K3_BATCHED_LAUNCHES = 0
+K3_BATCHED_LAUNCHES = 0   # every batched launch, on either kernel
+K3_SMALL_LAUNCHES = 0     # the batched launches on the small-world kernel
 K4_LAUNCHES = 0
 
 SOURCE = os.path.join(HERE, "csrc", "particles.cu")
@@ -70,6 +77,12 @@ def build() -> ctypes.CDLL:
     lib.b2t_particle_window_batched.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.b2t_particle_window_batched.restype = ctypes.c_int
+    lib.b2t_particle_window_small.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.b2t_particle_window_small.restype = ctypes.c_int
+    lib.b2t_particle_window_small_shape.argtypes = [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    lib.b2t_particle_window_small_shape.restype = ctypes.c_int
     lib.b2t_particle_rank.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.b2t_particle_rank.restype = ctypes.c_int
@@ -147,15 +160,71 @@ def window_pass(pos, skey, alive, p0, p1, scalars, phase: int,
     return out
 
 
+# K3 batched on small worlds: the small-world kernel (csrc/particles.cu,
+# window_small_kernel) and the figures its plan is reckoned with.
+# the widest table it takes: at 64 worlds it is 19% faster than the grid
+# kernel at 1,024 lanes, level at 1,296 and 1-4% slower at 1,600
+# (time_solver.py --k3-paths, NVIDIA H100 80GB HBM3, 700.00 W)
+K3_SMALL_LANES = 1280
+K3_GROUP_LANES = 256     # kSmallLanes: a group's most lanes, 3 threads each
+
+
+class K3BatchedPlan(NamedTuple):
+    path: str                # "small" or "grid"
+    n: int                   # lanes of a world's table
+    lanes: int               # a group's lanes (0 on the grid path)
+    groups_per_cta: int      # (0 on the grid path)
+
+
+@functools.lru_cache(maxsize=None)
+def k3_batched_plan(n: int, path: str | None = None) -> K3BatchedPlan:
+    """The kernel of a batched K3 launch on tables of n lanes a world,
+    decided from n alone (no device read), once for each n: the
+    small-world kernel up to K3_SMALL_LANES lanes, else the grid kernel;
+    `path` forces one ("small" or "grid"). On the small kernel a group
+    of 3 x lanes threads (three a lane, one for each neighbour row)
+    takes `lanes` lanes of one world, n rounded up to a warp and at most
+    K3_GROUP_LANES; a wider world takes ceil(n / lanes) groups, each with
+    the world's whole table in its CTA's shared memory; narrower worlds
+    share a CTA, groups_per_cta of them, up to K3_GROUP_LANES lanes. The
+    kernel counts a CTA's shared memory itself (k3_small_shape) and
+    refuses a table that does not fit (about 11,000 lanes)."""
+    if path is None:
+        path = "small" if n <= K3_SMALL_LANES else "grid"
+    if path == "grid":
+        return K3BatchedPlan("grid", n, 0, 0)
+    if path != "small":
+        raise ValueError(f"k3_batched_plan: unknown path {path!r}")
+    lanes = min(K3_GROUP_LANES, max(32, -(-n // 32) * 32))
+    return K3BatchedPlan("small", n, lanes, max(1, K3_GROUP_LANES // lanes))
+
+
+def k3_small_shape(plan: K3BatchedPlan, phase: int) -> dict:
+    """How the small-world kernel of `phase` runs at `plan`'s shape, as the
+    card reports it: shared memory a CTA (bytes), CTAs an SM holds at
+    once (0 where the shared memory is more than a CTA can have: the
+    kernel refuses it), registers and local (spill) bytes a thread. Needs
+    a CUDA device."""
+    out = (ctypes.c_int * 4)()
+    rc = build().b2t_particle_window_small_shape(
+        plan.n, plan.lanes, plan.groups_per_cta, phase, out)
+    if rc != 0:
+        raise RuntimeError(f"k3_small_shape: cudaError {rc}")
+    return dict(smem_per_cta=out[0], ctas_per_sm=out[1], registers=out[2],
+                local_bytes=out[3])
+
+
 def window_pass_batched(pos, skey, alive, p0, p1, scalars, phase: int,
-                        paths=None):
+                        paths=None, plan: K3BatchedPlan | None = None):
     """window_pass over W worlds' tables in one launch: pos (W, n, 2) f32,
     skey (W, n) i32 (each world's row ascending), alive (W, n) bool, p0 /
     p1 (W, n) f32, scalars (W, 8) f32, one row a world. Returns (W, n, 2)
     f32; world w's rows are what window_pass returns for world w's table
-    and scalar row, and no particle sees another world's neighbour. paths
-    counts the blocks of all worlds."""
-    global K3_BATCHED_LAUNCHES
+    and scalar row, and no particle sees another world's neighbour.
+    plan: the kernel, k3_batched_plan(n) unless given. paths counts the
+    grid kernel's 256-lane blocks of all worlds by path (as window_pass's
+    does): given without a plan, the launch takes the grid kernel."""
+    global K3_BATCHED_LAUNCHES, K3_SMALL_LAUNCHES
     n_w, n = skey.shape
     dev = pos.device
     f32 = torch.float32
@@ -163,13 +232,20 @@ def window_pass_batched(pos, skey, alive, p0, p1, scalars, phase: int,
         (pos, (n_w, n, 2), f32), (skey, (n_w, n), torch.int32),
         (alive, (n_w, n), torch.bool), (p0, (n_w, n), f32),
         (p1, (n_w, n), f32), (scalars, (n_w, 8), f32)])
-    if paths is not None:
-        _check("window_pass_batched", dev, [(paths, (2,), torch.int32)])
     if phase not in (PH_WEIGHT, PH_PRESSURE, PH_DAMPING):
         raise ValueError(f"window_pass_batched: unknown phase {phase}")
+    plan = plan or k3_batched_plan(n, None if paths is None else "grid")
+    if plan.n != n:
+        raise ValueError(f"window_pass_batched: a plan for {plan.n} lanes "
+                         f"on tables of {n}")
+    if paths is not None:
+        if plan.path != "grid":
+            raise ValueError("window_pass_batched: paths counts the grid "
+                             "kernel's blocks")
+        _check("window_pass_batched", dev, [(paths, (2,), torch.int32)])
     if n_w > 65535:
         raise ValueError(f"window_pass_batched: {n_w} worlds (at most "
-                         f"65535, the grid's y)")
+                         f"65535, the grid kernel's y)")
     if dev.type == "cpu":
         if paths is not None:
             paths += torch.tensor(k3_block_paths(skey, alive),
@@ -180,17 +256,23 @@ def window_pass_batched(pos, skey, alive, p0, p1, scalars, phase: int,
         raise ValueError(f"window_pass_batched: unsupported device {dev}")
     lib = build()
     out = torch.empty((n_w, n, 2), dtype=f32, device=dev)
+    ptrs = (pos.data_ptr(), skey.data_ptr(), alive.data_ptr(),
+            p0.data_ptr(), p1.data_ptr(), scalars.data_ptr(), out.data_ptr())
     with torch.cuda.device(dev):
-        rc = lib.b2t_particle_window_batched(
-            pos.data_ptr(), skey.data_ptr(), alive.data_ptr(),
-            p0.data_ptr(), p1.data_ptr(), scalars.data_ptr(),
-            out.data_ptr(), 0 if paths is None else paths.data_ptr(), n,
-            n_w, phase, _stream(dev))
+        if plan.path == "small":
+            rc = lib.b2t_particle_window_small(
+                *ptrs, n, n_w, plan.lanes, plan.groups_per_cta, phase,
+                _stream(dev))
+        else:
+            rc = lib.b2t_particle_window_batched(
+                *ptrs, 0 if paths is None else paths.data_ptr(), n, n_w,
+                phase, _stream(dev))
     if rc != 0:
-        raise RuntimeError(
-            f"window_pass_batched kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"window_pass_batched kernel launch failed "
+                           f"({plan.path} kernel): cudaError {rc}")
     if n > 0 and n_w > 0:
         K3_BATCHED_LAUNCHES += 1
+        K3_SMALL_LAUNCHES += plan.path == "small"
     return out
 
 

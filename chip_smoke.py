@@ -107,12 +107,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    particle_cfg): (h) 64 x dam_break(500) for 120 steps and (i) 8 x
    dam_break(12000) for 60, each world perturbed (particles jittered,
    pressure, damping and density scaled apart), from spawn after a warm
-   run: one batched K3 launch a phase for all worlds (12 a step), no K4;
-   steps/s, particle-steps/s, reads, launches and the device's idle share
-   a step beside the flat batch of the same size; the batched launch
-   against its W single launches and itself (bit for bit) and its twin
-   (1e-5), timed; worlds 0, 1 and W - 1 in lockstep with the single-world
-   step for 30 steps (counts, alive and overflow equal, floats 1e-5);
+   run: one batched K3 launch a phase for all worlds (12 a step), no K4,
+   each on the kernel particles_kernels.k3_batched_plan picks for the
+   width of a world's table (the small-world kernel at (h), counted; the
+   grid kernel at (i), whose table does not fit it); steps/s,
+   particle-steps/s, reads, launches and the device's idle share a step
+   beside the flat batch of the same size; the batched launch against
+   its W single launches, itself and the other kernel on the same arrays
+   (bit for bit) and its twin (1e-5), timed on both kernels; the same
+   checks on K3 batched's stress tables (port_fixtures.k3_batched_table:
+   dead lanes, a field across y = 0, one dense cell, a world with no live
+   particle; 1, 64 and 1,024 worlds of a few hundred lanes and 8 of the
+   widest table the small kernel takes); worlds 0, 1 and W - 1 in
+   lockstep with the single-world step for 30 steps (counts, alive and
+   overflow equal, floats 1e-5);
    and 8 worlds of every_gate_tank(600) (groups, a barrier, a box) equal
    bit for bit to the single-world gated step, running free, at each of
    10 steps, one batched solver launch a rigid work step.
@@ -153,11 +161,13 @@ import torch
 
 from port_fixtures import (PARTICLE_API, all_types_scene, api_scene,
                            api_sequence, chain_sensor_scene, every_gate_tank,
-                           groups_tank, hub_scene, k3_table, library_rank,
+                           groups_tank, hub_scene, K3_KINDS,
+                           k3_batched_table, k3_table, library_rank,
                            QUEUE_CYCLES, median_ms, move_buckets_to_tail,
                            obstacle_tank, other_plan,
                            particle_api_case, perturbed_leaves, rank_table,
-                           record_particle_calls, with_all_events)
+                           record_batched_k3, record_particle_calls,
+                           with_all_events)
 
 MAIN_STEPS = 120        # joint_farm(1000)
 PYRAMID_STEPS = 120     # the earlier paths
@@ -267,6 +277,9 @@ VPART_SPREAD = 0.2
 VPART_LOCKSTEP_STEPS = 30
 VPART_GATED = (8, 600)
 VPART_GATED_STEPS = 10
+# K3 batched's stress tables (port_fixtures.k3_batched_table): (worlds,
+# lanes a world); the last is the widest table the small kernel takes
+VPART_STRESS = ((1, 300), (64, 200), (1024, 200), (8, None))
 
 
 def phase_device():
@@ -2776,64 +2789,133 @@ def _compare_worlds(got, want, exact_only=False):
     return worst, same
 
 
-def _record_batched_k3(bstep, batch):
-    """The three batched K3 calls (weight, pressure, damping) of the first
-    sub-iteration of one step of `bstep` from `batch`."""
+def _k3_plan_note(plan):
+    """A K3 batched plan as chip_smoke prints it: the kernel, and on the
+    small-world kernel its groups and what the card reports of the
+    damping instance at that shape."""
     from box2d_tpu_torch import particles_kernels as pk
 
-    calls = []
-    window = pk.window_pass_batched
-    pk.window_pass_batched = lambda *a: calls.append(a) or window(*a)
-    try:
-        bstep(batch, 1 / 60)
-    finally:
-        pk.window_pass_batched = window
-    assert [a[6] for a in calls[:3]] == [0, 1, 2], "K3 phases not recorded"
-    return calls[:3]
+    if plan.path == "grid":
+        return (f"grid kernel ({-(-plan.n // pk.B_BLK)} blocks of "
+                f"{pk.B_BLK} lanes a world)")
+    shape = pk.k3_small_shape(plan, pk.PH_DAMPING)
+    return (f"small-world kernel ({-(-plan.n // plan.lanes)} groups of "
+            f"{plan.lanes} lanes a world, 3 threads a lane, groups a CTA: "
+            f"{plan.groups_per_cta}; {shape['smem_per_cta']} "
+            f"bytes of shared memory a CTA, {shape['ctas_per_sm']} CTAs an "
+            f"SM, {shape['registers']} registers, {shape['local_bytes']} "
+            f"local bytes a thread)")
+
+
+def _other_k3_plan(plan):
+    """The batched K3 plan on the kernel `plan` does not take; None where
+    a world's table does not fit a CTA's shared memory on the small
+    kernel (the kernel's own count)."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    if plan.path == "small":
+        return pk.k3_batched_plan(plan.n, "grid")
+    small = pk.k3_batched_plan(plan.n, "small")
+    shape = pk.k3_small_shape(small, pk.PH_DAMPING)
+    return small if shape["smem_per_cta"] <= SMEM_OPT_IN else None
+
+
+def _k3_against_all(tag, args):
+    """One batched K3 call on the kernel its plan picks, against the other
+    kernel on the same arrays (where the table fits both), its W single
+    launches and a second launch of itself, bit for bit, and its twin run
+    on the card (atol 1e-5, rtol 0), the grid kernel's blocks counted by
+    path. Returns (plan, other plan, |kernel - twin|, the result)."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    n_w, n, phase = args[1].shape[0], args[1].shape[1], args[6]
+    plan = pk.k3_batched_plan(n)
+    other = _other_k3_plan(plan)
+    kern = pk.window_pass_batched(*args)
+    again = pk.window_pass_batched(*args)
+    one = torch.stack([pk.window_pass(*(a[w] for a in args[:6]), phase)
+                       for w in range(n_w)])
+    # with paths, the grid kernel
+    paths = torch.zeros(2, dtype=torch.int32, device="cuda")
+    grid = pk.window_pass_batched(*args, paths=paths)
+    alt = (None if other is None or other.path == "grid"
+           else pk.window_pass_batched(*args, plan=other))
+    twin = pk.window_pass_batched_reference(*args)
+    torch.cuda.synchronize()
+    err = float((kern - twin).abs().max()) if kern.numel() else 0.0
+    assert torch.equal(kern, again), f"{tag}: not repeatable"
+    assert torch.equal(kern, one), f"{tag}: not the single launches'"
+    assert torch.equal(kern, grid), f"{tag}: not the grid kernel's"
+    assert alt is None or torch.equal(kern, alt), f"{tag}: not the small's"
+    torch.testing.assert_close(kern, twin, atol=1e-5, rtol=0)
+    assert paths.tolist() == list(pk.k3_block_paths(args[1], args[2]))
+    return plan, other, err, kern
 
 
 def _batched_k3_check(tag, calls, row):
-    """The batched K3 launch on recorded inputs against its W single
-    launches and itself (bit for bit) and its twin run on the card (1e-5),
-    with the blocks of each path counted; then timed against the twin and
-    the W single launches one after another. Adds to `row`."""
+    """The batched K3 launch on recorded inputs (_k3_against_all), its plan
+    printed; then timed on its kernel and on the other one, against the
+    twin and the W single launches one after another. Adds to `row`."""
     from box2d_tpu_torch import particles_kernels as pk
 
     for args, pname in zip(calls, ("weight", "pressure", "damping")):
         n_w, phase = args[1].shape[0], args[6]
-        paths = torch.zeros(2, dtype=torch.int32, device="cuda")
-        kern = pk.window_pass_batched(*args, paths=paths)
-        again = pk.window_pass_batched(*args)
-
-        def singles():
-            return torch.stack([pk.window_pass(*(a[w] for a in args[:6]),
-                                               phase) for w in range(n_w)])
-
-        one = singles()
-        twin = pk.window_pass_batched_reference(*args)
-        torch.cuda.synchronize()
-        err = float((kern - twin).abs().max())
-        assert torch.equal(kern, again), f"{tag} K3 {pname}: not repeatable"
-        assert torch.equal(kern, one), f"{tag} K3 {pname}: not the singles'"
-        torch.testing.assert_close(kern, twin, atol=1e-5, rtol=0)
+        plan, other, err, kern = _k3_against_all(f"{tag} K3 {pname}", args)
         assert float(kern.abs().max()) > 0, f"{tag} K3 {pname}: all zero"
-        assert paths.tolist() == list(pk.k3_block_paths(args[1], args[2]))
         bound_ms, bound_by, cand = _k3_batched_bound_ms(args, phase)
         ms = _time_ms(lambda: pk.window_pass_batched(*args))
+        other_ms = (None if other is None else _time_ms(
+            lambda: pk.window_pass_batched(*args, plan=other)))
         plain_ms = _time_ms(lambda: pk.window_pass_batched_reference(*args))
-        loop_ms = _time_ms(singles)
+        loop_ms = _time_ms(lambda: [pk.window_pass(
+            *(a[w] for a in args[:6]), phase) for w in range(n_w)])
+        other_note = ("the small-world kernel cannot hold a world's table"
+                      if other is None else
+                      f"the {other.path} kernel on the same arrays "
+                      f"{other_ms:.4f} ms")
         print(f"[batch] K3 batched {pname}, {tag}: {n_w} worlds x "
-              f"{args[1].shape[1]} lanes, candidates {cand}, blocks staged "
-              f"/ global {paths.tolist()}; equal bit for bit to its "
-              f"{n_w} single launches and to itself, max |kernel - twin| "
-              f"{err:.3e}; median of {TIMED_CALLS} calls: kernel {ms:.4f} "
-              f"ms, the {n_w} single launches {loop_ms:.4f} ms, twin "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+              f"{args[1].shape[1]} lanes, candidates {cand}; plan: "
+              f"{_k3_plan_note(plan)}; equal bit for bit to its {n_w} "
+              f"single launches, to itself"
+              f"{'' if other is None else ' and to the ' + other.path}"
+              f"{'' if other is None else ' kernel'}, max |kernel - twin| "
+              f"{err:.3e}; median of {TIMED_CALLS} calls: "
+              f"kernel {ms:.4f} ms, {other_note}, the {n_w} single launches "
+              f"{loop_ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.6f} ms ({bound_by})")
+        row["path"] = plan.path
         row["err"] = max(row["err"], err)
         row["ms"].append(ms)
+        row["other_ms"].append(other_ms)
         row["plain_ms"].append(plain_ms)
         row["bound_ms"].append(bound_ms)
         row["bound_by"].add(bound_by)
+
+
+def _k3_batched_stress():
+    """K3 batched on port_fixtures.k3_batched_table's stress worlds (dead
+    lanes, a field across y = 0, one dense cell, a world with no live
+    particle) at VPART_STRESS's shapes (W = 1 and W = 1,024 among them,
+    and the widest table the small kernel takes), each phase held by
+    _k3_against_all. Launches made here do not count toward the main
+    path. Returns the largest |kernel - twin|."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    worst = 0.0
+    for n_w, n in VPART_STRESS:
+        n = n or pk.K3_SMALL_LANES
+        base = tuple(x.cuda() for x in k3_batched_table(n_w, n, seed=n_w))
+        for phase, pname in enumerate(("weight", "pressure", "damping")):
+            tag = f"K3 batched {pname}, stress {n_w} x {n}"
+            plan, other, err, _ = _k3_against_all(tag, base + (phase,))
+            worst = max(worst, err)
+        print(f"[batch] K3 batched, stress tables {n_w} worlds x {n} lanes "
+              f"({', '.join(K3_KINDS[:min(n_w, 4)])}): plan "
+              f"{_k3_plan_note(plan)}; each phase equal bit for bit to the "
+              f"{other.path if other else 'no other'} kernel, its {n_w} "
+              f"single launches and itself, max |kernel - twin| "
+              f"{worst:.3e}")
+    return worst
 
 
 def _vmapped_particles(flat_rates):
@@ -2875,6 +2957,7 @@ def _vmapped_particles(flat_rates):
         torch.cuda.synchronize()
         bstep = make()
         pk.K3_LAUNCHES = pk.K3_BATCHED_LAUNCHES = pk.K4_LAUNCHES = 0
+        pk.K3_SMALL_LAUNCHES = 0
         t0 = time.perf_counter()
         b = batch0
         for _ in range(steps):
@@ -2882,8 +2965,13 @@ def _vmapped_particles(flat_rates):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k3b, k3, k4 = pk.K3_BATCHED_LAUNCHES, pk.K3_LAUNCHES, pk.K4_LAUNCHES
+        k3s = pk.K3_SMALL_LAUNCHES
         st = bstep.stats
+        plan = pk.k3_batched_plan(w.state.particles.pos.shape[0])
         assert k3b == 12 * steps, f"{tag}: {k3b} batched K3 launches"
+        # every batched launch on the kernel its plan picks
+        assert k3s == (k3b if plan.path == "small" else 0), (
+            f"{tag}: {k3s} launches on the small-world kernel")
         assert k3 == 0 and k4 == 0, f"{tag}: K3 {k3}, K4 {k4} launches"
         assert st.rank_repairs == 0 and st.full_sorts == 4 * steps
         leaves = state_to_numpy(b)
@@ -2911,15 +2999,17 @@ def _vmapped_particles(flat_rates):
               f"same size in this run: {flat_sps:.2f} steps/s, "
               f"{flat_reads:.2f} reads a step); reads/step "
               f"{st.syncs / st.steps:.2f}; batched K3 launches {k3b} "
-              f"({k3b / steps:.0f}/step), single K3 0, K4 0; rigid work "
+              f"({k3b / steps:.0f}/step; on the small-world kernel {k3s}: "
+              f"{_k3_plan_note(plan)}), single K3 0, K4 0; rigid work "
               f"steps {st.steps - st.idle_steps}, solver launches "
               f"{st.solver_launches}; one step: {kernels} kernels, device "
               f"busy {busy if busy is None else round(busy, 3)} ms of "
               f"{ms_step:.3f}, idle {idle}; overflow 0, tunnelled 0")
         launches[f"{tag} K3 batched"] = k3b
-        row = dict(err=0.0, ms=[], plain_ms=[], bound_ms=[],
-                   bound_by=set(), launches=k3b, tag=tag)
-        _batched_k3_check(tag, _record_batched_k3(bstep, b), row)
+        row = dict(err=0.0, ms=[], other_ms=[], plain_ms=[], bound_ms=[],
+                   bound_by=set(), launches=k3b, small_launches=k3s,
+                   tag=tag)
+        _batched_k3_check(tag, record_batched_k3(bstep, b), row)
         rows.append(row)
 
         # lockstep: each world of VPART_LOCKSTEP stepped alone from the
@@ -2941,6 +3031,12 @@ def _vmapped_particles(flat_rates):
               f"for bit: {same} (the path's index_add_ of the body "
               f"impulses and its row reductions are float sums)")
         assert worst <= 1e-5, f"{tag}: lockstep {worst}"
+    # the stress tables all take the small-world kernel: their error
+    # goes to its rows
+    stress = _k3_batched_stress()
+    for row in rows:
+        if row["path"] == "small":
+            row["err"] = max(row["err"], stress)
     launches.update(_vmapped_gated())
     return rows, launches
 
@@ -3454,8 +3550,17 @@ def main():
         # K3 under jax.vmap: one launch a phase for W worlds' tables, at
         # (h) 64 x dam_break-500 and (i) 8 x dam_break-12000; per launch,
         # the mean over its three phases; bound from all worlds' tables;
-        # no single PyTorch call computes a neighbour sum
+        # no single PyTorch call computes a neighbour sum. path: the
+        # kernel k3_batched_plan picks ("small": window_small_kernel,
+        # "grid": window_kernel on a (blocks, W) grid), small_launches
+        # its launches on the small kernel, other_ms the other kernel's
+        # time on the same arrays (null where the table does not fit the
+        # small kernel)
         "name": name,
+        "path": r["path"],
+        "small_launches": r["small_launches"],
+        "other_ms": (None if None in r["other_ms"]
+                     else mean(r["other_ms"])),
         "route": "cuda",
         "source": "box2d_tpu_torch/csrc/particles.cu",
         "replaces": "box2d_tpu/particles_pallas.py:396 (window_pass under "

@@ -11,14 +11,18 @@
   for every particle flag, a solid and a rigid group).
 - Inputs made to reach a kernel's edge cases: `move_buckets_to_tail` (an
   overflow tail of several Jacobi windows), `k3_table` (K3 blocks on their
-  global-memory path) and `rank_table` (K4 stress tables).
+  global-memory path), `k3_batched_table` (batches of small worlds with
+  dead lanes, a field across y = 0, a dense cell, no live particle) and
+  `rank_table` (K4 stress tables).
 - Batches of worlds: `perturbed_leaves` (copies of one world's state,
   each jittered from a numpy seed, one with a velocity kick, some put to
   sleep), so that a wrong offset between worlds cannot hide behind
   identical copies.
 - Timing on the card: `median_ms` (device time of one call),
-  `library_rank` (the library call beside K4) and
-  `record_particle_calls` (what dam_break's step hands K3 and K4).
+  `library_rank` (the library call beside K4),
+  `record_particle_calls` (what dam_break's step hands K3 and K4) and
+  `batched_k3_calls` / `record_batched_k3` (what a batch of dam_break
+  worlds hands K3 batched).
 It imports torch and numpy, and box2d_tpu_torch only inside the helpers
 that need it.
 """
@@ -286,6 +290,91 @@ def k3_table(kind, seed=0):
                            dtype=torch.float32)
     return (pos[order].contiguous(), key[order].contiguous(), alive,
             p01[0, order].contiguous(), p01[1, order].contiguous(), scalars)
+
+
+K3_KINDS = ("dead lanes", "across y = 0", "dense cell", "no live particle")
+
+
+def k3_batched_table(n_w, n, seed=0):
+    """Inputs of one batched K3 call (pos, skey, alive, p0, p1, scalars)
+    of n_w worlds of n lanes that stress a kernel's edges, without the
+    phase. World w is of kind K3_KINDS[w % 4]: "dead lanes" (a field of
+    particles with a third of its lanes dead), "across y = 0" (a field
+    spanning y = 0, where the cell key's row wraps: ROADMAP.md section 3),
+    "dense cell" (half its lanes in one cell, the rest scattered), "no live
+    particle". Each world's table is cell-sorted (stable) with the port's
+    key, dead lanes last; each world has its own scalar row (diameter 0.1,
+    its damping strengths apart); p0 / p1 are velocity-like noise."""
+    from box2d_tpu_torch.particles import _cell_key
+
+    d = 0.1
+    tables = []
+    for w in range(n_w):
+        rng = np.random.default_rng(seed * 100003 + w)
+        kind = K3_KINDS[w % len(K3_KINDS)]
+        if kind == "across y = 0":
+            pos = np.stack([rng.uniform(0.0, 1.5, n),
+                            rng.uniform(-0.4, 0.4, n)], axis=1)
+        else:
+            pos = rng.uniform(0.2, 1.7, (n, 2))
+        if kind == "dense cell":
+            pos[: n // 2] = rng.uniform(0.5 * d, 0.9 * d, (n // 2, 2)) + 3 * d
+        alive = np.ones(n, dtype=bool)
+        if kind == "dead lanes":
+            alive[rng.permutation(n)[: n // 3]] = False
+        elif kind == "no live particle":
+            alive[:] = False
+        pos = torch.tensor(pos, dtype=torch.float32)
+        alive = torch.from_numpy(alive)
+        key = _cell_key(pos, alive, 1.0 / d)
+        order = torch.argsort(key, stable=True)
+        p01 = torch.tensor(rng.normal(size=(2, n)), dtype=torch.float32)
+        tables.append((pos[order], key[order], alive[order], p01[0, order],
+                       p01[1, order]))
+    scalars = torch.tensor(
+        [[1.0 / d, d * d, 1.0 + 0.01 * w, 0.7 - 0.001 * w, 0.5, 0.0, 0.0,
+          0.0] for w in range(n_w)], dtype=torch.float32)
+    return tuple(torch.stack([t[k] for t in tables]).contiguous()
+                 for k in range(5)) + (scalars,)
+
+
+def record_batched_k3(bstep, batch):
+    """The three batched K3 calls (weight, pressure, damping) of the first
+    sub-iteration of one step of the batched step `bstep` from `batch`.
+    Kernel launches made here count like any other."""
+    from box2d_tpu_torch import particles_kernels as pk
+
+    calls = []
+    window = pk.window_pass_batched
+    pk.window_pass_batched = lambda *a: calls.append(a) or window(*a)
+    try:
+        bstep(batch, 1 / 60)
+    finally:
+        pk.window_pass_batched = window
+    assert [a[6] for a in calls[:3]] == [0, 1, 2], "K3 phases not recorded"
+    return calls[:3]
+
+
+def batched_k3_calls(n, n_w, steps=5, seed=11, spread=0.2):
+    """What the batched particle step hands K3 batched: the three calls of
+    the first sub-iteration after `steps` steps of n_w worlds of
+    dam_break(n) on the card, perturbed as chip_smoke.py phase 6 (h), (i)
+    perturbs them (particles jittered by up to 5 mm, parameters spread by
+    `spread` across the batch)."""
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    w = scenes.dam_break(n, device="cuda")
+    w.compile()
+    cfg = w._step.particle_cfg
+    b = state_from_numpy(perturbed_leaves(
+        state_to_numpy(w.state), n_w, seed=seed, particle_jitter=0.005,
+        param_spread=spread / n_w), "cuda")
+    bstep = world.make_batched_step(w.capacity, w._classes, 4,
+                                    w._step.continuous, particle_cfg=cfg)
+    for _ in range(steps):
+        b = bstep(b, 1 / 60)
+    return record_batched_k3(bstep, b)
 
 
 def rank_table(n, seed, equal_blocks=False):

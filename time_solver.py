@@ -39,9 +39,24 @@ then backward); each ROOT's package is loaded under a name of its own and
 called through its own `contact_solve`. It then times the batched launch
 of every ROOT that has one the same way, on this checkout's batches (64
 x pyramid-20, 64 and 1,024 x joint_farm(1)), every version's result
-equal to the first's bit for bit. It also counts the SASS
-instructions of each build's contact-only kernel (cuobjdump). It tells a
-difference in a kernel's code from one in its inputs or its process.
+equal to the first's bit for bit. Then the particle window pass: K3
+in its three phases at dam_break(100000)'s inputs (record_particle_calls)
+and K3 batched at the inputs of chip_smoke.py phase 6's batches, (h) 64 x
+dam_break(500) and (i) 8 x dam_break(12000) (batched_k3_calls), each
+through every ROOT's own wrapper, every version equal to the first bit
+for bit. It also counts the SASS instructions of each build's
+contact-only solver kernel and of K3's three single-world instances
+(cuobjdump). It tells a difference in a kernel's code from one in its
+inputs or its process.
+
+    python3 time_solver.py --k3-paths
+
+times K3 batched on both its kernels, the small-world kernel (at the
+groups k3_batched_plan gives, and at groups of 128 lanes) and the grid
+kernel, at K3_PATH_CASES: batches of dam_break
+worlds of growing width (batched_k3_calls), the kernels' results equal
+bit for bit, in turns over ROUNDS rounds. It shows where the two
+kernels' times cross (particles_kernels.K3_SMALL_LANES).
 
     python3 time_solver.py --paths
 
@@ -62,9 +77,10 @@ import os
 import subprocess
 import sys
 
-from port_fixtures import (TIMED_CALLS, WARM_STEPS, library_rank, median_ms,
-                           move_buckets_to_tail, other_plan,
-                           perturbed_leaves, record_particle_calls)
+from port_fixtures import (TIMED_CALLS, WARM_STEPS, batched_k3_calls,
+                           library_rank, median_ms, move_buckets_to_tail,
+                           other_plan, perturbed_leaves,
+                           record_particle_calls)
 
 ROUNDS = 4
 CASES = ("pyramid-20", "pyramid-140", "joint_farm-1000",
@@ -83,6 +99,14 @@ PATH_CASES = (("pyramid", 20), ("pyramid", 30), ("pyramid", 40),
               ("joint_farm", 1), ("joint_farm", 100), ("joint_farm", 300),
               ("joint_farm", 700))
 PATH_WORLDS = 4
+# K3 batched in --one-process: (case, worlds, particles a world), chip_smoke
+# phase 6 (h), (i)
+K3_BATCHED = (("(h) 64 x dam_break(500) K3 batched", 64, 500),
+              ("(i) 8 x dam_break(12000) K3 batched", 8, 12000))
+# the batches of --k3-paths: (worlds, particles a world)
+K3_PATH_CASES = tuple((64, n) for n in (100, 250, 500, 1000, 1300, 1600,
+                                         2000, 3000, 4000)) + tuple(
+    (8, n) for n in (500, 1000, 2000, 4000))
 # the Jacobi cases: the color buckets moved into the overflow tail
 TAIL_BUCKETS = 3
 BATCH_WORLDS = 64
@@ -211,23 +235,50 @@ def _load_package(root, alias):
     return importlib.import_module(alias + ".contact_solver")
 
 
-def _sass_count(lib_path):
-    """SASS instructions of the contact-only single-world solve_kernel in
-    a build (solve_kernel<false>, or <false, false> since the batched
-    instance)."""
+def _sass_counts(lib_path):
+    """SASS instructions of each kernel in a build, by mangled name."""
     cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                              "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+    out = {}
     for part in text.split("Function : ")[1:]:
-        name = part.splitlines()[0]
-        if ("solve_kernelILb0EE" in name
-                or "solve_kernelILb0ELb0EE" in name):
-            return sum(1 for line in part.splitlines()
-                       if line.strip().startswith("/*") and "*/" in line
-                       and line.strip()[2:6].isalnum()
-                       and len(line.split("*/", 1)[1].strip()) > 2)
+        out[part.splitlines()[0].strip()] = sum(
+            1 for line in part.splitlines()
+            if line.strip().startswith("/*") and "*/" in line
+            and line.strip()[2:6].isalnum()
+            and len(line.split("*/", 1)[1].strip()) > 2)
+    return out
+
+
+def _sass_count(lib_path):
+    """SASS instructions of the contact-only single-world solve_kernel in
+    a build (solve_kernel<false>, or <false, false> since the batched
+    instance)."""
+    for name, count in _sass_counts(lib_path).items():
+        if "solve_kernelILb0EE" in name or "solve_kernelILb0ELb0EE" in name:
+            return count
     return None
+
+
+def _k3_sass(lib_path):
+    """SASS instructions of K3's single-world kernel, window_kernel<phase>,
+    by phase."""
+    return {name.split("window_kernel")[1][:6]: count
+            for name, count in _sass_counts(lib_path).items()
+            if "window_kernel" in name}
+
+
+def _in_turns(names, calls):
+    """Each call timed by median_ms, ROUNDS rounds in turns (in the order
+    given, then backward, so that a drift of the card's clock over the
+    run falls on every version alike). Returns {name: [ms, ...]}."""
+    times = {name: [] for name in names}
+    for k in range(ROUNDS):
+        order = list(zip(names, calls))
+        for name, call in order if k % 2 == 0 else order[::-1]:
+            times[name].append(median_ms(call))
+    return times
 
 
 def one_process(roots):
@@ -238,15 +289,19 @@ def one_process(roots):
 
     solvers = [_load_package(r, f"b2t_version_{k}")
                for k, r in enumerate(roots)]
-    with concurrent.futures.ThreadPoolExecutor(len(roots)) as pool:
-        libs = list(pool.map(lambda cs: cs.build(), solvers))
+    windows = [importlib.import_module(f"b2t_version_{k}.particles_kernels")
+               for k in range(len(roots))]
+    with concurrent.futures.ThreadPoolExecutor(2 * len(roots)) as pool:
+        libs = list(pool.map(lambda m: m.build(), solvers + windows))
     names = [os.path.relpath(r) for r in roots]
-    for name, cs, lib in zip(names, solvers, libs):
+    for name, cs, lib, pk, plib in zip(names, solvers, libs, windows,
+                                       libs[len(roots):]):
         regs = [line.strip() for line in lib.ptxas_log.splitlines()
                 if "registers" in line][:1]
         print(f"[one_process] {name}: {cs.SOURCE}; SASS instructions of "
-              f"solve_kernel<false>: {_sass_count(lib._name)}; {regs}",
-              flush=True)
+              f"solve_kernel<false>: {_sass_count(lib._name)}; {regs}; "
+              f"{pk.SOURCE}: SASS instructions of window_kernel by phase "
+              f"{_k3_sass(plib._name)}", flush=True)
     out = {}
     for case in CASES[:3]:
         kind, size = case.split("-")
@@ -274,14 +329,7 @@ def one_process(roots):
             # equal up to the rounding of the Jacobi windows' sums
             assert all(torch.allclose(x, y, rtol=0, atol=1e-5)
                        for x, y in zip(r, results[0]))
-        times = {name: [] for name in names}
-        for k in range(ROUNDS):
-            # forward, then backward: a drift of the card's clock over
-            # the run falls on every version alike
-            order = list(zip(names, calls))
-            for name, call in order if k % 2 == 0 else order[::-1]:
-                times[name].append(median_ms(call))
-        out[case] = times
+        out[case] = times = _in_turns(names, calls)
         for name in names:
             print(f"[one_process] {case} {name}: " + " ".join(
                 f"{t:.4f}" for t in times[name]) + " ms", flush=True)
@@ -299,15 +347,32 @@ def one_process(roots):
         for r in results[1:]:
             # every version equals the single launches bit for bit
             assert all(torch.equal(x, y) for x, y in zip(r, results[0]))
-        times = {name: [] for name in which}
-        for k in range(ROUNDS):
-            order = list(zip(which, calls))
-            for name, call in order if k % 2 == 0 else order[::-1]:
-                times[name].append(median_ms(call))
-        out[case] = times
+        out[case] = times = _in_turns(which, calls)
         for name in which:
             print(f"[one_process] {case} {name}: " + " ".join(
                 f"{t:.4f}" for t in times[name]) + " ms", flush=True)
+    # K3: the single-world kernel at dam_break(100000), and K3 batched at
+    # phase 6's batches, through each version's own wrapper
+    k3, _, _ = record_particle_calls()
+    cases = [(f"K3 {p}", "window_pass", a)
+             for p, a in zip(("weight", "pressure", "damping"), k3)]
+    for case, n_w, n in K3_BATCHED:
+        cases += [(f"{case} {p}", "window_pass_batched", a)
+                  for p, a in zip(("weight", "pressure", "damping"),
+                                  batched_k3_calls(n, n_w))]
+    for case, fn, args in cases:
+        calls = [lambda pk=pk: getattr(pk, fn)(*args) for pk in windows]
+        results = [c() for c in calls]
+        for r in results[1:]:
+            assert torch.equal(r, results[0]), f"{case}: versions differ"
+        plans = [getattr(pk, "k3_batched_plan", None) for pk in windows]
+        out[case] = _in_turns(names, calls)
+        for name, plan in zip(names, plans):
+            path = ("" if fn == "window_pass" else " (grid kernel)"
+                    if plan is None else f" ({plan(args[1].shape[1]).path} "
+                    f"kernel)")
+            print(f"[one_process] {case} {name}{path}: " + " ".join(
+                f"{t:.4f}" for t in out[case][name]) + " ms", flush=True)
     print(json.dumps({"timed_calls": TIMED_CALLS, "rounds": ROUNDS,
                       "ms": out}))
 
@@ -351,13 +416,46 @@ def paths():
                       "worlds": PATH_WORLDS, "ms": out}))
 
 
+def k3_paths():
+    """--k3-paths: K3 batched on both its kernels at K3_PATH_CASES."""
+    import torch
+
+    from box2d_tpu_torch import particles_kernels as pk
+
+    out = {}
+    for n_w, particles in K3_PATH_CASES:
+        calls = batched_k3_calls(particles, n_w)
+        n = calls[0][1].shape[1]
+        case = f"{n_w} x dam_break({particles}) ({n} lanes)"
+        small = pk.k3_batched_plan(n, "small")
+        plans = {"small": small, "grid": pk.k3_batched_plan(n, "grid")}
+        if n > 128:
+            plans["small at 128 lanes a group"] = small._replace(
+                lanes=128, groups_per_cta=1)
+        out[case] = dict(lanes=n, plan=pk.k3_batched_plan(n).path)
+        for args, pname in zip(calls, ("weight", "pressure", "damping")):
+            runs = {k: (lambda p=p: pk.window_pass_batched(*args, plan=p))
+                    for k, p in plans.items()}
+            results = [r() for r in runs.values()]
+            assert all(torch.equal(r, results[0]) for r in results[1:]), case
+            times = _in_turns(list(runs), list(runs.values()))
+            out[case][pname] = times
+            print(f"[k3_paths] {case}, {pname}: plan "
+                  f"{out[case]['plan']}; " + "; ".join(
+                      f"{k} " + " ".join(f"{t:.4f}" for t in v) + " ms"
+                      for k, v in times.items()) + "; equal bit for bit",
+                  flush=True)
+    print(json.dumps({"timed_calls": TIMED_CALLS, "rounds": ROUNDS,
+                      "ms": out}))
+
+
 def main():
-    if len(sys.argv) > 1 and sys.argv[1] == "--paths":
+    if len(sys.argv) > 1 and sys.argv[1] in ("--paths", "--k3-paths"):
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip(), flush=True)
-        paths()
+        (paths if sys.argv[1] == "--paths" else k3_paths)()
         return
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         worker(os.path.abspath(sys.argv[2]))
