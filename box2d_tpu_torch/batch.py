@@ -63,6 +63,7 @@ from .coloring import dense_remap, repair_colors_batched
 from .contact_solver import (NA, NF, contact_solve_batched, kernel_mode,
                              tail_window)
 from .continuous import _continuous_impl, gate_batched
+from .counters import counting
 from .joints import (layout_joint_rows_batched, prepare_joints,
                      solvable_joint_types, unpack_joint_acc)
 from .narrowphase import narrow_phase, update_cache
@@ -130,7 +131,8 @@ class BatchedStep:
         self.hooks = Hooks(custom_filter, pre_solve, self.tail_w)
 
     def __call__(self, batch: WorldState, dt) -> WorldState:
-        return _batched_step(batch, dt, self, self.stats)
+        with counting(self.stats.launches):
+            return _batched_step(batch, dt, self, self.stats)
 
 
 def make_batched_step(capacity: Capacity, classes_present: frozenset,

@@ -58,10 +58,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import threading
 from typing import NamedTuple
 
 import torch
 
+from .counters import bump
 from .cuda_build import HERE, nvcc_build, twin
 from .joints import (NAJ, NFJ, JointRows, joint_window, joint_window_inputs,
                      solvable_joint_types)
@@ -97,7 +99,7 @@ TILED_BODY_TILE = 512
 # kernel launches made by contact_solve (the twin does not count), and how
 # many of them carried a joint region (the joint sweep ran on the card);
 # launches made by contact_solve_batched, and how many of them carried
-# joint regions
+# joint regions; exact under threads (counters.bump)
 LAUNCHES = 0
 JOINT_LAUNCHES = 0
 BATCHED_LAUNCHES = 0
@@ -109,16 +111,25 @@ SOURCE = os.path.join(HERE, "csrc", "contact_solver.cu")
 JOINT_SOURCE = os.path.join(HERE, "csrc", "joint_sweep.cuh")
 _LIB = None
 BUILD_SECONDS = None   # wall time of this process's nvcc build
-_SHAPES = {}           # launch_shape's answers, by instance
+_SHAPES = {}           # launch_shape's answers, by device and instance
+# held by the first build and the first query of each _SHAPES entry, so
+# threads that first touch the card together build and ask once
+_LOCK = threading.RLock()
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/contact_solver.cu (which includes joint_sweep.cuh) for
-    sm_90a into _build/ (once per process) and load it (cuda_build.py).
-    Raises if nvcc fails."""
+    sm_90a into _build/ (once per process, whichever thread asks first)
+    and load it (cuda_build.py). Raises if nvcc fails."""
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                _build()
+    return _LIB
+
+
+def _build():
     global _LIB, BUILD_SECONDS
-    if _LIB is not None:
-        return _LIB
     lib, log, BUILD_SECONDS = nvcc_build(SOURCE, "contact_solver")
     fn = lib.b2t_contact_solve
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
@@ -142,7 +153,6 @@ def build() -> ctypes.CDLL:
     lib.b2t_small_shape.restype = ctypes.c_int
     lib.ptxas_log = log
     _LIB = lib
-    return lib
 
 
 def launch_shape(joints: bool, batched: bool = False,
@@ -156,45 +166,56 @@ def launch_shape(joints: bool, batched: bool = False,
     card holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
     `sms`, `resident_ctas` and `resident_worlds`, and the kernel
     instance's `registers` and `local_bytes` a thread (spills land in
-    local memory). Raises if no such CTA fits. Asked once per process and
-    instance (joints, batched, plan)."""
+    local memory). Raises if no such CTA fits. Asked once per process,
+    device and instance (joints, batched, plan): the card answers for its
+    current device."""
+    dev = torch.cuda.current_device()
     if plan is not None and plan.path == "small":
-        return _small_shape(bool(joints), plan)
-    key = (3 if joints else 2) if batched else int(bool(joints))
-    if key not in _SHAPES:
-        out = (ctypes.c_int * 3)()
-        rc = build().b2t_launch_shape(key, ctypes.addressof(out))
-        shape = dict(cluster=out[0], threads=out[1],
-                     max_active_clusters=out[2])
-        if rc != 0 or shape["max_active_clusters"] < 1:
-            raise RuntimeError(f"contact_solve: a cluster of {out[0]} CTAs "
-                               f"of {out[1]} threads does not fit on this "
-                               f"card (cudaError {rc}, {out[2]} clusters)")
-        _SHAPES[key] = shape
-    return _SHAPES[key]
+        return _asked_once((dev, bool(joints), plan),
+                           lambda: _small_shape(bool(joints), plan))
+    kind = (3 if joints else 2) if batched else int(bool(joints))
+    return _asked_once((dev, kind), lambda: _cluster_shape(kind))
+
+
+def _asked_once(key, ask) -> dict:
+    """_SHAPES[key], from ask() the first time (one thread asks)."""
+    shape = _SHAPES.get(key)
+    if shape is None:
+        with _LOCK:
+            shape = _SHAPES.get(key)
+            if shape is None:
+                shape = _SHAPES[key] = ask()
+    return shape
+
+
+def _cluster_shape(kind: int) -> dict:
+    out = (ctypes.c_int * 3)()
+    rc = build().b2t_launch_shape(kind, ctypes.addressof(out))
+    if rc != 0 or out[2] < 1:
+        raise RuntimeError(f"contact_solve: a cluster of {out[0]} CTAs "
+                           f"of {out[1]} threads does not fit on this "
+                           f"card (cudaError {rc}, {out[2]} clusters)")
+    return dict(cluster=out[0], threads=out[1], max_active_clusters=out[2])
 
 
 def _small_shape(joints: bool, plan: BatchedPlan) -> dict:
-    key = (joints, plan)
-    if key not in _SHAPES:
-        out = (ctypes.c_int * 5)()
-        threads = plan.threads_per_world * plan.worlds_per_cta
-        rc = build().b2t_small_shape(int(joints), plan.threads_per_world,
-                                     plan.worlds_per_cta, plan.nb,
-                                     ctypes.addressof(out))
-        if rc != 0 or out[0] < 1:
-            raise RuntimeError(
-                f"contact_solve_batched: a small-world CTA of {threads} "
-                f"threads and {out[4]} bytes of shared memory does not fit "
-                f"on this card (cudaError {rc}, {out[0]} CTAs an SM)")
-        _SHAPES[key] = dict(
-            threads_per_world=plan.threads_per_world,
-            worlds_per_cta=plan.worlds_per_cta, threads=threads,
-            smem_per_cta=out[4], ctas_per_sm=out[0], sms=out[1],
-            resident_ctas=out[0] * out[1],
-            resident_worlds=out[0] * out[1] * plan.worlds_per_cta,
-            registers=out[2], local_bytes=out[3])
-    return _SHAPES[key]
+    out = (ctypes.c_int * 5)()
+    threads = plan.threads_per_world * plan.worlds_per_cta
+    rc = build().b2t_small_shape(int(joints), plan.threads_per_world,
+                                 plan.worlds_per_cta, plan.nb,
+                                 ctypes.addressof(out))
+    if rc != 0 or out[0] < 1:
+        raise RuntimeError(
+            f"contact_solve_batched: a small-world CTA of {threads} "
+            f"threads and {out[4]} bytes of shared memory does not fit "
+            f"on this card (cudaError {rc}, {out[0]} CTAs an SM)")
+    return dict(
+        threads_per_world=plan.threads_per_world,
+        worlds_per_cta=plan.worlds_per_cta, threads=threads,
+        smem_per_cta=out[4], ctas_per_sm=out[0], sms=out[1],
+        resident_ctas=out[0] * out[1],
+        resident_worlds=out[0] * out[1] * plan.worlds_per_cta,
+        registers=out[2], local_bytes=out[3])
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +320,6 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
                                        tail_w, joints)
     if body.device.type != "cuda":
         raise ValueError(f"contact_solve: unsupported device {body.device}")
-    global LAUNCHES, JOINT_LAUNCHES
     lib = build()
     L = data.shape[1]
     nb = body.shape[1]
@@ -330,10 +350,10 @@ def contact_solve(scalars, idx, data, acc, body, params, nsub: int,
     if rc != 0:
         raise RuntimeError(f"contact_solve kernel launch failed: "
                            f"cudaError {rc}")
-    LAUNCHES += 1
     if joints is None:
+        bump(globals(), "LAUNCHES")
         return out_body, out_acc
-    JOINT_LAUNCHES += 1
+    bump(globals(), "LAUNCHES", "JOINT_LAUNCHES")
     return out_body, out_acc, out_jacc
 
 
@@ -383,7 +403,6 @@ def contact_solve_batched(scalars, idx, data, acc, body, params, nsub: int,
 
 def _launch_batched(args, plan: BatchedPlan):
     """contact_solve_batched's launch of CUDA tensors `args` by `plan`."""
-    global BATCHED_LAUNCHES, BATCHED_JOINT_LAUNCHES, SMALL_LAUNCHES
     (scalars, idx, data, acc, body, params, nsub, chunk, l0, n_colors,
      tail_w, jrows) = args
     lib = build()
@@ -420,11 +439,11 @@ def _launch_batched(args, plan: BatchedPlan):
     if rc != 0:
         raise RuntimeError(f"contact_solve_batched kernel launch failed: "
                            f"cudaError {rc}")
-    BATCHED_LAUNCHES += 1
-    SMALL_LAUNCHES += small
+    names = ("BATCHED_LAUNCHES",) + (("SMALL_LAUNCHES",) if small else ())
     if jrows is None:
+        bump(globals(), *names)
         return out_body, out_acc
-    BATCHED_JOINT_LAUNCHES += 1
+    bump(globals(), *names, "BATCHED_JOINT_LAUNCHES")
     return out_body, out_acc, out_jacc
 
 

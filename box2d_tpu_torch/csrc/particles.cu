@@ -704,15 +704,16 @@ cudaError_t launch_small_phase(dim3 grid, int threads, size_t smem,
                                const float* p0, const float* p1,
                                const float* scalars, float* out, int n,
                                int n_worlds, int lanes) {
-  // a CTA's dynamic shared memory above 48 KB must be opted in to: once
-  static bool opted = false;
-  if (!opted) {
+  // a CTA's dynamic shared memory above 48 KB must be opted in to. The
+  // opt-in holds for the calling thread's current device only, so it is
+  // made at every such launch (as the solver's small_smem does): a flag
+  // kept once per process would leave a second device without it
+  if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         window_small_kernel<PHASE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kSmemMax));
     if (rc != cudaSuccess) return rc;
-    opted = true;
   }
   window_small_kernel<PHASE><<<grid, threads, smem, s>>>(
       pos, skey, alive, p0, p1, scalars, out, n, n_worlds, lanes);

@@ -160,8 +160,12 @@ def _const(vals, n, like):
     key = (tuple(vals), like.dtype, like.device)
     t = _CONSTS.get(key)
     if t is None:
-        t = _CONSTS[key] = torch.tensor(vals, dtype=like.dtype,
-                                        device=like.device)
+        t = torch.tensor(vals, dtype=like.dtype, device=like.device)
+        if t.is_cuda:
+            # the upload runs on this thread's stream; another thread's
+            # stream may read the entry, so it is published once written
+            torch.cuda.current_stream(t.device).synchronize()
+        _CONSTS[key] = t
     return t.expand(n, len(vals))
 
 

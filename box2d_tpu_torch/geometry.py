@@ -2,8 +2,8 @@
 
 NumPy-only copy of the parts of box2d_tpu/geometry.py the ported slices
 use (the reference package cannot be imported without jax): the circle,
-capsule, segment, chain segment, box and polygon factories, the hull and
-mass properties. The hull is the
+capsule, segment, chain segment, box and polygon factories,
+transform_polygon, the hull and mass properties. The hull is the
 pure-Python quickhull; the JAX package's optional native fast path is not
 carried over.
 
@@ -169,6 +169,20 @@ def box(half_width: float, half_height: float, center=(0.0, 0.0), angle: float =
     return ShapeGeom(
         POLYGON, _pad(verts, 4), _pad(normals, 4), 4, float(radius),
         np.array([cx, cy], np.float32),
+    )
+
+
+def transform_polygon(geom: ShapeGeom, position, angle: float) -> ShapeGeom:
+    """The shape moved by (position, angle) (ref: src/Geometry.cs
+    TransformPolygon)."""
+    c, s = math.cos(angle), math.sin(angle)
+    rot = np.array([[c, -s], [s, c]], np.float32)
+    p = np.asarray(position, np.float32)
+    return dataclasses.replace(
+        geom,
+        verts=(geom.verts @ rot.T + p).astype(np.float32),
+        normals=(geom.normals @ rot.T).astype(np.float32),
+        centroid=(geom.centroid @ rot.T + p).astype(np.float32),
     )
 
 

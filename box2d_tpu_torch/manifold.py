@@ -2,7 +2,8 @@
 segments.
 
 Torch port of box2d_tpu/manifold.py: the `Manifold` record,
-`collide_polygons_batched` (:419, ref: src/Manifold.cs:410-562), the four
+`collide_polygons_batched` (:419, ref: src/Manifold.cs:410-562) and its
+one-pair case `collide_polygons` (:324), the four
 classes a scene of circles and capsules adds: `collide_circles`,
 `collide_capsule_circle`, `collide_polygon_circle` and `collide_capsules`
 (:100-275), and the one-sided chain segment against a circle and against
@@ -260,6 +261,25 @@ def collide_capsules(a1, a2, radius_a, p_a, q_a, b1, b2, radius_b, p_b,
     ids = torch.stack([_w(two_pt, 0, id1_0), _w(two_pt, id2_1, 0)], dim=1)
     return _manifold(normal, count, anchors, seps, ids, p_a, q_a, p_b,
                      in_range, origin=origin)
+
+
+def collide_polygons(va, na, ca, ra, p_a, q_a, vb, nb, cb, rb, p_b,
+                     q_b) -> Manifold:
+    """One polygon pair (box2d_tpu/manifold.py:324, for one-off callers):
+    va/na (V, 2), ca and ra scalars, p_a/q_a (2,); the same for b. The
+    one-lane case of collide_polygons_batched; every field without the
+    pair axis."""
+    dev = va.device
+
+    def lane(x, dtype):
+        return torch.as_tensor(x, dtype=dtype, device=dev)[None]
+
+    f32, i32 = torch.float32, torch.int32
+    man = collide_polygons_batched(
+        lane(va, f32), lane(na, f32), lane(ca, i32), lane(ra, f32),
+        lane(p_a, f32), lane(q_a, f32), lane(vb, f32), lane(nb, f32),
+        lane(cb, i32), lane(rb, f32), lane(p_b, f32), lane(q_b, f32))
+    return Manifold(*(x[0] for x in man))
 
 
 def collide_polygons_batched(va, na, ca, ra, p_a, q_a,

@@ -222,6 +222,18 @@ class ParticleConfig(NamedTuple):
 # host-side builder
 # ---------------------------------------------------------------------------
 
+def calculate_reasonable_particle_iterations(gravity, radius, dt) -> int:
+    """LiquidFun's particle iteration count for a gravity (a scalar or a
+    vector), particle radius and time step: clamp(ceil(sqrt(g / (0.01 *
+    r)) * dt), 1, 8) (ref: api/Particle.cs:9-38, particle/Particle.cs:
+    87-93)."""
+    g = (float(abs(gravity)) if not hasattr(gravity, "__len__")
+         else float(math.hypot(*gravity)))
+    if radius <= 0 or dt <= 0:
+        return 1
+    return max(1, min(8, math.ceil(math.sqrt(g / (0.01 * radius)) * dt)))
+
+
 def fill_box(center, half_w, half_h, stride) -> np.ndarray:
     """Stride-grid points filling a box: the loop of the JAX package's
     native scene core (native/scene_core.cpp fill_box), which takes its

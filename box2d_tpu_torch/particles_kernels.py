@@ -39,10 +39,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import threading
 from typing import NamedTuple
 
 import torch
 
+from .counters import bump
 from .cuda_build import HERE, nvcc_build, twin
 
 B_BLK = 256
@@ -53,7 +55,8 @@ PH_WEIGHT, PH_PRESSURE, PH_DAMPING = 0, 1, 2
 INT32_MIN = -(1 << 31)
 INT32_MAX = (1 << 31) - 1
 
-# kernel launches made by the wrappers (the twins do not count)
+# kernel launches made by the wrappers (the twins do not count); exact
+# under threads (counters.bump)
 K3_LAUNCHES = 0
 K3_BATCHED_LAUNCHES = 0   # every batched launch, on either kernel
 K3_SMALL_LAUNCHES = 0     # the batched launches on the small-world kernel
@@ -62,14 +65,22 @@ K4_LAUNCHES = 0
 SOURCE = os.path.join(HERE, "csrc", "particles.cu")
 _LIB = None
 BUILD_SECONDS = None   # wall time of this process's nvcc build
+_LOCK = threading.Lock()   # held by the first build
 
 
 def build() -> ctypes.CDLL:
-    """Compile csrc/particles.cu for sm_90a into _build/ (once per process)
-    and load it (cuda_build.py). Raises if nvcc fails."""
+    """Compile csrc/particles.cu for sm_90a into _build/ (once per
+    process, whichever thread asks first) and load it (cuda_build.py).
+    Raises if nvcc fails."""
+    if _LIB is None:
+        with _LOCK:
+            if _LIB is None:
+                _build()
+    return _LIB
+
+
+def _build():
     global _LIB, BUILD_SECONDS
-    if _LIB is not None:
-        return _LIB
     lib, log, BUILD_SECONDS = nvcc_build(SOURCE, "particles")
     lib.b2t_particle_window.argtypes = [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -88,7 +99,6 @@ def build() -> ctypes.CDLL:
     lib.b2t_particle_rank.restype = ctypes.c_int
     lib.ptxas_log = log
     _LIB = lib
-    return lib
 
 
 def _check(name, dev, want):
@@ -125,7 +135,6 @@ def window_pass(pos, skey, alive, p0, p1, scalars, phase: int,
     tensor on the same device to which the 256-lane blocks that walked
     staged candidates (paths[0]) and global ones (paths[1]) are added
     (on the CPU, as k3_block_paths counts them)."""
-    global K3_LAUNCHES
     n = skey.shape[0]
     dev = pos.device
     f32 = torch.float32
@@ -156,7 +165,7 @@ def window_pass(pos, skey, alive, p0, p1, scalars, phase: int,
     if rc != 0:
         raise RuntimeError(f"window_pass kernel launch failed: cudaError {rc}")
     if n > 0:
-        K3_LAUNCHES += 1
+        bump(globals(), "K3_LAUNCHES")
     return out
 
 
@@ -224,7 +233,6 @@ def window_pass_batched(pos, skey, alive, p0, p1, scalars, phase: int,
     plan: the kernel, k3_batched_plan(n) unless given. paths counts the
     grid kernel's 256-lane blocks of all worlds by path (as window_pass's
     does): given without a plan, the launch takes the grid kernel."""
-    global K3_BATCHED_LAUNCHES, K3_SMALL_LAUNCHES
     n_w, n = skey.shape
     dev = pos.device
     f32 = torch.float32
@@ -271,8 +279,8 @@ def window_pass_batched(pos, skey, alive, p0, p1, scalars, phase: int,
         raise RuntimeError(f"window_pass_batched kernel launch failed "
                            f"({plan.path} kernel): cudaError {rc}")
     if n > 0 and n_w > 0:
-        K3_BATCHED_LAUNCHES += 1
-        K3_SMALL_LAUNCHES += plan.path == "small"
+        bump(globals(), "K3_BATCHED_LAUNCHES", *(
+            ("K3_SMALL_LAUNCHES",) if plan.path == "small" else ()))
     return out
 
 
@@ -453,7 +461,6 @@ def rank_pass(newkey, offs, rb: int):
     from rank_offsets. Returns (n,) i32 ranks: the inverse permutation of
     the stable argsort of newkey when rank_offsets' ok holds for every
     block and no key moved by more than one row and one column."""
-    global K4_LAUNCHES
     n = newkey.shape[0]
     dev = newkey.device
     n_blocks = -(-n // B_BLK)
@@ -473,7 +480,7 @@ def rank_pass(newkey, offs, rb: int):
     if rc != 0:
         raise RuntimeError(f"rank_pass kernel launch failed: cudaError {rc}")
     if n > 0:
-        K4_LAUNCHES += 1
+        bump(globals(), "K4_LAUNCHES")
     return out
 
 

@@ -3,9 +3,8 @@
 Copies of the box2d_tpu/types.py dataclasses that bodies, shapes, chains
 and joints need (ref: include/Types.cs — WorldDef :77-144, BodyDef
 :170-223, Filter :226-258, SurfaceMaterial :300-318, ShapeDef :307-344,
-ChainDef :359-376, joint defs :460-646). Defaults match the reference so
-scenes port 1:1. The explosion def comes with the slice that uses it
-(ROADMAP.md queue).
+ChainDef :359-376, QueryFilter :261-269, ExplosionDef :649-664, joint
+defs :460-646). Defaults match the reference so scenes port 1:1.
 """
 
 from __future__ import annotations
@@ -19,10 +18,10 @@ from .state import (DYNAMIC, JOINT_DISTANCE, JOINT_FILTER, JOINT_MOTOR,
                     JOINT_WHEEL, KINEMATIC, STATIC)
 
 __all__ = [
-    "WorldDef", "BodyDef", "Filter", "SurfaceMaterial", "ShapeDef",
-    "ChainDef", "DistanceJointDef", "MotorJointDef", "PrismaticJointDef",
-    "RevoluteJointDef", "WeldJointDef", "WheelJointDef", "FilterJointDef",
-    "MouseJointDef",
+    "WorldDef", "BodyDef", "Filter", "QueryFilter", "SurfaceMaterial",
+    "ShapeDef", "ChainDef", "ExplosionDef", "DistanceJointDef",
+    "MotorJointDef", "PrismaticJointDef", "RevoluteJointDef", "WeldJointDef",
+    "WheelJointDef", "FilterJointDef", "MouseJointDef",
     "STATIC", "KINEMATIC", "DYNAMIC",
 ]
 
@@ -80,6 +79,14 @@ class Filter:
 
 
 @dataclasses.dataclass
+class QueryFilter:
+    """ref: include/Types.cs:261-269."""
+
+    category_bits: int = 0x0001
+    mask_bits: int = 0xFFFFFFFF
+
+
+@dataclasses.dataclass
 class SurfaceMaterial:
     """ref: include/Types.cs:300-318."""
 
@@ -113,6 +120,17 @@ class ChainDef:
     filter: Filter = dataclasses.field(default_factory=Filter)
     is_loop: bool = False
     enable_sensor_events: bool = False
+
+
+@dataclasses.dataclass
+class ExplosionDef:
+    """ref: include/Types.cs:649-664."""
+
+    position: tuple = (0.0, 0.0)
+    radius: float = 1.0
+    falloff: float = 0.0
+    impulse_per_length: float = 0.0
+    mask_bits: int = 0xFFFFFFFF
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from .coloring import dense_remap, repair_colors
 from .contact_solver import (NA, NF, contact_solve, kernel_mode,
                              tail_window)
 from .continuous import continuous_pass
+from .counters import counting
 from .joints import (layout_joint_rows, prepare_joints, solvable_joint_types,
                      unpack_joint_acc)
 from .narrowphase import narrow_phase, update_cache
@@ -60,7 +61,11 @@ class StepStats:
     `syncs` counts them. `rounds` counts the rounds of the masked loops
     of box2d_tpu_torch.distance (GJK, cast, TOI outer, push-back, root
     finder) and of the solid groups' depth relaxation
-    (particles._relax_depth), and their device reads."""
+    (particles._relax_depth), and their device reads. `launches` counts
+    the kernel launches made in the step function's calls, by counter
+    ("contact_solver.LAUNCHES", ...; counters.counting): those of the
+    calling thread only, so shards stepping in several threads each
+    count their own."""
 
     LOOPS = ("gjk", "cast", "toi", "push", "root", "depth")
 
@@ -75,6 +80,7 @@ class StepStats:
         self.rank_repairs = 0
         self.full_sorts = 0
         self.rounds = dict.fromkeys(self.LOOPS + ("reads",), 0)
+        self.launches = {}
 
     def read(self, *tensors):
         """Read scalar tensors to Python ints in one transfer."""
@@ -131,10 +137,11 @@ class Step:
 
     def __call__(self, state: WorldState, dt,
                  light_events: bool = False) -> WorldState:
-        return _step(state, dt, self.capacity, self.classes, self.substeps,
-                     self.continuous, self.stats, light_events,
-                     self.joint_types, self.particle_cfg, self.sensor_ids,
-                     self.hooks)
+        with counting(self.stats.launches):
+            return _step(state, dt, self.capacity, self.classes,
+                         self.substeps, self.continuous, self.stats,
+                         light_events, self.joint_types, self.particle_cfg,
+                         self.sensor_ids, self.hooks)
 
 
 def make_step(capacity: Capacity, classes_present: frozenset,

@@ -144,6 +144,21 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (discrete results exact, floats 1e-5); (d) repeatability: the world
    step run twice from one state on the card, the distance between the
    two results, particles and the rest of the state, required 0.
+8. sharded batches (box2d_tpu_torch/multichip.py): dryrun_multichip on
+   every card and on cuda:0 twice; then 64 x pyramid-20 (K1 batched),
+   1,024 x joint_farm(1) (K2j batched) and 64 x dam_break(500) (K3
+   batched on the small kernel), each of perturbed worlds, 60 steps as
+   two shards on cuda:0 in two threads (make_sharded_step: a thread and
+   a stream a shard), as the same two shards one after the other in one
+   thread, and unsharded: every world equal bit for bit to the unsharded
+   batch, each shard's own launch counts exact (one solver launch a
+   rigid step, 12 K3 launches a step, nothing else) and summing to the
+   module counters, the 2-shard step's device work on the shards' two
+   streams and not the default one, with no cudaDeviceSynchronize (a
+   torch.profiler trace); steps/s, world-steps/s and the idle share of
+   each way, with the card's name and power limit; and the flat layout,
+   two shards of replicate(pyramid-20, 8) each equal bit for bit to its
+   world stepped alone.
 It then prints one JSON line describing the kernels (times beside their
 roofline bound), and as its last line {"ok": true, "device": {...}}. There
 is no CPU path: without a CUDA device it fails.
@@ -3419,6 +3434,407 @@ def _every_gate_tank():
     return {f"{tag} solver": n_solve, f"{tag} K3": k3, f"{tag} K4": k4}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: sharded batches
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 60
+SHARD_WARM = 3
+SHARDS = ("cuda:0",) * 2
+FLAT_SHARD_COPIES = 8      # replicate(pyramid(20), 8) a shard
+
+
+def phase_sharded():
+    """Batches of worlds sharded over a device list
+    (box2d_tpu_torch/multichip.py): the dry run on every card and on
+    cuda:0 twice; three batches and the flat layout as two shards on
+    cuda:0, each shard in its own thread and stream, bit for bit with the
+    unsharded batch (or the single-world step). Returns the launches."""
+    from box2d_tpu_torch import multichip as mc
+
+    t0 = time.perf_counter()
+    mc.dryrun_multichip(torch.cuda.device_count())
+    mc.dryrun_multichip(len(SHARDS), list(SHARDS))
+    smi = _smi()
+    profiler_syncs = _profiler_syncs()
+    launches = {}
+    for make in (_shard_pyramids, _shard_ragdolls, _shard_dam_breaks):
+        launches.update(_sharded_case(*make(), smi, profiler_syncs))
+    launches.update(_sharded_flat(smi, profiler_syncs))
+    print(f"[shard] phase 8 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+
+TRACE_PAD_S = 0.05      # host pause at each end of a _trace window
+
+
+def _trace(fn):
+    """fn() under torch.profiler, without a synchronize inside the
+    profile (fn must leave no work queued), between two host pauses of
+    TRACE_PAD_S, so that fn's device events lie well inside the window.
+    Returns ({CUDA stream id as the trace names it: kernels, copies and
+    memsets on it}, their summed device ms, the cudaDeviceSynchronize
+    calls)."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        fn()
+        time.sleep(TRACE_PAD_S)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    streams, us, device_syncs = {}, 0.0, 0
+    for e in events:
+        cat = e.get("cat")
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            s = e.get("args", {}).get("stream")
+            streams[s] = streams.get(s, 0) + 1
+            us += float(e.get("dur", 0.0))
+        elif cat == "cuda_runtime" and e.get("name") == \
+                "cudaDeviceSynchronize":
+            device_syncs += 1
+    return streams, us / 1e3, device_syncs
+
+
+def _profiler_syncs():
+    """The cudaDeviceSynchronize calls _trace sees of an empty function:
+    the profiler's own (its exit synchronizes the device)."""
+    return _trace(lambda: None)[2]
+
+
+def _same_bits(tag, got, want):
+    """Every leaf of two states equal bit for bit (raises otherwise)."""
+    from box2d_tpu_torch.state import state_to_numpy
+
+    a, b = state_to_numpy(got), state_to_numpy(want)
+    assert sorted(a) == sorted(b), tag
+    for key, v in b.items():
+        assert a[key].shape == v.shape and a[key].tobytes() == v.tobytes(), (
+            f"{tag}: {key} differs from the unsharded run")
+
+
+def _shard_pyramids():
+    """Phase 6's 64 x pyramid-20 (K1 batched), each world perturbed."""
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    state, cap, classes, _ = _batch_setup(BATCH_ROWS)
+    batch = state_from_numpy(perturbed_leaves(
+        state_to_numpy(state), BATCH_WORLDS, seed=21,
+        kick=(BATCH_WORLDS - 1, 5, (2.0, 1.0))), "cuda")
+    return (f"{BATCH_WORLDS} x pyramid-{BATCH_ROWS}", batch, cap, classes,
+            dict())
+
+
+def _shard_ragdolls():
+    """(f)'s 1,024 x joint_farm(1) (K2j batched), each world perturbed."""
+    import dataclasses
+
+    from box2d_tpu_torch import scenes
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    w = scenes.joint_farm(ragdolls=1, device="cuda")
+    state, cap = w.builder.build(device="cuda")
+    cap = dataclasses.replace(cap, batched=True)
+    classes, jtypes, sensors = _batch_statics(w.builder)
+    batch = state_from_numpy(perturbed_leaves(
+        state_to_numpy(state), RL_BIG_WORLDS, seed=22,
+        kick=(1, 1, (1.0, 2.0))), "cuda")
+    return (f"{RL_BIG_WORLDS} x joint_farm(1)", batch, cap, classes,
+            dict(continuous=w.builder.def_.enable_continuous,
+                 joint_types=jtypes, sensor_ids=sensors))
+
+
+def _shard_dam_breaks():
+    """(h)'s 64 x dam_break-500 (K3 batched on the small kernel), each
+    world perturbed as phase 6 perturbs it."""
+    from box2d_tpu_torch import scenes
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    n_w, n, _ = VPART[0]
+    w = scenes.dam_break(n, device="cuda")
+    w.compile()
+    batch = state_from_numpy(perturbed_leaves(
+        state_to_numpy(w.state), n_w, seed=23, particle_jitter=0.005,
+        param_spread=VPART_SPREAD / n_w), "cuda")
+    return (f"{n_w} x dam_break-{n}", batch, w.capacity, w._classes,
+            dict(continuous=w._step.continuous,
+                 particle_cfg=w._step.particle_cfg))
+
+
+# the module launch counters of the port's kernel wrappers
+LAUNCH_COUNTERS = {
+    "contact_solver": ("LAUNCHES", "JOINT_LAUNCHES", "BATCHED_LAUNCHES",
+                       "BATCHED_JOINT_LAUNCHES", "SMALL_LAUNCHES"),
+    "particles_kernels": ("K3_LAUNCHES", "K3_BATCHED_LAUNCHES",
+                          "K3_SMALL_LAUNCHES", "K4_LAUNCHES")}
+
+
+def _counter_modules():
+    import importlib
+
+    return [(importlib.import_module(f"box2d_tpu_torch.{m}"), m, names)
+            for m, names in LAUNCH_COUNTERS.items()]
+
+
+def _reset_counts():
+    for mod, _, names in _counter_modules():
+        for name in names:
+            setattr(mod, name, 0)
+
+
+def _read_counts():
+    """The module counters as {"<module>.<name>": n}, the keys of a step's
+    stats.launches."""
+    return {f"{m}.{name}": getattr(mod, name)
+            for mod, m, names in _counter_modules() for name in names}
+
+
+def _timed(fn, steps):
+    """fn() `steps` times, ended by a synchronize: wall seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _rate_note(label, wall, n_w, busy_ms):
+    ms = 1e3 * wall / SHARD_STEPS
+    sps = SHARD_STEPS / wall
+    idle = (f"{100 * max(0.0, 1 - busy_ms / ms):.1f}%" if busy_ms
+            else "not measured")
+    return (f"{label}: {sps:.2f} steps/s, {sps * n_w:.1f} world-steps/s "
+            f"({ms:.3f} ms a step, device busy {busy_ms:.3f} ms of it, "
+            f"idle {idle})"), sps
+
+
+def _shard_launches(st, kw):
+    """The launches shard stats `st` must hold after SHARD_STEPS steps of a
+    batch stepped with make_batched_step's keywords kw: one solver launch
+    a rigid step on the small-world kernel (with the joint regions where
+    the worlds have joints) and, with particles, 12 K3 batched launches a
+    step on the small kernel; nothing else."""
+    rigid = st.steps - st.idle_steps
+    want = {"contact_solver.BATCHED_LAUNCHES": rigid,
+            "contact_solver.SMALL_LAUNCHES": rigid}
+    if kw.get("joint_types"):
+        want["contact_solver.BATCHED_JOINT_LAUNCHES"] = rigid
+    if kw.get("particle_cfg") is not None:
+        want["particles_kernels.K3_BATCHED_LAUNCHES"] = 12 * SHARD_STEPS
+        want["particles_kernels.K3_SMALL_LAUNCHES"] = 12 * SHARD_STEPS
+    return rigid, want
+
+
+def _check_totals(tag, totals, stats):
+    """The module counters (read after a threaded run that began with them
+    at 0) sum the shards' own counts, counter by counter."""
+    for name in set(totals).union(*(st.launches for st in stats)):
+        got = totals.get(name, 0)
+        parts = [st.launches.get(name, 0) for st in stats]
+        assert got == sum(parts), (
+            f"{tag}: module counter {name} {got}, the shards' {parts}")
+
+
+def _check_streams(tag, trace, main_streams, profiler_syncs):
+    """The 2-shard step's device work (its _trace) ran on the shards' own
+    streams, one a shard, none of them a stream this thread's own traced
+    work ran on (main_streams: the default stream), and the step made no
+    cudaDeviceSynchronize beyond the profiler's own. Returns (the
+    streams, busy ms)."""
+    streams, busy, device_syncs = trace
+    assert main_streams, (
+        f"{tag}: the traces of this thread's steps hold no device event")
+    assert len(streams) == len(SHARDS) and not set(streams) & main_streams, (
+        f"{tag}: the 2-shard step's device work ran on streams {streams} "
+        f"(this thread's work on {sorted(main_streams)})")
+    assert device_syncs == profiler_syncs, (
+        f"{tag}: {device_syncs - profiler_syncs} cudaDeviceSynchronize "
+        f"calls in a step")
+    return streams, busy
+
+
+def _sharded_case(tag, batch, cap, classes, kw, smi, profiler_syncs):
+    """One batch three ways, SHARD_STEPS steps each after a warm run: the
+    unsharded batched step; two shards on SHARDS, each in its own thread
+    (make_sharded_step); the same two shards one after the other in this
+    thread. The sharded runs equal the unsharded one bit for bit, every
+    world; each shard's own counts hold the launches _shard_launches
+    names and no other, and the module counters sum the shards'; the
+    2-shard step's device work runs on the shards' two streams, not on
+    the default one, with no cudaDeviceSynchronize."""
+    from box2d_tpu_torch import multichip as mc
+    from box2d_tpu_torch import world
+
+    n_w = batch.bodies.center.shape[0]
+    substeps = 4
+    continuous = kw.pop("continuous", True)
+    dt = 1 / 60
+
+    def make():
+        return world.make_batched_step(cap, classes, substeps, continuous,
+                                       **kw)
+
+    # the unsharded batch
+    bstep = make()
+    b = batch
+    for _ in range(SHARD_WARM):
+        b = bstep(b, dt)
+    bstep = make()
+    box = [batch]
+
+    def whole_step():
+        box[0] = bstep(box[0], dt)
+
+    _reset_counts()
+    wall_whole = _timed(whole_step, SHARD_STEPS)
+    whole = box[0]
+    main_streams, busy_whole, _ = _trace(lambda: (bstep(whole, dt),
+                                                  torch.cuda.synchronize()))
+
+    with mc.make_sharded_step(cap, classes, list(SHARDS), substeps,
+                              continuous, **kw) as sharded:
+        shards0 = mc.shard_batch(batch, list(SHARDS))
+        s = shards0
+        for _ in range(SHARD_WARM):
+            s = sharded(s, dt)
+        for st in sharded.steps:
+            st.stats = type(st.stats)()
+        box = [shards0]
+
+        def threaded_step():
+            box[0] = sharded(box[0], dt)
+
+        _reset_counts()
+        wall_threads = _timed(threaded_step, SHARD_STEPS)
+        totals = _read_counts()
+        out = box[0]
+        stats = [st.stats for st in sharded.steps]
+        per = {k: dict(sorted(st.launches.items()))
+               for k, st in enumerate(stats)}
+        _same_bits(f"{tag} 2 shards in threads",
+                   mc.gather_batch(out, "cuda"), whole)
+        for k, st in enumerate(stats):
+            rigid, want = _shard_launches(st, kw)
+            assert st.steps == SHARD_STEPS and rigid > 0, (tag, k)
+            assert st.launches == want and st.solver_launches == rigid, (
+                f"{tag} shard {k}: launches {st.launches}, want {want}")
+        _check_totals(tag, totals, stats)
+        threaded = _trace(lambda: sharded(out, dt))
+
+        # the same two shards one after the other, in this thread
+        box = [shards0]
+
+        def serial_step():
+            box[0] = [st(x, dt) for st, x in zip(sharded.steps, box[0])]
+
+        wall_serial = _timed(serial_step, SHARD_STEPS)
+        _same_bits(f"{tag} 2 shards in one thread",
+                   mc.gather_batch(box[0], "cuda"), whole)
+        serial_streams, busy_serial, _ = _trace(
+            lambda: (serial_step(), torch.cuda.synchronize()))
+    main = set(main_streams) | set(serial_streams)
+    streams, busy_threads = _check_streams(tag, threaded, main,
+                                           profiler_syncs)
+    notes, rates = zip(*(
+        _rate_note(label, wall, n_w, busy) for label, wall, busy in (
+            ("2 shards in 2 threads", wall_threads, busy_threads),
+            ("the same 2 shards in one thread", wall_serial, busy_serial),
+            ("unsharded", wall_whole, busy_whole))))
+    print(f"[shard] {tag} as {len(SHARDS)} shards on {SHARDS[0]} ({smi}), "
+          f"{SHARD_STEPS} steps from spawn after a warm run of "
+          f"{SHARD_WARM}: every world equal bit for bit to the unsharded "
+          f"batch (threads and one thread); " + "; ".join(notes)
+          + f"; 2 shards in threads against unsharded "
+          f"{rates[0] / rates[2]:.3f}x, against one thread "
+          f"{rates[0] / rates[1]:.3f}x; each shard's launches {per}; "
+          f"the 2-shard step's device work on streams {streams} "
+          f"(this thread's, the default: {sorted(main)}), no "
+          f"cudaDeviceSynchronize")
+    return {f"{tag} sharded {k}": v for k, v in per.items()}
+
+
+def _sharded_flat(smi, profiler_syncs):
+    """The flat layout: two shards of replicate(pyramid(20), 8), the
+    second's copies kicked apart, each stepped by the single-world step in
+    its own thread, each equal bit for bit to that world stepped alone."""
+    from box2d_tpu_torch import multichip as mc
+    from box2d_tpu_torch import scenes, world
+    from box2d_tpu_torch.narrowphase import classes_for_shape_types
+    from box2d_tpu_torch.state import state_from_numpy, state_to_numpy
+
+    tag = f"{len(SHARDS)} x replicate(pyramid-{BATCH_ROWS}, " \
+          f"{FLAT_SHARD_COPIES}) flat"
+    w = scenes.replicate(scenes.pyramid(rows=BATCH_ROWS, device="cuda"),
+                         FLAT_SHARD_COPIES)
+    state, cap = w.builder.build(device="cuda")
+    classes = classes_for_shape_types(s["geom"].type for s in
+                                      w.builder._shapes)
+    leaves = perturbed_leaves(state_to_numpy(state), len(SHARDS), seed=24,
+                              kick=(1, 5, (2.0, 1.0)))
+    batch = state_from_numpy(leaves, "cuda")
+    dt = 1 / 60
+    with mc.make_sharded_step(cap, classes, list(SHARDS),
+                              layout="flat") as sharded:
+        box = [mc.shard_batch(batch, list(SHARDS))]
+
+        def threaded_step():
+            box[0] = sharded(box[0], dt)
+
+        _reset_counts()
+        wall = _timed(threaded_step, SHARD_STEPS)
+        totals = _read_counts()
+        stats = [st.stats for st in sharded.steps]
+        out = box[0]
+        for k, st in enumerate(stats):
+            rigid = st.steps - st.idle_steps
+            assert st.launches == {"contact_solver.LAUNCHES": rigid} and \
+                rigid > 0, f"{tag} shard {k}: {st.launches}, rigid {rigid}"
+        _check_totals(tag, totals, stats)
+        per = [dict(st.launches) for st in stats]
+        threaded = _trace(lambda: sharded(out, dt))
+        mode = sharded.steps[0].mode
+    main = set()
+    for k in range(len(SHARDS)):
+        alone = world.make_step(cap, classes, 4, True)
+        x = state_from_numpy({key: v[k] for key, v in leaves.items()},
+                             "cuda")
+        for _ in range(SHARD_STEPS - 1):
+            x = alone(x, dt)
+        last = []    # the last step traced: this thread's stream
+        main |= set(_trace(lambda: (last.append(alone(x, dt)),
+                                    torch.cuda.synchronize()))[0])
+        x = last[0]
+        _same_bits(f"{tag} shard {k}",
+                   state_from_numpy({key: v[0] for key, v in
+                                     state_to_numpy(out[k]).items()},
+                                    "cuda"), x)
+    streams, busy = _check_streams(tag, threaded, main, profiler_syncs)
+    n_dyn = int((state.bodies.type == 2).sum())
+    note, _ = _rate_note("2 shards in 2 threads", wall, len(SHARDS), busy)
+    print(f"[shard] {tag} ({smi}): {n_dyn} dynamic bodies a shard, kernel "
+          f"mode {mode}; {SHARD_STEPS} steps: each shard equal bit for bit "
+          f"to its world stepped alone by the single-world step; {note} "
+          f"(a world-step here is one flat world of {FLAT_SHARD_COPIES} "
+          f"copies); each shard's launches {per}; device work on streams "
+          f"{streams} (this thread's, the default: {sorted(main)})")
+    return {f"{tag} sharded {k}": p for k, p in enumerate(per)}
+
+
 def main():
     t_start = time.perf_counter()
     phase_device()
@@ -3440,6 +3856,8 @@ def main():
     group_launches = phase_particle_groups()
     print(f"[main] kernel launches on the particle-group paths: "
           f"{group_launches}")
+    shard_launches = phase_sharded()
+    print(f"[main] kernel launches on the sharded paths: {shard_launches}")
     big = kern[(140, WARM_STEPS)]
     small = kern[(20, WARM_STEPS)]
     farm = jkern["joint_farm-1000"]

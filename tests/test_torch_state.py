@@ -101,7 +101,8 @@ def test_import_loads_no_jax():
             "box2d_tpu_torch.scenes, box2d_tpu_torch.particles, "
             "box2d_tpu_torch.particles_kernels, box2d_tpu_torch.queries, "
             "box2d_tpu_torch.validate, box2d_tpu_torch.draw, "
-            "box2d_tpu_torch.batch, box2d_tpu_torch.world; "
+            "box2d_tpu_torch.batch, box2d_tpu_torch.world, "
+            "box2d_tpu_torch.multichip; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'box2d_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
